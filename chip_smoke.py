@@ -15,7 +15,24 @@ Phases, each of which exits non-zero when it fails:
    plane-resident) on 65,536 rows, each held to the numpy oracle at
    ORACLE_ATOL; every kernel's launch count over that run must be > 0;
 5. the same at 4,096 rows on a forest with a finite missing sentinel, early
-   leaves and AVG|SIGMOID|THRESHOLD output.
+   leaves and AVG|SIGMOID|THRESHOLD output;
+6. wide: cup98-class (150 trees, depth 8, 479 columns, 300 live) through
+   SPLIT_FOREST from Forest.from_files, on kernel C's sign form, which is
+   held to its plain version;
+7. deep: deep15-class (30 trees, depth 15, 16 features) through
+   SPLIT_FOREST on the deep kernel, held to its plain version on 4,096 rows;
+   then kernel C against the deep kernel at deep12-class (100, 12, 28),
+   where both run;
+8. VMEM_FOREST: stumps-class (800 trees, depth 3, 10 features), the whole
+   forest in one shared-memory tile of kernel C;
+9. DEPTH_BUCKETED: its rank variant on trained_mix-class (300 trees, depths
+   6-12, 26 features; kernels A and B) and its fold variant on a mixed-depth
+   forest of 90 columns (kernel C's non-ge form, held to its plain version).
+
+Phases 6-9 run 65,536 rows each against the numpy oracle at ORACLE_ATOL,
+with every kernel count set to 0 just before the path and read just after:
+the path must launch exactly its own kernels. Every path is timed in
+us/sample with CUDA events.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -59,11 +76,15 @@ def main() -> int:
 
     import numpy as np
 
-    from tahoe_tpu_torch import ORACLE_ATOL, Forest, Output, Strategy
+    from tahoe_tpu_torch import ORACLE_ATOL, Forest, GpuLimits, Output, Strategy
     from tahoe_tpu_torch.forest import io, quantize, synthetic
     from tahoe_tpu_torch.ops import _build
+    from tahoe_tpu_torch.ops.bucketed import (
+        DepthBucketedFoldEngine, DepthBucketedRankEngine)
     from tahoe_tpu_torch.ops.fold_kernel import (
-        FOLD, FoldKernelEngine, fold_margins_cuda, fold_margins_plain)
+        FOLD, FOLD_DEEP, FOLD_NONGE, FOLD_SIGN, FoldKernelEngine, deep_launch,
+        deep_nodes, fold_deep_cuda, fold_launch, fold_margins_cuda,
+        fold_margins_plain)
     from tahoe_tpu_torch.ops.rank_kernel import (
         RANK_FOLD, RankFoldEngine, rank_margins_cuda, rank_margins_plain)
     from tahoe_tpu_torch.ops.rank_transform import (
@@ -74,6 +95,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kernels = {"rank_transform": RANK_PLANES, "rank_fold": RANK_FOLD,
                "fold": FOLD}
+    all_kernels = {**kernels, "fold_sign": FOLD_SIGN, "fold_nonge": FOLD_NONGE,
+                   "fold_deep": FOLD_DEEP}
 
     # -- 1. device --------------------------------------------------------
     card = card_line(torch)
@@ -209,12 +232,185 @@ def main() -> int:
     if not 0 < want.mean() < 1:
         fail("[5] the thresholded oracle output is constant: no check made")
 
+    # -- 6-9: the other fold paths ------------------------------------------
+    def run_path(tag, f, strategy, rows_np, want, expected):
+        """One predict through the facade with every count set to 0 before
+        it; exactly the ``expected`` kernels must launch. Then the output
+        against the oracle, and its time."""
+        rows_d = torch.as_tensor(rows_np, device=dev)
+        for k in all_kernels.values():
+            k.launches = 0
+        pred = f.predict(rows_d, strategy)
+        torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in all_kernels.items()}
+        if {n for n, c in counts.items() if c} != set(expected):
+            fail(f"[{tag}] {strategy.name} launched {counts}, expected "
+                 f"exactly {sorted(expected)}")
+        got = pred.cpu().numpy()
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"[{tag}] {strategy.name}: shape {got.shape} or non-finite output")
+        err = float(np.abs(got - want).max())
+        if err > ORACLE_ATOL:
+            fail(f"[{tag}] {strategy.name}: max |pred - oracle| {err} > {ORACLE_ATOL}")
+        us = cuda_median_ms(lambda: f.predict(rows_d, strategy)) * 1e3 / len(rows_np)
+        print(f"[{tag}] {strategy.name}: max |pred - oracle| {err} (tolerance "
+              f"{ORACLE_ATOL}), {us:.6f} us/sample over {len(rows_np)} rows, "
+              f"launches {counts} ({card})")
+        return counts
+
+    def hold(tag, name, kernel_fn, plain_fn, timed_kernel=None, timed_plain=None):
+        """A kernel against its plain version on the same inputs; both
+        median times."""
+        k_out, p_out = kernel_fn(), plain_fn()
+        err = float((k_out - p_out).abs().max())
+        if not (torch.isfinite(k_out).all() and err <= KERNEL_ATOL):
+            fail(f"[{tag}] {name} differs from its plain version by {err}")
+        ms = cuda_median_ms(timed_kernel or kernel_fn)
+        plain_ms = cuda_median_ms(timed_plain or plain_fn, warmup=1, iters=3)
+        print(f"[{tag}] {name}: max |kernel - plain| {err} (tolerance "
+              f"{KERNEL_ATOL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+        return err, ms, plain_ms
+
+    # 6. wide, cup98-class: the sign form
+    wide = synthetic.generate_forest(150, 8, 479, active_cols=300, seed=1)
+    wide_rows = synthetic.generate_data(ROWS, 479, missing_prob=0.02, seed=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the data file's header gives num_cols and the sentinel; 1,024 rows
+        # keep the text file small, and round-trip exactly
+        model_path = os.path.join(tmp, "model.txt")
+        data_path = os.path.join(tmp, "data.txt")
+        io.save_model(model_path, wide)
+        io.save_data(data_path, wide_rows[:1024], float("nan"))
+        f = Forest.from_files(model_path, data_path, device="cuda")
+        head, _ = io.load_data(data_path)
+    if not np.array_equal(head, wide_rows[:1024], equal_nan=True):
+        fail("[6] the data file does not round-trip")
+    eng = f.engine(Strategy.SPLIT_FOREST)
+    if eng.kernel is not FOLD_SIGN:
+        fail(f"[6] cup98-class runs {eng.kernel.symbol}, not the sign form")
+    t, x = eng.tables, eng.canonicalize(torch.as_tensor(wide_rows, device=dev))
+    print(f"[6] {t.num_cols} live features, {eng.launch}")
+    record["fold_sign"] = hold(
+        "6", "fold_sign",
+        lambda: fold_margins_cuda(x, t.thresholds, t.fids, t.leaf, t.depth,
+                                  eng.launch, "sign"),
+        lambda: fold_margins_plain(x, t.thresholds, t.fids, t.leaf, t.depth,
+                                   "sign"))
+    # the deep kernel takes the sign form too: the same margins, its time
+    d_launch = deep_launch(t.width, GpuLimits.for_device(dev))
+    nodes = deep_nodes(t.thresholds, t.fids)
+    deep_fn = lambda: fold_deep_cuda(x, nodes, t.leaf, t.depth,  # noqa: E731
+                                     d_launch, "sign")
+    err = float((deep_fn() - fold_margins_cuda(
+        x, t.thresholds, t.fids, t.leaf, t.depth, eng.launch, "sign")).abs().max())
+    if err > KERNEL_ATOL:
+        fail(f"[6] the deep kernel and kernel C differ by {err} on the sign form")
+    print(f"[6] the deep kernel on the same tables: {cuda_median_ms(deep_fn):.4f} "
+          f"ms ({d_launch}), max |deep - C| {err} ({card})")
+    counts = run_path("6", f, Strategy.SPLIT_FOREST, wide_rows,
+                      f.predict_oracle(wide_rows), {"fold_sign"})
+    launches["fold_sign"] = counts["fold_sign"]
+    del f, eng, x, nodes
+
+    # 7. deep15-class on the deep kernel; kernel C against it at depth 12
+    deep = synthetic.generate_forest(30, 15, 16, seed=1)
+    deep_rows = synthetic.generate_data(ROWS, 16, missing_prob=0.02, seed=5)
+    f = Forest(deep, device="cuda")
+    eng = f.engine(Strategy.SPLIT_FOREST)
+    if eng.kernel is not FOLD_DEEP:
+        fail(f"[7] deep15-class runs {eng.kernel.symbol}, not the deep kernel")
+    t, x = eng.tables, eng.canonicalize(torch.as_tensor(deep_rows, device=dev))
+    xs = x[:EDGE_ROWS]
+    print(f"[7] {eng.launch}")
+    record["fold_deep"] = hold(
+        "7", "fold_deep (4,096-row check; times over 65,536 rows)",
+        lambda: fold_deep_cuda(xs, eng.nodes, t.leaf, t.depth, eng.launch),
+        lambda: fold_margins_plain(xs, t.thresholds, t.fids, t.leaf, t.depth),
+        lambda: fold_deep_cuda(x, eng.nodes, t.leaf, t.depth, eng.launch),
+        lambda: fold_margins_plain(x, t.thresholds, t.fids, t.leaf, t.depth))
+    counts = run_path("7", f, Strategy.SPLIT_FOREST, deep_rows,
+                      f.predict_oracle(deep_rows), {"fold_deep"})
+    launches["fold_deep"] = counts["fold_deep"]
+    del f, eng, x, xs
+
+    d12 = FoldKernelEngine(synthetic.generate_forest(100, 12, 28, seed=1),
+                           device=dev)
+    t = d12.tables
+    x = d12.canonicalize(torch.as_tensor(
+        synthetic.generate_data(ROWS, 28, missing_prob=0.01, seed=6), device=dev))
+    c_launch = fold_launch(t.width, t.depth, d12.num_trees, GpuLimits.for_device(dev))
+    c_fn = lambda: fold_margins_cuda(x, t.thresholds, t.fids, t.leaf,  # noqa: E731
+                                     t.depth, c_launch)
+    deep_fn = lambda: fold_deep_cuda(x, d12.nodes, t.leaf, t.depth,  # noqa: E731
+                                     d12.launch)
+    err = float((c_fn() - deep_fn()).abs().max())
+    if err > KERNEL_ATOL:
+        fail(f"[7] kernel C and the deep kernel differ by {err} at depth 12")
+    print(f"[7] deep12-class, 65,536 rows: kernel C {cuda_median_ms(c_fn):.4f} ms "
+          f"({c_launch}), deep kernel {cuda_median_ms(deep_fn):.4f} ms "
+          f"({d12.launch}), max |C - deep| {err} ({card})")
+    del d12, x
+
+    # 8. VMEM_FOREST, stumps-class: the whole forest in one tile
+    stumps = synthetic.generate_forest(800, 3, 10, seed=1)
+    stump_rows = synthetic.generate_data(ROWS, 10, missing_prob=0.05, seed=7)
+    f = Forest(stumps, device="cuda")
+    eng = f.engine(Strategy.VMEM_FOREST)
+    if eng.kernel is not FOLD or eng.launch.tile_trees != 800:
+        fail(f"[8] VMEM_FOREST runs {eng.kernel.symbol} with {eng.launch}")
+    print(f"[8] {eng.launch}; SPLIT_FOREST {f.engine(Strategy.SPLIT_FOREST).launch}")
+    want = f.predict_oracle(stump_rows)
+    run_path("8", f, Strategy.VMEM_FOREST, stump_rows, want, {"fold"})
+    run_path("8", f, Strategy.SPLIT_FOREST, stump_rows, want, {"fold"})
+    del f, eng
+
+    # 9. DEPTH_BUCKETED: rank variant, then the fold variant in non-ge form
+    mix = synthetic.generate_mixed_depth_forest(300, 12, 26, seed=1)
+    mix_rows = synthetic.generate_data(ROWS, 26, missing_prob=0.01, seed=8)
+    f = Forest(mix, device="cuda")
+    eng = f.engine(Strategy.DEPTH_BUCKETED)
+    if not isinstance(eng, DepthBucketedRankEngine):
+        fail(f"[9] trained_mix-class takes {type(eng).__name__}, not the rank variant")
+    print(f"[9] rank variant buckets (trees, depth): {eng.bucket_plan}")
+    want = f.predict_oracle(mix_rows)
+    run_path("9", f, Strategy.DEPTH_BUCKETED, mix_rows, want,
+             {"rank_transform", "rank_fold"})
+    run_path("9", f, Strategy.RANK_MXU, mix_rows, want,
+             {"rank_transform", "rank_fold"})
+    del f, eng
+
+    mix90 = synthetic.generate_mixed_depth_forest(120, 10, 90, seed=1)
+    mix90_rows = synthetic.generate_data(ROWS, 90, missing_prob=0.02, seed=9)
+    f = Forest(mix90, device="cuda")
+    eng = f.engine(Strategy.DEPTH_BUCKETED)
+    if not (isinstance(eng, DepthBucketedFoldEngine)
+            and all(e.kernel is FOLD_NONGE for e in eng.sub)):
+        fail(f"[9] the 90-column forest takes {type(eng).__name__}, not the "
+             f"non-ge fold variant")
+    print(f"[9] fold variant buckets (trees, depth): {eng.bucket_plan}, "
+          f"launches {[e.launch for e in eng.sub]}")
+    x = eng.sub[0].canonicalize(torch.as_tensor(mix90_rows, device=dev))
+    per_bucket = [hold(
+        "9", f"fold_nonge, bucket of depth {e.depth}",
+        lambda e=e: fold_margins_cuda(x, e.tables.thresholds, e.tables.fids,
+                                      e.tables.leaf, e.depth, e.launch, "nonge"),
+        lambda e=e: fold_margins_plain(x, e.tables.thresholds, e.tables.fids,
+                                       e.tables.leaf, e.depth, "nonge"))
+        for e in eng.sub]
+    record["fold_nonge"] = (max(r[0] for r in per_bucket),
+                            sum(r[1] for r in per_bucket),
+                            sum(r[2] for r in per_bucket))
+    counts = run_path("9", f, Strategy.DEPTH_BUCKETED, mix90_rows,
+                      f.predict_oracle(mix90_rows), {"fold_nonge"})
+    launches["fold_nonge"] = counts["fold_nonge"]
+    del f, eng, x
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[name],
          "max_abs_err": record[name][0], "ms": record[name][1],
          "plain_ms": record[name][2]}
-        for name, k in kernels.items()]}))
+        for name, k in all_kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

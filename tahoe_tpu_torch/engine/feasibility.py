@@ -1,33 +1,43 @@
 """Per-strategy feasibility predicates for the ported strategies.
 
-The counterpart of tahoe_tpu/engine/feasibility.py for SPLIT_FOREST and
-RANK_MXU: where the TPU engines check VMEM budgets, the CUDA kernels check
-feature caps and shared memory per block (GpuLimits).
+The counterpart of tahoe_tpu/engine/feasibility.py for SPLIT_FOREST,
+VMEM_FOREST, DEPTH_BUCKETED and RANK_MXU: where the TPU engines check VMEM
+budgets and compile walls, the CUDA kernels check feature caps, the dense
+depth cap and shared memory per block (GpuLimits).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 from tahoe_tpu.forest.compiler import (
     RANK_MAX,
     RANK_MAX_COLS,
-    compact_leveled,
-    levelize,
+    rank_groups,
+    reachable_depths,
     reachable_mask,
 )
 from tahoe_tpu.forest.spec import ForestSpec
 from tahoe_tpu_torch.config import GpuLimits, Strategy
-from tahoe_tpu_torch.ops.fold_kernel import MAX_DUAL_COLS, fold_launch
+from tahoe_tpu_torch.ops.fold_kernel import (
+    MAX_DENSE_DEPTH,
+    MAX_DUAL_COLS,
+    MAX_NONGE_COLS,
+    MAX_SIGN_COLS,
+    fold_launch,
+    fold_leveled,
+    fold_plan,
+    row_width,
+)
 
 
-def fold_live_cols(forest: ForestSpec) -> int:
-    """Live features the ge dual-lane fold carries, compacted exactly as
-    fold_kernel.fold_tables compacts them."""
-    if forest.num_cols > MAX_DUAL_COLS:
-        return compact_leveled(levelize(forest))[0].num_cols
-    return forest.num_cols
+def fold_cols(forest: ForestSpec) -> Tuple[int, str]:
+    """(live features, form) of the ge fold, compacted and chosen exactly
+    as fold_kernel.fold_tables does (feasibility.py:20-31 of the JAX
+    package): "dual" up to 64 live features, "sign" above."""
+    lev, _, form = fold_leveled(forest)
+    return lev.num_cols, form
 
 
 def rank_virtual_cols(forest: ForestSpec) -> int:
@@ -46,17 +56,72 @@ def rank_virtual_cols(forest: ForestSpec) -> int:
     return int(sum(max(1, -(-int(k[ff]) // RANK_MAX)) for ff in np.unique(fs)))
 
 
+def rank_buckets_fit(forest: ForestSpec) -> bool:
+    """Whether DEPTH_BUCKETED takes its rank variant: one or two plane
+    groups (bucketed.py:292-295 of the JAX package)."""
+    if forest.num_cols > RANK_MAX_COLS:
+        return False
+    vcols = rank_virtual_cols(forest)
+    return vcols <= RANK_MAX_COLS and rank_groups(vcols) <= 2
+
+
+def _depth_reason(depth: int) -> Optional[str]:
+    if depth > MAX_DENSE_DEPTH:
+        return (f"dense fold tables stop at depth {MAX_DENSE_DEPTH}, forest "
+                f"has depth {depth} (SPARSE's range, ROADMAP Queue 1 item 7)")
+    return None
+
+
+def _fold_reason(strategy: Strategy, forest: ForestSpec,
+                 limits: GpuLimits) -> Optional[str]:
+    reason = _depth_reason(forest.depth)
+    if reason:
+        return reason
+    cols, form = fold_cols(forest)
+    if cols > MAX_SIGN_COLS:
+        return (f"fold kernels take <= {MAX_SIGN_COLS} live features, forest "
+                f"has {cols}")
+    width = row_width(form, cols)
+    whole = strategy == Strategy.VMEM_FOREST
+    if fold_plan(form, width, forest.depth, forest.num_trees, limits,
+                 whole_forest=whole) is None:
+        what = ("the whole forest's node tables and a 32-row block" if whole
+                else f"a 32-row block of {width}-wide rows")
+        return (f"{what} do not fit {limits.smem_per_block} bytes of shared "
+                f"memory per block")
+    return None
+
+
+def _bucketed_reason(forest: ForestSpec, limits: GpuLimits) -> Optional[str]:
+    reason = _depth_reason(forest.depth)
+    if reason:
+        return reason
+    depths = reachable_depths(forest)
+    if np.unique(depths).size < 2:
+        return "uniform tree depth — identical work to SPLIT_FOREST"
+    if rank_buckets_fit(forest):
+        return None
+    if forest.num_cols > MAX_NONGE_COLS:
+        return (f"rank variant needs <= 2 plane groups and the fold variant "
+                f"<= {MAX_NONGE_COLS} columns; forest has {forest.num_cols}")
+    if forest.num_cols > MAX_DUAL_COLS:
+        # the non-ge form runs on kernel C alone: the deepest bucket's trees
+        # must fit its shared-memory tiles
+        d = int(depths.max())
+        if fold_launch(forest.num_cols, d, 1, limits) is None:
+            return (f"non-ge fold: one depth-{d} tree's node tables and a "
+                    f"32-row block do not fit {limits.smem_per_block} bytes "
+                    f"of shared memory per block")
+    return None
+
+
 def check(strategy: Strategy, forest: ForestSpec,
           limits: GpuLimits = GpuLimits()) -> Optional[str]:
     """None if the strategy's kernels take ``forest``, else the reason."""
-    if strategy == Strategy.SPLIT_FOREST:
-        cols = fold_live_cols(forest)
-        if cols > MAX_DUAL_COLS:
-            return (f"ge dual-lane fold needs <= {MAX_DUAL_COLS} live "
-                    f"features, forest has {cols}")
-        if fold_launch(2 * cols, forest.depth, forest.num_trees, limits) is None:
-            return (f"one depth-{forest.depth} tree's node tables do not fit "
-                    f"{limits.smem_per_block} bytes of shared memory")
+    if strategy in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST):
+        return _fold_reason(strategy, forest, limits)
+    if strategy == Strategy.DEPTH_BUCKETED:
+        return _bucketed_reason(forest, limits)
     if strategy == Strategy.RANK_MXU:
         vcols = rank_virtual_cols(forest)
         if vcols > RANK_MAX_COLS:

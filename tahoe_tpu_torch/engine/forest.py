@@ -3,8 +3,13 @@
 The counterpart of tahoe_tpu/engine/forest.py for the strategies ported so
 far:
 
-  SPLIT_FOREST -> FoldKernelEngine (ge dual-lane f32 fold, kernel C)
-  RANK_MXU     -> RankFoldEngine   (rank transform + traversal, kernels A, B)
+  SPLIT_FOREST   -> FoldKernelEngine (f32 fold: kernel C in the dual or sign
+                    form, or the deep kernel at depth 12-15)
+  VMEM_FOREST    -> FoldKernelEngine(whole_forest=True) (kernel C, the whole
+                    forest in one shared-memory tile)
+  DEPTH_BUCKETED -> make_depth_bucketed_engine (kernels A + B per bucket, or
+                    the fold per bucket, non-ge for 65-128 columns)
+  RANK_MXU       -> RankFoldEngine   (rank transform + traversal, kernels A, B)
 
 Every other strategy raises NotImplementedError naming its ROADMAP item; none
 is routed to another engine. The device is an explicit argument: on ``cpu``
@@ -21,16 +26,15 @@ from tahoe_tpu.forest.spec import ForestSpec
 from tahoe_tpu.ops import oracle
 from tahoe_tpu_torch.config import GpuLimits, Output, Strategy, resolve_device
 from tahoe_tpu_torch.engine import feasibility
+from tahoe_tpu_torch.ops.bucketed import make_depth_bucketed_engine
 from tahoe_tpu_torch.ops.fold_kernel import FoldKernelEngine
 from tahoe_tpu_torch.ops.rank_kernel import RankFoldEngine
 
 NOT_PORTED = {
-    Strategy.VMEM_FOREST: "ROADMAP Queue 1 item 5",
     Strategy.HBM_DIRECT: "ROADMAP Queue 1 item 6",
     Strategy.ROW_TILED: "ROADMAP Queue 1 item 6",
     Strategy.TENSOR: "ROADMAP Queue 1 item 6",
     Strategy.SPARSE: "ROADMAP Queue 1 item 7",
-    Strategy.DEPTH_BUCKETED: "ROADMAP Queue 1 item 8",
 }
 
 
@@ -84,8 +88,12 @@ class Forest:
             raise ValueError(f"strategy {strategy.name} infeasible: {reason}")
         if strategy == Strategy.RANK_MXU:
             eng = RankFoldEngine(self.spec, device=self.device)
+        elif strategy == Strategy.DEPTH_BUCKETED:
+            eng = make_depth_bucketed_engine(self.spec, device=self.device)
         else:
-            eng = FoldKernelEngine(self.spec, device=self.device)
+            eng = FoldKernelEngine(
+                self.spec, device=self.device,
+                whole_forest=strategy == Strategy.VMEM_FOREST)
         self._engines[strategy] = eng
         return eng
 

@@ -1,20 +1,35 @@
-"""f32 fold traversal, ge dual-lane form: rows -> f32 margins (kernel C).
+"""f32 fold traversal: rows -> f32 margins (kernel C and the deep kernel).
 
-The port of tahoe_tpu/ops/fold_kernel.py ``FoldKernelEngine`` in its ge
-dual-lane form. The host side is the JAX engine's, on the shared numpy
-compiler: levelize -> (used-feature compaction when 2F > 128) ->
-ge_normalize, which folds missing routing, def_left and exchange into one
-compare per node on rows carried as ``[x, -x]`` lanes:
+The port of tahoe_tpu/ops/fold_kernel.py ``FoldKernelEngine``. The host side
+is the JAX engine's, on the shared numpy compiler: levelize -> used-feature
+compaction -> one of three node forms, chosen as the JAX engine chooses them
+(fold_kernel.py:135-165):
 
-    cond(node) = x2[fid'] >= t'
+- **dual** (ge, <= 64 live features): ge_normalize folds missing routing,
+  def_left and exchange into one compare per node on rows carried as
+  ``[x, -x]`` lanes, ``cond = x2[fid'] >= t'``; fid' >= F picks the negated
+  lane;
+- **sign** (ge, 65-512 live features): the same compare with rows kept at
+  width F and the negation applied on read, ``cond = (neg ? -x[f] : x[f])
+  >= t'``; the node code is f, or ~f (< 0) for a negated node;
+- **non-ge** (only when asked, ``ge_mode=False``; <= 128 features, compacted
+  only above 128 columns): levelize's own thresholds with ``cond = (sel_lt ?
+  x[f] < t : x[f] >= t) XOR flip``, sel_lt = def_right ^ invert and flip =
+  def_right (fold_kernel.py:420-438), packed as f | sel_lt << 29 | flip << 30.
 
-Pass-through nodes hold t' = NaN (always False); negated-lane thresholds are
-``nextafter(-t, +inf)``, denormal near 0. Node j of level d has its children
-at j and j + 2^d of level d + 1, exactly as in the rank engine.
+Pass-through nodes hold a NaN threshold (always False); ge_normalize's
+negated thresholds are ``nextafter(-t, +inf)``, denormal near 0. Node j of
+level d has its children at j and j + 2^d of level d + 1, exactly as in the
+rank engine.
 
-The sign form (> 64 live features), the non-ge form and the split grid are
-not ported yet (ROADMAP Queue 1 item 4); the TPU tiling, VMEM estimates and
-compile walls have no counterpart here.
+Two kernels run these tables (``fold_plan``): kernel C (csrc/fold.cu, one
+entry point per form) stages tiles of whole trees in shared memory, and runs
+when a tile of at least 4 trees fits half a block's budget (always for
+non-ge, which has no other kernel); the deep kernel (csrc/fold_deep.cu, dual
+and sign forms, the counterpart of the subtree-split fold) reads the nodes
+through the read-only cache and takes every other forest up to depth 15.
+The TPU tiling, VMEM estimates, split grid and compile walls have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -26,7 +41,7 @@ import numpy as np
 import torch
 
 from tahoe_tpu.forest.compiler import compact_leveled, ge_normalize, levelize
-from tahoe_tpu.forest.spec import ForestSpec
+from tahoe_tpu.forest.spec import ForestSpec, LeveledForest
 from tahoe_tpu_torch.config import GpuLimits, resolve_device
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
 from tahoe_tpu_torch.ops.rows import canonicalize_rows
@@ -34,15 +49,41 @@ from tahoe_tpu_torch.ops.transform import apply_output_transform
 
 # the dual-lane form's feature cap: [x, -x] within the fold's 128 lanes
 MAX_DUAL_COLS = 64
+# the sign form's cap, the JAX package's (fold_kernel.py:54), so that both
+# sides agree on what is feasible
+MAX_SIGN_COLS = 512
+# the JAX non-ge kernel gathers from one 128-lane feature vreg
+MAX_NONGE_COLS = 128
+# deeper dense tables are the SPARSE strategy's (ROADMAP Queue 1 item 7)
+MAX_DENSE_DEPTH = 15
+# kernel C descends this many trees together (kTreesInFlight, csrc/fold.cu)
+TREES_IN_FLIGHT = 4
+# non-ge node code bits (csrc/fold.cu kNonGe*)
+NONGE_SEL_LT = 1 << 29
+NONGE_FLIP = 1 << 30
+NONGE_FID = NONGE_SEL_LT - 1
 
-FOLD = CudaKernel(
-    "tahoe_fold",
+_FOLD_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+FOLD = CudaKernel("tahoe_fold", _FOLD_ARGS,
+                  source="tahoe_tpu_torch/csrc/fold.cu",
+                  replaces="tahoe_tpu/ops/fold_kernel.py:531")
+FOLD_SIGN = CudaKernel("tahoe_fold_sign", _FOLD_ARGS,
+                       source="tahoe_tpu_torch/csrc/fold.cu",
+                       replaces="tahoe_tpu/ops/fold_kernel.py:594")
+FOLD_NONGE = CudaKernel("tahoe_fold_nonge", _FOLD_ARGS,
+                        source="tahoe_tpu_torch/csrc/fold.cu",
+                        replaces="tahoe_tpu/ops/fold_kernel.py:562")
+FOLD_DEEP = CudaKernel(
+    "tahoe_fold_deep",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    source="tahoe_tpu_torch/csrc/fold.cu",
-    replaces="tahoe_tpu/ops/fold_kernel.py:531",
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p],
+    source="tahoe_tpu_torch/csrc/fold_deep.cu",
+    replaces="tahoe_tpu/ops/fold_kernel.py:688",
 )
+FOLD_KERNELS = {"dual": FOLD, "sign": FOLD_SIGN, "nonge": FOLD_NONGE}
 
 # the plain version folds a chunk of rows at a time; this bounds the bytes of
 # one chunk's widest level (gathered x, its compare and the f32 frontier)
@@ -53,13 +94,15 @@ PLAIN_CHUNK_BYTES = 256 << 20
 class FoldTables:
     """A forest compiled for the f32 fold, as tensors on one device.
 
+    - ``form``: "dual", "sign" or "nonge" (the module docstring);
     - ``col_index``: [F] int64 live-feature gather, or None;
     - ``thresholds`` / ``fids`` [T, 2^D - 1] f32 / int32: node
-      n = 2^d - 1 + j of a tree is column j of ge_normalize's level d;
-      fids >= F select the negated lane;
+      n = 2^d - 1 + j of a tree is column j of level d; ``fids`` holds the
+      form's node code;
     - ``leaf`` [T, 2^D] f32.
     """
 
+    form: str
     col_index: torch.Tensor | None
     num_cols: int
     thresholds: torch.Tensor
@@ -67,91 +110,196 @@ class FoldTables:
     leaf: torch.Tensor
     depth: int
 
+    @property
+    def width(self) -> int:
+        return row_width(self.form, self.num_cols)
 
-def fold_tables(spec: ForestSpec, *, device: torch.device) -> FoldTables:
-    """Compile ``spec`` for the ge dual-lane fold (fold_kernel.py:138-145,
-    :383-419)."""
+
+def row_width(form: str, num_cols: int) -> int:
+    """Width of the canonicalized rows the kernels read: ``[x, -x]`` in the
+    dual form, x in the others."""
+    return 2 * num_cols if form == "dual" else num_cols
+
+
+def fold_leveled(spec: ForestSpec, ge_mode: bool = True
+                 ) -> tuple[LeveledForest, np.ndarray | None, str]:
+    """levelize + compaction + the form, as the JAX engine chooses them:
+    compact when the dual form would not fit (ge) or above 128 columns
+    (non-ge); dual up to 64 live features, sign above."""
     lev = levelize(spec)
     col_index = None
-    if lev.num_cols > MAX_DUAL_COLS:
+    if lev.num_cols > (MAX_DUAL_COLS if ge_mode else MAX_NONGE_COLS):
         lev, col_index = compact_leveled(lev)
-    if lev.num_cols > MAX_DUAL_COLS:
+    if not ge_mode:
+        return lev, col_index, "nonge"
+    return lev, col_index, "dual" if lev.num_cols <= MAX_DUAL_COLS else "sign"
+
+
+def fold_tables(spec: ForestSpec, *, device: torch.device,
+                ge_mode: bool = True) -> FoldTables:
+    """Compile ``spec`` for the fold (fold_kernel.py:138-165, :383-438)."""
+    lev, col_index, form = fold_leveled(spec, ge_mode)
+    cap = MAX_NONGE_COLS if form == "nonge" else MAX_SIGN_COLS
+    if lev.num_cols > cap:
         raise NotImplementedError(
-            f"fold kernel: {lev.num_cols} live features need the sign form "
-            f"(> {MAX_DUAL_COLS}), not ported yet: ROADMAP Queue 1 item 4")
-    fid_l, thr_l, leaf = ge_normalize(lev)
+            f"{form} fold supports <= {cap} live features; got {lev.num_cols}")
+    if lev.depth > MAX_DENSE_DEPTH:
+        raise NotImplementedError(
+            f"dense fold supports depth <= {MAX_DENSE_DEPTH}; got {lev.depth} "
+            f"(deeper forests are SPARSE's: ROADMAP Queue 1 item 7)")
+    if form == "nonge":
+        thr_l = lev.thresh
+        code_l = [f.astype(np.int32)
+                  | (np.asarray(dr ^ iv, np.int32) * NONGE_SEL_LT)
+                  | (np.asarray(dr, np.int32) * NONGE_FLIP)
+                  for f, dr, iv in zip(lev.fid, lev.def_right, lev.invert)]
+        leaf = lev.leaf_values
+    else:
+        code_l, thr_l, leaf = ge_normalize(lev)
+        if form == "sign":
+            F = lev.num_cols
+            code_l = [np.where(c >= F, ~(c - F), c).astype(np.int32)
+                      for c in code_l]
     T = lev.num_trees
     thr = np.concatenate(thr_l, axis=1) if thr_l else np.zeros((T, 0), np.float32)
-    fid = np.concatenate(fid_l, axis=1) if fid_l else np.zeros((T, 0), np.int32)
+    code = np.concatenate(code_l, axis=1) if code_l else np.zeros((T, 0), np.int32)
     return FoldTables(
+        form=form,
         col_index=(None if col_index is None
                    else torch.as_tensor(col_index, dtype=torch.int64, device=device)),
         num_cols=lev.num_cols,
-        thresholds=torch.as_tensor(thr, device=device),
-        fids=torch.as_tensor(fid, device=device),
-        leaf=torch.as_tensor(leaf, device=device),
+        thresholds=torch.as_tensor(np.ascontiguousarray(thr, np.float32),
+                                   device=device),
+        fids=torch.as_tensor(np.ascontiguousarray(code, np.int32), device=device),
+        leaf=torch.as_tensor(np.ascontiguousarray(leaf, np.float32),
+                             device=device),
         depth=lev.depth,
     )
 
 
 class FoldLaunch(NamedTuple):
+    """Kernel C's block: rows, trees per staged tile, dynamic shared bytes."""
+
     rows_per_block: int
     tile_trees: int
     smem_bytes: int
 
 
-def fold_launch(width: int, depth: int, num_trees: int,
-                limits: GpuLimits) -> FoldLaunch | None:
+class DeepLaunch(NamedTuple):
+    """The deep kernel's block: rows and dynamic shared bytes (rows only)."""
+
+    rows_per_block: int
+    smem_bytes: int
+
+
+def fold_launch(width: int, depth: int, num_trees: int, limits: GpuLimits, *,
+                min_tile: int = 1, budget: int | None = None
+                ) -> FoldLaunch | None:
     """Kernel C's block shape: one thread per row, the block's rows staged
     in shared memory at an odd stride, then as many trees' node tables per
     tile as fit. Aims at half the opt-in budget so two blocks share an SM;
-    takes the whole budget, then fewer rows, when one tree does not fit.
-    None when no block of >= 32 rows holds one tree."""
+    takes the whole budget, then fewer rows, when ``min_tile`` trees do not
+    fit (only ``budget`` when given). None when no block of >= 32 rows holds
+    ``min_tile`` trees."""
     per_tree = ((1 << depth) - 1) * 8 + (1 << depth) * 4
+    budgets = ((limits.smem_per_block // 2, limits.smem_per_block)
+               if budget is None else (budget,))
     for rows in (256, 128, 64, 32):
         xs = rows * (width | 1) * 4
-        for budget in (limits.smem_per_block // 2, limits.smem_per_block):
-            if xs + per_tree <= budget:
-                tile = min(max(num_trees, 1), (budget - xs) // per_tree)
+        for b in budgets:
+            tile = min(max(num_trees, 1), (b - xs) // per_tree)
+            if tile >= min_tile:
                 return FoldLaunch(rows, tile, xs + tile * per_tree)
     return None
 
 
-def fold_margins_plain(x2: torch.Tensor, thresholds: torch.Tensor,
-                       fids: torch.Tensor, leaf: torch.Tensor,
-                       depth: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel C: per level a gather of every node's
-    feature, the compare, then the bottom-up where-fold of the JAX kernel;
-    leaves summed in f64."""
+def deep_launch(width: int, limits: GpuLimits) -> DeepLaunch | None:
+    """The deep kernel's block: the most rows (256 down to 32) whose staged
+    rows fit half the opt-in budget, else the whole budget."""
+    for b in (limits.smem_per_block // 2, limits.smem_per_block):
+        for rows in (256, 128, 64, 32):
+            xs = rows * (width | 1) * 4
+            if xs <= b:
+                return DeepLaunch(rows, xs)
+    return None
+
+
+def fold_plan(form: str, width: int, depth: int, num_trees: int,
+              limits: GpuLimits, *, whole_forest: bool = False
+              ) -> FoldLaunch | DeepLaunch | None:
+    """Which kernel runs a forest, and its block.
+
+    - ``whole_forest`` (VMEM_FOREST): kernel C with every tree in one tile;
+    - non-ge: kernel C, the only kernel of that form;
+    - otherwise kernel C when a tile of min(T, 4) trees (its trees in
+      flight) fits half the budget, else the deep kernel.
+    None when nothing fits."""
+    T = max(num_trees, 1)
+    if whole_forest:
+        return fold_launch(width, depth, T, limits, min_tile=T)
+    if form == "nonge":
+        return fold_launch(width, depth, T, limits)
+    launch = fold_launch(width, depth, T, limits,
+                         min_tile=min(T, TREES_IN_FLIGHT),
+                         budget=limits.smem_per_block // 2)
+    return launch if launch is not None else deep_launch(width, limits)
+
+
+def _node_cond(xv: torch.Tensor, thr: torch.Tensor, codes: torch.Tensor,
+               form: str) -> torch.Tensor:
+    """One level's branch conditions from the gathered features ``xv``."""
+    if form == "dual":
+        return xv >= thr
+    if form == "sign":
+        return torch.where(codes < 0, -xv, xv) >= thr
+    c = torch.where((codes & NONGE_SEL_LT) != 0, xv < thr, xv >= thr)
+    return c ^ ((codes & NONGE_FLIP) != 0)
+
+
+def _node_features(codes: torch.Tensor, form: str) -> torch.Tensor:
+    if form == "sign":
+        codes = torch.where(codes < 0, ~codes, codes)
+    elif form == "nonge":
+        codes = codes & NONGE_FID
+    return codes.to(torch.int64)
+
+
+def fold_margins_plain(x: torch.Tensor, thresholds: torch.Tensor,
+                       fids: torch.Tensor, leaf: torch.Tensor, depth: int,
+                       form: str = "dual") -> torch.Tensor:
+    """Plain PyTorch version of kernel C (every form) and of the deep
+    kernel: per level a gather of every node's feature, the form's compare,
+    then the bottom-up where-fold of the JAX kernel; leaves summed in f64."""
     T = leaf.shape[0]
-    fids = fids.to(torch.int64)
+    levels = []
+    for d in range(depth):
+        sl = slice((1 << d) - 1, (2 << d) - 1)
+        codes = fids[:, sl].reshape(-1)
+        levels.append((_node_features(codes, form), thresholds[:, sl].reshape(-1),
+                       codes))
     chunk = max(1, PLAIN_CHUNK_BYTES // (12 * T << max(depth - 1, 0)))
     out = []
-    for r0 in range(0, x2.shape[0], chunk):
-        x = x2[r0:r0 + chunk]
-        w = leaf.expand(x.shape[0], T, 1 << depth)
+    for r0 in range(0, x.shape[0], chunk):
+        xc = x[r0:r0 + chunk]
+        w = leaf.expand(xc.shape[0], T, 1 << depth)
         for d in range(depth - 1, -1, -1):
             n = 1 << d
-            sl = slice(n - 1, 2 * n - 1)
-            xv = x[:, fids[:, sl].reshape(-1)]
-            cond = (xv >= thresholds[:, sl].reshape(-1)).view(-1, T, n)
+            feat, thr, codes = levels[d]
+            cond = _node_cond(xc[:, feat], thr, codes, form).view(-1, T, n)
             w = torch.where(cond, w[..., n:2 * n], w[..., :n])
         out.append(w[..., 0].double().sum(dim=1).float())
     if not out:
-        return torch.zeros(0, dtype=torch.float32, device=x2.device)
+        return torch.zeros(0, dtype=torch.float32, device=x.device)
     return torch.cat(out)
 
 
-def fold_margins_cuda(x2: torch.Tensor, thresholds: torch.Tensor,
-                      fids: torch.Tensor, leaf: torch.Tensor, depth: int,
-                      launch: FoldLaunch) -> torch.Tensor:
-    """Kernel C on the card (csrc/fold.cu)."""
-    dev = x2.device
-    check_operand(x2, "x2", torch.float32, dev, 2)
+def _check_tables(x: torch.Tensor, thresholds: torch.Tensor,
+                  fids: torch.Tensor, leaf: torch.Tensor, depth: int) -> None:
+    dev = x.device
+    check_operand(x, "x", torch.float32, dev, 2)
     check_operand(thresholds, "thresholds", torch.float32, dev, 2)
     check_operand(fids, "fids", torch.int32, dev, 2)
     check_operand(leaf, "leaf", torch.float32, dev, 2)
-    R, W = x2.shape
     T = leaf.shape[0]
     N = (1 << depth) - 1
     if (thresholds.shape != (T, N) or fids.shape != (T, N)
@@ -159,50 +307,105 @@ def fold_margins_cuda(x2: torch.Tensor, thresholds: torch.Tensor,
         raise ValueError(
             f"tables {tuple(thresholds.shape)} / {tuple(fids.shape)} / "
             f"{tuple(leaf.shape)} do not match depth {depth}")
+
+
+def fold_margins_cuda(x: torch.Tensor, thresholds: torch.Tensor,
+                      fids: torch.Tensor, leaf: torch.Tensor, depth: int,
+                      launch: FoldLaunch, form: str = "dual") -> torch.Tensor:
+    """Kernel C on the card (csrc/fold.cu), in the tables' form."""
+    _check_tables(x, thresholds, fids, leaf, depth)
+    R, W = x.shape
+    out = torch.empty(R, dtype=torch.float32, device=x.device)
+    FOLD_KERNELS[form].launch(
+        x.device, ptr(x), R, W, ptr(thresholds), ptr(fids), ptr(leaf),
+        leaf.shape[0], depth, launch.rows_per_block, launch.tile_trees,
+        launch.smem_bytes, ptr(out))
+    return out
+
+
+def deep_nodes(thresholds: torch.Tensor, fids: torch.Tensor) -> torch.Tensor:
+    """[T, N, 2] int32: each node's (threshold bits, code), the deep
+    kernel's one 8-byte load per visited node."""
+    return torch.stack([thresholds.view(torch.int32), fids], dim=-1).contiguous()
+
+
+def fold_deep_cuda(x: torch.Tensor, nodes: torch.Tensor, leaf: torch.Tensor,
+                   depth: int, launch: DeepLaunch,
+                   form: str = "dual") -> torch.Tensor:
+    """The deep kernel on the card (csrc/fold_deep.cu), dual or sign form."""
+    dev = x.device
+    if form not in ("dual", "sign"):
+        raise ValueError(f"the deep kernel takes the dual and sign forms, not {form}")
+    check_operand(x, "x", torch.float32, dev, 2)
+    check_operand(nodes, "nodes", torch.int32, dev, 3)
+    check_operand(leaf, "leaf", torch.float32, dev, 2)
+    R, W = x.shape
+    T = leaf.shape[0]
+    if nodes.shape != (T, (1 << depth) - 1, 2) or leaf.shape[1] != 1 << depth:
+        raise ValueError(
+            f"tables {tuple(nodes.shape)} / {tuple(leaf.shape)} do not match "
+            f"depth {depth}")
     out = torch.empty(R, dtype=torch.float32, device=dev)
-    FOLD.launch(dev, ptr(x2), R, W, ptr(thresholds), ptr(fids), ptr(leaf),
-                T, depth, launch.rows_per_block, launch.tile_trees,
-                launch.smem_bytes, ptr(out))
+    FOLD_DEEP.launch(dev, ptr(x), R, W, ptr(nodes), ptr(leaf), T, depth,
+                     int(form == "sign"), launch.rows_per_block,
+                     launch.smem_bytes, ptr(out))
     return out
 
 
 class FoldKernelEngine:
-    """Compile a forest into ge dual-lane tables and run kernel C."""
+    """Compile a forest into fold tables and run kernel C or the deep kernel.
 
-    def __init__(self, forest: ForestSpec, *, device, ge_mode: bool = True):
-        if not ge_mode:
-            raise NotImplementedError(
-                "non-ge fold form not ported yet: ROADMAP Queue 1 item 4")
+    ``ge_mode=False`` asks for the non-ge form; ``whole_forest=True`` stages
+    every tree in one tile (VMEM_FOREST, the reference's shared-forest
+    placement) and raises when the forest does not fit one block."""
+
+    def __init__(self, forest: ForestSpec, *, device, ge_mode: bool = True,
+                 whole_forest: bool = False):
         self.device = resolve_device(device)
-        self.tables = fold_tables(forest, device=self.device)
+        self.tables = t = fold_tables(forest, device=self.device,
+                                      ge_mode=ge_mode)
+        self.form = t.form
         self.missing = forest.missing
-        self.depth = self.tables.depth
+        self.depth = t.depth
         self.num_trees = forest.num_trees
         self.output = forest.output
         self.global_bias = forest.global_bias
         self.threshold = forest.threshold
-        self.launch = None
-        if self.device.type == "cuda":
-            limits = GpuLimits.for_device(self.device)
-            self.launch = fold_launch(2 * self.tables.num_cols, self.depth,
-                                      self.num_trees, limits)
-            if self.launch is None:
-                raise ValueError(
-                    f"depth {self.depth}: one tree's node tables do not fit "
-                    f"{limits.smem_per_block} bytes of shared memory")
+        limits = GpuLimits.for_device(self.device)
+        self.launch = fold_plan(t.form, t.width, t.depth, self.num_trees,
+                                limits, whole_forest=whole_forest)
+        if self.launch is None:
+            what = "the whole forest's" if whole_forest else "one tree's"
+            raise ValueError(
+                f"depth {t.depth}, {t.form} form: {what} node tables and a "
+                f"32-row block do not fit {limits.smem_per_block} bytes of "
+                f"shared memory")
+        deep = isinstance(self.launch, DeepLaunch)
+        self.kernel = FOLD_DEEP if deep else FOLD_KERNELS[t.form]
+        self.nodes = deep_nodes(t.thresholds, t.fids) if deep else None
 
     def canonicalize(self, rows) -> torch.Tensor:
-        """Raw rows [R, C] -> [R, 2F] f32 ``[x, -x]`` lanes, missing as NaN."""
+        """Raw rows [R, C] -> [R, width] f32 (``[x, -x]`` lanes in the dual
+        form), missing as NaN."""
         return canonicalize_rows(rows, self.missing, device=self.device,
-                                 col_index=self.tables.col_index, dual=True)
+                                 col_index=self.tables.col_index,
+                                 dual=self.form == "dual")
+
+    def margins_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Margins of canonicalized rows: the plain version on a CPU tensor,
+        the engine's kernel on a CUDA one."""
+        t = self.tables
+        if x.device.type == "cpu":
+            return fold_margins_plain(x, t.thresholds, t.fids, t.leaf, t.depth,
+                                      t.form)
+        if self.nodes is not None:
+            return fold_deep_cuda(x, self.nodes, t.leaf, t.depth, self.launch,
+                                  t.form)
+        return fold_margins_cuda(x, t.thresholds, t.fids, t.leaf, t.depth,
+                                 self.launch, t.form)
 
     def margins(self, rows) -> torch.Tensor:
-        x2 = self.canonicalize(rows)
-        t = self.tables
-        if x2.device.type == "cpu":
-            return fold_margins_plain(x2, t.thresholds, t.fids, t.leaf, t.depth)
-        return fold_margins_cuda(x2, t.thresholds, t.fids, t.leaf, t.depth,
-                                 self.launch)
+        return self.margins_rows(self.canonicalize(rows))
 
     def predict(self, rows) -> torch.Tensor:
         return apply_output_transform(self.margins(rows), self.num_trees,

@@ -90,25 +90,35 @@ class RankTables:
 
 
 def rank_tables(spec: ForestSpec, band: int | None = None, *,
-                device: torch.device) -> RankTables:
-    """Compile ``spec`` for the rank engine (rank_kernel.py:680-708, :932)."""
-    forest = truncate_depth(spec, int(reachable_depths(spec).max(initial=0)))
-    forest, col_index = compact_features(forest)
-    if forest.num_cols > RANK_MAX_COLS:
-        raise NotImplementedError(
-            f"rank-MXU kernel supports <= {RANK_MAX_COLS} live features; "
-            f"got {forest.num_cols}")
-    q, vf_base = band_split(quantize(forest), band)
+                device: torch.device,
+                prequantized: tuple[RankQuantizedForest, np.ndarray | None]
+                | None = None) -> RankTables:
+    """Compile ``spec`` for the rank engine (rank_kernel.py:662-708, :932).
+
+    ``prequantized`` = (q, gather) takes a forest quantized once for a
+    larger forest, of which ``q.spec`` is a tree subset, and the final data
+    column gather (rank_kernel.py:662-668): every subset then shares one
+    threshold table and so one kernel-A transform."""
+    if prequantized is not None:
+        q, gather = prequantized
+    else:
+        forest = truncate_depth(spec, int(reachable_depths(spec).max(initial=0)))
+        forest, col_index = compact_features(forest)
+        if forest.num_cols > RANK_MAX_COLS:
+            raise NotImplementedError(
+                f"rank-MXU kernel supports <= {RANK_MAX_COLS} live features; "
+                f"got {forest.num_cols}")
+        q, vf_base = band_split(quantize(forest), band)
+        if col_index is None:
+            gather = vf_base
+        elif vf_base is None:
+            gather = col_index
+        else:
+            gather = col_index[vf_base]
     if q.spec.num_cols > RANK_MAX_COLS:
         raise NotImplementedError(
             f"banded forest needs {q.spec.num_cols} virtual features "
             f"> {RANK_MAX_COLS}")
-    if col_index is None:
-        gather = vf_base
-    elif vf_base is None:
-        gather = col_index
-    else:
-        gather = col_index[vf_base]
     lev = levelize(quantized_spec_for_engines(q))
     mats, leaf = rank_normalize(lev)
     K = LANE * rank_groups(lev.num_cols)
@@ -198,12 +208,20 @@ class RankFoldEngine:
     ``predict_planes`` takes planes encoded once per batch (the serving
     path of bench.py's ``rank_mxu_planes_us``)."""
 
-    def __init__(self, forest: ForestSpec, *, device, band: int | None = None):
+    def __init__(self, forest: ForestSpec, *, device, band: int | None = None,
+                 prequantized: tuple[RankQuantizedForest, np.ndarray | None,
+                                     float] | None = None):
         self.device = resolve_device(device)
         # the rank-domain spec's sentinel is NaN (quantized_spec_for_engines);
-        # raw rows still carry the forest's own
+        # raw rows still carry the forest's own. ``prequantized`` = (q,
+        # gather, raw sentinel) for a tree subset of a forest quantized once
+        # (rank_tables; rank_kernel.py:647-668)
         self.raw_missing = forest.missing
-        self.tables = rank_tables(forest, band, device=self.device)
+        if prequantized is not None:
+            q, gather, self.raw_missing = prequantized
+            prequantized = (q, gather)
+        self.tables = rank_tables(forest, band, device=self.device,
+                                  prequantized=prequantized)
         self.q = self.tables.q
         self.groups = self.tables.groups
         self.num_trees = forest.num_trees

@@ -10,11 +10,22 @@ import numpy as np
 import pytest
 import torch
 
-from tahoe_tpu_torch import ORACLE_ATOL, Forest, Output, Strategy
+from tahoe_tpu_torch import ORACLE_ATOL, Forest, GpuLimits, Output, Strategy
 from tahoe_tpu_torch.forest import compiler, quantize, synthetic
+from tahoe_tpu_torch.ops.bucketed import (
+    DepthBucketedFoldEngine,
+    DepthBucketedRankEngine,
+)
 from tahoe_tpu_torch.ops.fold_kernel import (
     FOLD,
+    FOLD_DEEP,
+    FOLD_NONGE,
+    FOLD_SIGN,
     FoldKernelEngine,
+    deep_launch,
+    deep_nodes,
+    fold_deep_cuda,
+    fold_launch,
     fold_margins_cuda,
     fold_margins_plain,
 )
@@ -94,8 +105,10 @@ def test_fold_kernel(dev, depth, trees):
     eng = FoldKernelEngine(forest, device=dev)
     x2 = eng.canonicalize(data)
     t = eng.tables
-    got = fold_margins_cuda(x2, t.thresholds, t.fids, t.leaf, t.depth,
-                            eng.launch)
+    # kernel C's own block, also at depth 12, where the engine takes the
+    # deep kernel
+    launch = fold_launch(t.width, t.depth, trees, GpuLimits.for_device(dev))
+    got = fold_margins_cuda(x2, t.thresholds, t.fids, t.leaf, t.depth, launch)
     torch.cuda.synchronize()
     want = fold_margins_plain(x2, t.thresholds, t.fids, t.leaf, t.depth)
     assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
@@ -128,3 +141,110 @@ def test_kernels_reject_bad_operands(dev):
     with pytest.raises(ValueError):
         rank_planes_cuda(torch.zeros(4, 8, device=dev).t(), t.thresholds,
                          t.counts)
+
+
+def _wide_forest(trees, depth, num_cols, active, seed, **kw):
+    """``active`` of ``num_cols`` columns live (cup98-class usage)."""
+    rng = np.random.default_rng(seed)
+    f = synthetic.generate_forest(trees, depth, active, seed=seed, **kw)
+    f.fids = np.sort(rng.choice(num_cols, active, replace=False))[f.fids].astype(np.int32)
+    f.num_cols = num_cols
+    return f
+
+
+@pytest.mark.parametrize("depth", [6, 8])
+def test_fold_sign_kernel(dev, depth):
+    forest = compiler.hot_child_swap(_wide_forest(
+        60, depth, 479, 300, seed=depth, leaf_prob=0.05, missing=-999.0))
+    data = _data(2500, 479, depth + 1, missing=-999.0)
+    eng = FoldKernelEngine(forest, device=dev)
+    assert eng.kernel is FOLD_SIGN
+    x = eng.canonicalize(data)
+    t = eng.tables
+    before = FOLD_SIGN.launches
+    got = fold_margins_cuda(x, t.thresholds, t.fids, t.leaf, t.depth,
+                            eng.launch, "sign")
+    torch.cuda.synchronize()
+    assert FOLD_SIGN.launches == before + 1
+    want = fold_margins_plain(x, t.thresholds, t.fids, t.leaf, t.depth, "sign")
+    assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+    np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
+                               Forest(forest, device="cpu").predict_oracle(data),
+                               atol=ORACLE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("depth,cols", [(6, 90), (13, 40)])
+def test_fold_nonge_kernel(dev, depth, cols):
+    forest = compiler.hot_child_swap(synthetic.generate_forest(
+        24, depth, cols, leaf_prob=0.1, missing=-999.0, seed=depth + cols))
+    data = _data(2000, cols, depth, missing=-999.0)
+    eng = FoldKernelEngine(forest, device=dev, ge_mode=False)
+    assert eng.kernel is FOLD_NONGE
+    x = eng.canonicalize(data)
+    t = eng.tables
+    got = fold_margins_cuda(x, t.thresholds, t.fids, t.leaf, t.depth,
+                            eng.launch, "nonge")
+    torch.cuda.synchronize()
+    want = fold_margins_plain(x, t.thresholds, t.fids, t.leaf, t.depth, "nonge")
+    assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+    np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
+                               Forest(forest, device="cpu").predict_oracle(data),
+                               atol=ORACLE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("depth,cols,active", [(12, 28, 28), (15, 16, 16),
+                                               (12, 479, 300)])
+def test_fold_deep_kernel(dev, depth, cols, active):
+    forest = compiler.hot_child_swap(_wide_forest(
+        9, depth, cols, active, seed=depth, leaf_prob=0.02))
+    data = _data(1500, cols, depth + 2)
+    eng = FoldKernelEngine(forest, device=dev)
+    assert eng.kernel is FOLD_DEEP
+    x = eng.canonicalize(data)
+    t = eng.tables
+    before = FOLD_DEEP.launches
+    got = fold_deep_cuda(x, eng.nodes, t.leaf, t.depth, eng.launch, t.form)
+    torch.cuda.synchronize()
+    assert FOLD_DEEP.launches == before + 1
+    want = fold_margins_plain(x, t.thresholds, t.fids, t.leaf, t.depth, t.form)
+    assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+    np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
+                               Forest(forest, device="cpu").predict_oracle(data),
+                               atol=ORACLE_ATOL, rtol=0)
+
+
+def test_kernel_c_and_deep_kernel_agree_at_depth_12(dev):
+    """Both kernels take a depth-12 dual forest; on the same tables they give
+    the same margins."""
+    forest = synthetic.generate_forest(10, 12, 28, leaf_prob=0.02, seed=21)
+    data = _data(1200, 28, 22)
+    eng = FoldKernelEngine(forest, device=dev)
+    t = eng.tables
+    x = eng.canonicalize(data)
+    limits = GpuLimits.for_device(dev)
+    c = fold_margins_cuda(x, t.thresholds, t.fids, t.leaf, t.depth,
+                          fold_launch(t.width, t.depth, 10, limits))
+    deep = fold_deep_cuda(x, deep_nodes(t.thresholds, t.fids), t.leaf, t.depth,
+                          deep_launch(t.width, limits))
+    assert torch.allclose(c, deep, atol=KERNEL_ATOL, rtol=0)
+
+
+def test_facade_vmem_and_bucketed_count_launches(dev):
+    stumps = synthetic.generate_forest(800, 3, 10, leaf_prob=0.05, seed=23)
+    mixed9 = synthetic.generate_mixed_depth_forest(60, 10, 9, seed=24)
+    mixed90 = synthetic.generate_mixed_depth_forest(40, 9, 90, seed=25)
+    for forest, strategy, engine_type, kernels in (
+            (stumps, Strategy.VMEM_FOREST, FoldKernelEngine, (FOLD,)),
+            (mixed9, Strategy.DEPTH_BUCKETED, DepthBucketedRankEngine,
+             (RANK_PLANES, RANK_FOLD)),
+            (mixed90, Strategy.DEPTH_BUCKETED, DepthBucketedFoldEngine,
+             (FOLD_NONGE,))):
+        data = _data(1024, forest.num_cols, 26)
+        f = Forest(forest, device=dev)
+        eng = f.engine(strategy)
+        assert isinstance(eng, engine_type)
+        counts = [k.launches for k in kernels]
+        np.testing.assert_allclose(f.predict(data, strategy).cpu().numpy(),
+                                   f.predict_oracle(data), atol=ORACLE_ATOL,
+                                   rtol=0)
+        assert all(k.launches > c for k, c in zip(kernels, counts))

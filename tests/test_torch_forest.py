@@ -1,6 +1,7 @@
-"""The port's Forest facade on the CPU: text-format round trip, both ported
+"""The port's Forest facade on the CPU: text-format round trip, the ported
 strategies against the numpy oracle under every output transform and a
-finite missing sentinel, and the strategies not ported yet."""
+finite missing sentinel, feasibility against the JAX package's, and the
+strategies not ported yet."""
 import itertools
 
 import numpy as np
@@ -8,16 +9,23 @@ import pytest
 import torch
 
 from tahoe_tpu.config import ORACLE_ATOL
-from tahoe_tpu.forest import io, synthetic
+from tahoe_tpu.engine import feasibility as jax_feasibility
+from tahoe_tpu.forest import compiler, io, synthetic
 from tahoe_tpu.ops import oracle
 from tahoe_tpu.ops.transform import apply_output_transform as np_transform
 from tahoe_tpu_torch import Forest, Output, Strategy
 from tahoe_tpu_torch.config import MISSING_EPS, resolve_device
 from tahoe_tpu_torch.engine.forest import NOT_PORTED
+from tahoe_tpu_torch.ops.bucketed import (
+    DepthBucketedFoldEngine,
+    DepthBucketedRankEngine,
+)
+from tahoe_tpu_torch.ops.fold_kernel import FOLD, FOLD_DEEP, FOLD_SIGN
 from tahoe_tpu_torch.ops.rows import canonicalize_rows
 from tahoe_tpu_torch.ops.transform import apply_output_transform
 
-PORTED = (Strategy.SPLIT_FOREST, Strategy.RANK_MXU)
+# every ported strategy but DEPTH_BUCKETED, which needs mixed tree depths
+PORTED = (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST, Strategy.RANK_MXU)
 OUTPUTS = [int(sum(c)) for n in range(4)
            for c in itertools.combinations(
                (Output.AVG, Output.SIGMOID, Output.THRESHOLD), n)]
@@ -98,16 +106,107 @@ def test_unported_strategies_raise(strategy):
     f = Forest(synthetic.generate_forest(5, 3, 4, seed=69), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP"):
         f.predict(np.zeros((4, 4), np.float32), strategy)
-    assert set(NOT_PORTED) | set(PORTED) == set(Strategy)
+    assert (set(NOT_PORTED) | set(PORTED) | {Strategy.DEPTH_BUCKETED}
+            == set(Strategy))
 
 
 def test_infeasible_fold_raises():
-    """A depth-15 tree's node tables exceed a block's shared memory."""
-    f = Forest(synthetic.generate_forest(2, 15, 4, seed=70), device="cpu")
-    assert "shared memory" in f.feasible(Strategy.SPLIT_FOREST)
-    with pytest.raises(ValueError, match="infeasible"):
-        f.engine(Strategy.SPLIT_FOREST)
+    """Dense fold tables stop at depth 15: depth 16 is SPARSE's range."""
+    f = Forest(synthetic.generate_forest(2, 16, 4, seed=70), device="cpu")
+    for s in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST,
+              Strategy.DEPTH_BUCKETED):
+        assert "depth 15" in f.feasible(s)
+        with pytest.raises(ValueError, match="infeasible"):
+            f.engine(s)
     assert f.feasible(Strategy.RANK_MXU) is None
+
+
+def test_depth15_split_forest_matches_oracle():
+    """Depth 15 runs on the deep kernel's route (kernel C cannot stage one
+    393 KB tree)."""
+    forest = synthetic.generate_forest(2, 15, 4, leaf_prob=0.02, seed=70)
+    data = synthetic.generate_data(64, 4, missing_prob=0.1, seed=71)
+    f = Forest(forest, device="cpu")
+    assert f.feasible(Strategy.SPLIT_FOREST) is None
+    assert f.engine(Strategy.SPLIT_FOREST).kernel is FOLD_DEEP
+    np.testing.assert_allclose(f.predict(data).numpy(), f.predict_oracle(data),
+                               atol=ORACLE_ATOL, rtol=0)
+
+
+def test_vmem_forest_needs_the_whole_forest_in_one_block():
+    susy = Forest(synthetic.susy_class_forest(seed=0), device="cpu")
+    assert "shared memory" in susy.feasible(Strategy.VMEM_FOREST)
+    stumps = synthetic.generate_forest(800, 3, 10, leaf_prob=0.05,
+                                       missing=-999.0, seed=72)
+    data = synthetic.generate_data(100, 10, missing=-999.0, missing_prob=0.1,
+                                   seed=73)
+    f = Forest(stumps, device="cpu")
+    eng = f.engine(Strategy.VMEM_FOREST)
+    assert eng.kernel is FOLD and eng.launch.tile_trees == 800
+    np.testing.assert_allclose(f.predict(data, Strategy.VMEM_FOREST).numpy(),
+                               f.predict_oracle(data), atol=ORACLE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("cols,variant", [(9, DepthBucketedRankEngine),
+                                          (26, DepthBucketedRankEngine),
+                                          (90, DepthBucketedFoldEngine)])
+def test_depth_bucketed_through_the_facade(tmp_path, cols, variant):
+    out = int(Output.AVG | Output.SIGMOID)
+    forest = synthetic.generate_mixed_depth_forest(40, 9, cols, missing=-999.0,
+                                                   seed=cols)
+    forest.output, forest.global_bias = out, 0.02
+    data = synthetic.generate_data(90, cols, missing=-999.0, missing_prob=0.1,
+                                   seed=cols + 1)
+    model, rows = _files(tmp_path, forest, data, -999.0)
+    f = Forest.from_files(model, rows, device="cpu", output=out,
+                          global_bias=0.02)
+    assert f.feasible(Strategy.DEPTH_BUCKETED) is None
+    assert isinstance(f.engine(Strategy.DEPTH_BUCKETED), variant)
+    np.testing.assert_allclose(
+        f.predict(data, Strategy.DEPTH_BUCKETED).numpy(),
+        oracle.predict(forest, data), atol=ORACLE_ATOL, rtol=0)
+    uniform = Forest(synthetic.generate_forest(10, 4, cols, seed=1), device="cpu")
+    assert "uniform" in uniform.feasible(Strategy.DEPTH_BUCKETED)
+
+
+# sweep families (scripts/run_sweep.py SHAPES): (trees, depth, cols, active)
+SWEEP_SHAPES = {
+    "susy_like": (500, 8, 18, None),
+    "allstate_like": (250, 8, 130, None),
+    "cup98_like": (150, 8, 479, 300),
+    "gisette_like": (100, 6, 5000, 120),
+    "mnist_like": (100, 6, 400, None),
+    "deep13_like": (80, 13, 24, None),
+    "deep15_like": (30, 15, 16, None),
+    "stumps_like": (800, 3, 10, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SWEEP_SHAPES))
+def test_split_forest_feasible_where_jax_is(name):
+    trees, depth, cols, active = SWEEP_SHAPES[name]
+    spec = synthetic.generate_forest(trees, depth, cols, active_cols=active,
+                                     seed=1)
+    f = Forest(spec, device="cpu")
+    assert jax_feasibility.check(Strategy.SPLIT_FOREST, f.spec) is None
+    assert f.feasible(Strategy.SPLIT_FOREST) is None
+    eng = f.engine(Strategy.SPLIT_FOREST)
+    live = jax_feasibility.fold_cols(f.spec)[0]
+    assert eng.tables.num_cols == live
+    assert eng.form == ("dual" if live <= 64 else "sign")
+    if eng.form == "sign" and depth <= 8:
+        assert eng.kernel is FOLD_SIGN
+    if depth >= 13:
+        assert eng.kernel is FOLD_DEEP
+
+
+def test_depth_bucketed_feasible_where_jax_is():
+    """trained_mix-class, the sweep's DEPTH_BUCKETED family."""
+    spec = synthetic.generate_mixed_depth_forest(300, 12, 26, seed=1)
+    f = Forest(spec, device="cpu")
+    assert jax_feasibility.check(Strategy.DEPTH_BUCKETED, f.spec) is None
+    assert f.feasible(Strategy.DEPTH_BUCKETED) is None
+    assert isinstance(f.engine(Strategy.DEPTH_BUCKETED), DepthBucketedRankEngine)
 
 
 def test_cuda_device_without_gpu_raises():

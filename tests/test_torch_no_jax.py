@@ -17,15 +17,21 @@ import numpy as np
 import tahoe_tpu_torch
 from tahoe_tpu_torch import Forest, Strategy
 from tahoe_tpu_torch.forest import synthetic
-from tahoe_tpu_torch.ops import fold_kernel, rank_kernel, rank_transform  # noqa
+from tahoe_tpu_torch.ops import bucketed, fold_kernel, rank_kernel, rank_transform  # noqa
 from tahoe_tpu_torch.utils import profiling  # noqa
 
 forest = synthetic.generate_forest(9, 4, 6, leaf_prob=0.1, seed=1)
 data = synthetic.generate_data(32, 6, missing_prob=0.1, seed=2)
 f = Forest(forest, device="cpu")
 want = f.predict_oracle(data)
-for s in (Strategy.SPLIT_FOREST, Strategy.RANK_MXU):
+for s in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST, Strategy.RANK_MXU):
     assert np.abs(f.predict(data, s).numpy() - want).max() <= 1e-3
+for cols in (6, 90):  # DEPTH_BUCKETED, rank and fold variants
+    mixed = Forest(synthetic.generate_mixed_depth_forest(12, 6, cols, seed=3),
+                   device="cpu")
+    rows = synthetic.generate_data(32, cols, missing_prob=0.1, seed=4)
+    got = mixed.predict(rows, Strategy.DEPTH_BUCKETED).numpy()
+    assert np.abs(got - mixed.predict_oracle(rows)).max() <= 1e-3
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not leaked, leaked
 print("no-jax-ok")
