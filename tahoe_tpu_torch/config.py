@@ -42,12 +42,24 @@ class GpuLimits:
     """Hardware budget of one card (the analog of TpuLimits' VMEM budget).
 
     The defaults are an H100 SXM's (NVIDIA's data sheet): 227 KB of shared
-    memory a block can opt into, 132 SMs, a 50 MB L2. ``for_device`` reads
-    a real card's values; on the CPU the defaults stand."""
+    memory a block can opt into, 228 KB per SM, 132 SMs, a 50 MB L2.
+    ``for_device`` reads a real card's values; on the CPU the defaults
+    stand."""
 
     smem_per_block: int = 232_448
+    smem_per_sm: int = 233_472
     sm_count: int = 132
     l2_bytes: int = 50 * 1024 * 1024
+
+    # the runtime reserves 1 KB of an SM's shared memory for every resident
+    # block (cudaDevAttrReservedSharedMemoryPerBlock on sm_80 and later)
+    SMEM_RESERVED_PER_BLOCK = 1024
+
+    @property
+    def smem_half_sm(self) -> int:
+        """The most dynamic shared memory a block may take so that two
+        blocks share an SM."""
+        return self.smem_per_sm // 2 - self.SMEM_RESERVED_PER_BLOCK
 
     @classmethod
     def for_device(cls, device: torch.device) -> "GpuLimits":
@@ -56,6 +68,8 @@ class GpuLimits:
         props = torch.cuda.get_device_properties(device)
         return cls(
             smem_per_block=props.shared_memory_per_block_optin,
+            smem_per_sm=getattr(props, "shared_memory_per_multiprocessor",
+                                cls.smem_per_sm),
             sm_count=props.multi_processor_count,
             l2_bytes=props.L2_cache_size,
         )

@@ -38,26 +38,6 @@
 
 namespace {
 
-constexpr int kTreesInFlight = 4;  // ops/fold_kernel.py TREES_IN_FLIGHT
-
-enum Form { kSign, kNonGe };
-constexpr int kNonGeSelLt = 1 << 29;  // ops/fold_kernel.py NONGE_SEL_LT
-constexpr int kNonGeFlip = 1 << 30;   // NONGE_FLIP
-constexpr int kNonGeFid = kNonGeSelLt - 1;
-
-// The branch condition of one node in the form's encoding.
-template <int F>
-__device__ __forceinline__ bool node_cond(const float* xr, int code, float t) {
-    if constexpr (F == kSign) {
-        const float v = xr[code < 0 ? ~code : code];
-        return (code < 0 ? -v : v) >= t;
-    } else {
-        const float v = xr[code & kNonGeFid];
-        const bool c = (code & kNonGeSelLt) ? (v < t) : (v >= t);
-        return c != ((code & kNonGeFlip) != 0);
-    }
-}
-
 // The dual form (tahoe_fold).
 __global__ void fold_kernel(const float* __restrict__ x2, int rows, int W,
                             const float* __restrict__ thr,
@@ -106,6 +86,8 @@ __global__ void fold_kernel(const float* __restrict__ x2, int rows, int W,
 #pragma unroll
                 for (int k = 0; k < kTreesInFlight; ++k) {
                     const int n = base[k] + off + j[k];
+                    // tahoe_node_cond<kDual>, written out: through the
+                    // helper ptxas orders this body's loads differently
                     j[k] += (xr[fs[n]] >= ts[n]) << d;
                 }
             }
@@ -117,7 +99,7 @@ __global__ void fold_kernel(const float* __restrict__ x2, int rows, int W,
     if (r < nrows) out[row0 + r] = static_cast<float>(acc);
 }
 
-// The sign and non-ge forms: the dual form's kernel with node_cond<F>.
+// The sign and non-ge forms: the dual form's kernel with tahoe_node_cond<F>.
 template <int F>
 __global__ void fold_form_kernel(const float* __restrict__ x, int rows, int W,
                                  const float* __restrict__ thr,
@@ -166,7 +148,7 @@ __global__ void fold_form_kernel(const float* __restrict__ x, int rows, int W,
 #pragma unroll
                 for (int k = 0; k < kTreesInFlight; ++k) {
                     const int n = base[k] + off + j[k];
-                    j[k] += node_cond<F>(xr, fs[n], ts[n]) << d;
+                    j[k] += tahoe_node_cond<F>(xr, fs[n], ts[n]) << d;
                 }
             }
 #pragma unroll

@@ -1,11 +1,13 @@
-// Deep kernel: f32 fold of forests whose trees do not fit kernel C's
-// shared-memory tiles (depth 12-15, or wide rows), ge dual and sign forms.
+// Deep kernel: f32 fold of the forests that kernel C's shared-memory tiles
+// serve badly (depth >= 9, rows too wide for 256-row blocks, depth 13-15,
+// which no tile holds), ge dual and sign forms, one entry point each.
 //
 // Replaces the Pallas kernel tahoe_tpu/ops/fold_kernel.py _make_split_kernel
 // (:688, launched from fold_margins' split branch :829-865). It computes the
-// same margins as kernel C (csrc/fold.cu) on the same tables:
-//   dual  cond = x2[code] >= t'                        (rows as [x, -x])
-//   sign  cond = (code < 0 ? -x[~code] : x[code]) >= t'   (rows at width F)
+// same margins as kernel C (csrc/fold.cu) on the same tables, with the node
+// compare of common.cuh:
+//   tahoe_fold_deep        dual, rows as [x, -x]
+//   tahoe_fold_deep_sign   sign, rows at width F
 // The TPU kernel's subtree-group grid, roots scratch and compile walls exist
 // for VMEM and Mosaic compile time; none is carried over.
 //
@@ -17,27 +19,16 @@
 // (ops/fold_kernel.py deep_nodes), and the top levels, which every row of a
 // block visits, stay in L1. The bound is the latency of those dependent
 // loads: D per (row, tree). One thread owns one row, the block's rows staged
-// in shared memory at an odd stride as in kernel C; four trees descend
-// together to overlap their load chains. Leaf values are summed in double in
-// tree order, one pass, no atomics, and round once to f32. Built without
-// fast-math or flush-to-zero: denormal thresholds and NaN routing stay exact.
+// in shared memory at an odd stride as in kernel C; kTreesInFlight trees
+// descend together to overlap their load chains. Leaf values are summed in
+// double in tree order, one pass, no atomics, and round once to f32. Built
+// without fast-math or flush-to-zero: denormal thresholds and NaN routing
+// stay exact.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTreesInFlight = 4;
-
-template <bool Sign>
-__device__ __forceinline__ bool ge_cond(const float* xr, int code, float t) {
-    if constexpr (Sign) {
-        const float v = xr[code < 0 ? ~code : code];
-        return (code < 0 ? -v : v) >= t;
-    } else {
-        return xr[code] >= t;
-    }
-}
-
-template <bool Sign>
+template <int Form>
 __global__ void fold_deep_kernel(const float* __restrict__ x, int rows, int W,
                                  const int2* __restrict__ nodes,
                                  const float* __restrict__ leaf, int T, int D,
@@ -71,7 +62,7 @@ __global__ void fold_deep_kernel(const float* __restrict__ x, int rows, int W,
 #pragma unroll
             for (int k = 0; k < kTreesInFlight; ++k) {
                 const int2 nd = __ldg(base[k] + off + j[k]);
-                j[k] += ge_cond<Sign>(xr, nd.y, __int_as_float(nd.x)) << d;
+                j[k] += tahoe_node_cond<Form>(xr, nd.y, __int_as_float(nd.x)) << d;
             }
         }
 #pragma unroll
@@ -81,28 +72,33 @@ __global__ void fold_deep_kernel(const float* __restrict__ x, int rows, int W,
     out[row0 + r] = static_cast<float>(acc);
 }
 
-template <bool Sign>
+template <int Form>
 int launch_deep(const float* x, int rows, int W, const int2* nodes,
                 const float* leaf, int T, int D, int rows_per_block,
                 int smem_bytes, float* out, cudaStream_t stream) {
-    cudaError_t err = tahoe_set_smem(fold_deep_kernel<Sign>, static_cast<size_t>(smem_bytes));
+    if (rows == 0) return 0;
+    cudaError_t err = tahoe_set_smem(fold_deep_kernel<Form>, static_cast<size_t>(smem_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     const int grid = (rows + rows_per_block - 1) / rows_per_block;
-    fold_deep_kernel<Sign><<<grid, rows_per_block, smem_bytes, stream>>>(
+    fold_deep_kernel<Form><<<grid, rows_per_block, smem_bytes, stream>>>(
         x, rows, W, nodes, leaf, T, D, out);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-TAHOE_EXPORT int tahoe_fold_deep(const float* x, int rows, int W, const int2* nodes,
-                                 const float* leaf, int T, int D, int sign,
+TAHOE_EXPORT int tahoe_fold_deep(const float* x2, int rows, int W, const int2* nodes,
+                                 const float* leaf, int T, int D,
                                  int rows_per_block, int smem_bytes, float* out,
                                  cudaStream_t stream) {
-    if (rows == 0) return 0;
-    if (sign)
-        return launch_deep<true>(x, rows, W, nodes, leaf, T, D, rows_per_block,
-                                 smem_bytes, out, stream);
-    return launch_deep<false>(x, rows, W, nodes, leaf, T, D, rows_per_block,
+    return launch_deep<kDual>(x2, rows, W, nodes, leaf, T, D, rows_per_block,
+                              smem_bytes, out, stream);
+}
+
+TAHOE_EXPORT int tahoe_fold_deep_sign(const float* x, int rows, int W,
+                                      const int2* nodes, const float* leaf, int T,
+                                      int D, int rows_per_block, int smem_bytes,
+                                      float* out, cudaStream_t stream) {
+    return launch_deep<kSign>(x, rows, W, nodes, leaf, T, D, rows_per_block,
                               smem_bytes, out, stream);
 }

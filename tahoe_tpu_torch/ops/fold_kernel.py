@@ -22,14 +22,17 @@ negated thresholds are ``nextafter(-t, +inf)``, denormal near 0. Node j of
 level d has its children at j and j + 2^d of level d + 1, exactly as in the
 rank engine.
 
-Two kernels run these tables (``fold_plan``): kernel C (csrc/fold.cu, one
-entry point per form) stages tiles of whole trees in shared memory, and runs
-when a tile of at least 4 trees fits half a block's budget (always for
-non-ge, which has no other kernel); the deep kernel (csrc/fold_deep.cu, dual
-and sign forms, the counterpart of the subtree-split fold) reads the nodes
-through the read-only cache and takes every other forest up to depth 15.
-The TPU tiling, VMEM estimates, split grid and compile walls have no
-counterpart here.
+Two kernels run these tables, each with one entry point and one launch
+counter per form. Kernel C (csrc/fold.cu) stages tiles of whole trees in
+shared memory and restages them for every block of rows; the deep kernel
+(csrc/fold_deep.cu, dual and sign forms, the counterpart of the subtree-
+split fold) stages only the rows and reads each visited node through the
+read-only cache. ``fold_plan`` picks the one measured faster: kernel C while
+its block restages at most 1.5 bytes of tables per node visit and holds a
+tile of 16 trees (shallow forests in 128-256-row blocks), the deep kernel
+otherwise (depth >= 9, wide rows, depth 13-15). The non-ge form has only
+kernel C. The TPU tiling, VMEM estimates, split grid and compile walls have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -56,8 +59,15 @@ MAX_SIGN_COLS = 512
 MAX_NONGE_COLS = 128
 # deeper dense tables are the SPARSE strategy's (ROADMAP Queue 1 item 7)
 MAX_DENSE_DEPTH = 15
-# kernel C descends this many trees together (kTreesInFlight, csrc/fold.cu)
+# both kernels descend this many trees together (kTreesInFlight,
+# csrc/common.cuh)
 TREES_IN_FLIGHT = 4
+# fold_plan's route, from kernel C against the deep kernel on 24 shapes
+# (65,536 rows on an H100; PERF.md section 6): kernel C wins while its block
+# restages at most this many bytes of node tables per node visit, per_tree /
+# (rows x depth), and holds a tile of this many trees
+C_MAX_STAGED_PER_VISIT = 1.5
+C_MIN_TILE = 16
 # non-ge node code bits (csrc/fold.cu kNonGe*)
 NONGE_SEL_LT = 1 << 29
 NONGE_FLIP = 1 << 30
@@ -75,15 +85,17 @@ FOLD_SIGN = CudaKernel("tahoe_fold_sign", _FOLD_ARGS,
 FOLD_NONGE = CudaKernel("tahoe_fold_nonge", _FOLD_ARGS,
                         source="tahoe_tpu_torch/csrc/fold.cu",
                         replaces="tahoe_tpu/ops/fold_kernel.py:562")
-FOLD_DEEP = CudaKernel(
-    "tahoe_fold_deep",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p],
-    source="tahoe_tpu_torch/csrc/fold_deep.cu",
-    replaces="tahoe_tpu/ops/fold_kernel.py:688",
-)
+_DEEP_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_void_p]
+FOLD_DEEP = CudaKernel("tahoe_fold_deep", _DEEP_ARGS,
+                       source="tahoe_tpu_torch/csrc/fold_deep.cu",
+                       replaces="tahoe_tpu/ops/fold_kernel.py:688")
+FOLD_DEEP_SIGN = CudaKernel("tahoe_fold_deep_sign", _DEEP_ARGS,
+                            source="tahoe_tpu_torch/csrc/fold_deep.cu",
+                            replaces="tahoe_tpu/ops/fold_kernel.py:688")
 FOLD_KERNELS = {"dual": FOLD, "sign": FOLD_SIGN, "nonge": FOLD_NONGE}
+DEEP_KERNELS = {"dual": FOLD_DEEP, "sign": FOLD_DEEP_SIGN}
 
 # the plain version folds a chunk of rows at a time; this bounds the bytes of
 # one chunk's widest level (gathered x, its compare and the f32 frontier)
@@ -197,12 +209,12 @@ def fold_launch(width: int, depth: int, num_trees: int, limits: GpuLimits, *,
                 ) -> FoldLaunch | None:
     """Kernel C's block shape: one thread per row, the block's rows staged
     in shared memory at an odd stride, then as many trees' node tables per
-    tile as fit. Aims at half the opt-in budget so two blocks share an SM;
-    takes the whole budget, then fewer rows, when ``min_tile`` trees do not
-    fit (only ``budget`` when given). None when no block of >= 32 rows holds
+    tile as fit. Aims at half an SM so two blocks share one; takes the whole
+    opt-in budget, then fewer rows, when ``min_tile`` trees do not fit (only
+    ``budget`` when given). None when no block of >= 32 rows holds
     ``min_tile`` trees."""
-    per_tree = ((1 << depth) - 1) * 8 + (1 << depth) * 4
-    budgets = ((limits.smem_per_block // 2, limits.smem_per_block)
+    per_tree = tree_bytes(depth)
+    budgets = ((limits.smem_half_sm, limits.smem_per_block)
                if budget is None else (budget,))
     for rows in (256, 128, 64, 32):
         xs = rows * (width | 1) * 4
@@ -215,13 +227,19 @@ def fold_launch(width: int, depth: int, num_trees: int, limits: GpuLimits, *,
 
 def deep_launch(width: int, limits: GpuLimits) -> DeepLaunch | None:
     """The deep kernel's block: the most rows (256 down to 32) whose staged
-    rows fit half the opt-in budget, else the whole budget."""
-    for b in (limits.smem_per_block // 2, limits.smem_per_block):
+    rows fit half an SM, else the whole opt-in budget."""
+    for b in (limits.smem_half_sm, limits.smem_per_block):
         for rows in (256, 128, 64, 32):
             xs = rows * (width | 1) * 4
             if xs <= b:
                 return DeepLaunch(rows, xs)
     return None
+
+
+def tree_bytes(depth: int) -> int:
+    """One tree's staged node tables in kernel C: (threshold, code) per node
+    and a leaf value per leaf."""
+    return ((1 << depth) - 1) * 8 + (1 << depth) * 4
 
 
 def fold_plan(form: str, width: int, depth: int, num_trees: int,
@@ -231,18 +249,23 @@ def fold_plan(form: str, width: int, depth: int, num_trees: int,
 
     - ``whole_forest`` (VMEM_FOREST): kernel C with every tree in one tile;
     - non-ge: kernel C, the only kernel of that form;
-    - otherwise kernel C when a tile of min(T, 4) trees (its trees in
-      flight) fits half the budget, else the deep kernel.
+    - otherwise kernel C when, in half an SM, a block holds a tile of
+      min(T, C_MIN_TILE) trees and restages at most C_MAX_STAGED_PER_VISIT
+      bytes of tables per node visit; else the deep kernel. On the sweep's
+      shapes that keeps kernel C up to depth 8 at 256-row blocks of narrow
+      rows (SUSY-class), up to depth 7 at 256 rows and depth 6 at 128.
     None when nothing fits."""
     T = max(num_trees, 1)
     if whole_forest:
         return fold_launch(width, depth, T, limits, min_tile=T)
     if form == "nonge":
         return fold_launch(width, depth, T, limits)
-    launch = fold_launch(width, depth, T, limits,
-                         min_tile=min(T, TREES_IN_FLIGHT),
-                         budget=limits.smem_per_block // 2)
-    return launch if launch is not None else deep_launch(width, limits)
+    launch = fold_launch(width, depth, T, limits, min_tile=min(T, C_MIN_TILE),
+                         budget=limits.smem_half_sm)
+    if launch is not None and (tree_bytes(depth) <= C_MAX_STAGED_PER_VISIT
+                               * launch.rows_per_block * max(depth, 1)):
+        return launch
+    return deep_launch(width, limits)
 
 
 def _node_cond(xv: torch.Tensor, thr: torch.Tensor, codes: torch.Tensor,
@@ -264,12 +287,12 @@ def _node_features(codes: torch.Tensor, form: str) -> torch.Tensor:
     return codes.to(torch.int64)
 
 
-def fold_margins_plain(x: torch.Tensor, thresholds: torch.Tensor,
-                       fids: torch.Tensor, leaf: torch.Tensor, depth: int,
-                       form: str = "dual") -> torch.Tensor:
+def fold_margins_plain(x: torch.Tensor, t: FoldTables) -> torch.Tensor:
     """Plain PyTorch version of kernel C (every form) and of the deep
-    kernel: per level a gather of every node's feature, the form's compare,
+    kernel: per level a gather of every node's feature, the tables' compare,
     then the bottom-up where-fold of the JAX kernel; leaves summed in f64."""
+    thresholds, fids, leaf, depth, form = (t.thresholds, t.fids, t.leaf,
+                                           t.depth, t.form)
     T = leaf.shape[0]
     levels = []
     for d in range(depth):
@@ -293,62 +316,65 @@ def fold_margins_plain(x: torch.Tensor, thresholds: torch.Tensor,
     return torch.cat(out)
 
 
-def _check_tables(x: torch.Tensor, thresholds: torch.Tensor,
-                  fids: torch.Tensor, leaf: torch.Tensor, depth: int) -> None:
+def _check(x: torch.Tensor, t: FoldTables) -> None:
+    """The kernels take raw pointers: rows and tables must be what they
+    read."""
     dev = x.device
     check_operand(x, "x", torch.float32, dev, 2)
-    check_operand(thresholds, "thresholds", torch.float32, dev, 2)
-    check_operand(fids, "fids", torch.int32, dev, 2)
-    check_operand(leaf, "leaf", torch.float32, dev, 2)
-    T = leaf.shape[0]
-    N = (1 << depth) - 1
-    if (thresholds.shape != (T, N) or fids.shape != (T, N)
-            or leaf.shape[1] != 1 << depth):
+    check_operand(t.thresholds, "thresholds", torch.float32, dev, 2)
+    check_operand(t.fids, "fids", torch.int32, dev, 2)
+    check_operand(t.leaf, "leaf", torch.float32, dev, 2)
+    T, N = t.leaf.shape[0], (1 << t.depth) - 1
+    if (t.thresholds.shape != (T, N) or t.fids.shape != (T, N)
+            or t.leaf.shape[1] != 1 << t.depth):
         raise ValueError(
-            f"tables {tuple(thresholds.shape)} / {tuple(fids.shape)} / "
-            f"{tuple(leaf.shape)} do not match depth {depth}")
+            f"tables {tuple(t.thresholds.shape)} / {tuple(t.fids.shape)} / "
+            f"{tuple(t.leaf.shape)} do not match depth {t.depth}")
+    if x.shape[1] != t.width:
+        raise ValueError(f"rows {tuple(x.shape)} are not {t.width} wide "
+                         f"({t.form} form over {t.num_cols} features)")
 
 
-def fold_margins_cuda(x: torch.Tensor, thresholds: torch.Tensor,
-                      fids: torch.Tensor, leaf: torch.Tensor, depth: int,
-                      launch: FoldLaunch, form: str = "dual") -> torch.Tensor:
+def fold_margins_cuda(x: torch.Tensor, t: FoldTables,
+                      launch: FoldLaunch) -> torch.Tensor:
     """Kernel C on the card (csrc/fold.cu), in the tables' form."""
-    _check_tables(x, thresholds, fids, leaf, depth)
+    _check(x, t)
+    dev = x.device
     R, W = x.shape
-    out = torch.empty(R, dtype=torch.float32, device=x.device)
-    FOLD_KERNELS[form].launch(
-        x.device, ptr(x), R, W, ptr(thresholds), ptr(fids), ptr(leaf),
-        leaf.shape[0], depth, launch.rows_per_block, launch.tile_trees,
+    out = torch.empty(R, dtype=torch.float32, device=dev)
+    FOLD_KERNELS[t.form].launch(
+        dev, ptr(x), R, W, ptr(t.thresholds), ptr(t.fids), ptr(t.leaf),
+        t.leaf.shape[0], t.depth, launch.rows_per_block, launch.tile_trees,
         launch.smem_bytes, ptr(out))
     return out
 
 
-def deep_nodes(thresholds: torch.Tensor, fids: torch.Tensor) -> torch.Tensor:
+def deep_nodes(t: FoldTables) -> torch.Tensor:
     """[T, N, 2] int32: each node's (threshold bits, code), the deep
     kernel's one 8-byte load per visited node."""
-    return torch.stack([thresholds.view(torch.int32), fids], dim=-1).contiguous()
+    return torch.stack([t.thresholds.view(torch.int32), t.fids],
+                       dim=-1).contiguous()
 
 
-def fold_deep_cuda(x: torch.Tensor, nodes: torch.Tensor, leaf: torch.Tensor,
-                   depth: int, launch: DeepLaunch,
-                   form: str = "dual") -> torch.Tensor:
-    """The deep kernel on the card (csrc/fold_deep.cu), dual or sign form."""
+def fold_deep_cuda(x: torch.Tensor, t: FoldTables, nodes: torch.Tensor,
+                   launch: DeepLaunch) -> torch.Tensor:
+    """The deep kernel on the card (csrc/fold_deep.cu) in the tables' form,
+    dual or sign; ``nodes`` is ``deep_nodes(t)``."""
+    if t.form not in DEEP_KERNELS:
+        raise ValueError(f"the deep kernel takes the dual and sign forms, "
+                         f"not {t.form}")
+    _check(x, t)
     dev = x.device
-    if form not in ("dual", "sign"):
-        raise ValueError(f"the deep kernel takes the dual and sign forms, not {form}")
-    check_operand(x, "x", torch.float32, dev, 2)
     check_operand(nodes, "nodes", torch.int32, dev, 3)
-    check_operand(leaf, "leaf", torch.float32, dev, 2)
     R, W = x.shape
-    T = leaf.shape[0]
-    if nodes.shape != (T, (1 << depth) - 1, 2) or leaf.shape[1] != 1 << depth:
-        raise ValueError(
-            f"tables {tuple(nodes.shape)} / {tuple(leaf.shape)} do not match "
-            f"depth {depth}")
+    T = t.leaf.shape[0]
+    if nodes.shape != (T, (1 << t.depth) - 1, 2):
+        raise ValueError(f"nodes {tuple(nodes.shape)} do not match the "
+                         f"tables' {T} trees of depth {t.depth}")
     out = torch.empty(R, dtype=torch.float32, device=dev)
-    FOLD_DEEP.launch(dev, ptr(x), R, W, ptr(nodes), ptr(leaf), T, depth,
-                     int(form == "sign"), launch.rows_per_block,
-                     launch.smem_bytes, ptr(out))
+    DEEP_KERNELS[t.form].launch(dev, ptr(x), R, W, ptr(nodes), ptr(t.leaf), T,
+                                t.depth, launch.rows_per_block,
+                                launch.smem_bytes, ptr(out))
     return out
 
 
@@ -381,8 +407,8 @@ class FoldKernelEngine:
                 f"32-row block do not fit {limits.smem_per_block} bytes of "
                 f"shared memory")
         deep = isinstance(self.launch, DeepLaunch)
-        self.kernel = FOLD_DEEP if deep else FOLD_KERNELS[t.form]
-        self.nodes = deep_nodes(t.thresholds, t.fids) if deep else None
+        self.kernel = (DEEP_KERNELS if deep else FOLD_KERNELS)[t.form]
+        self.nodes = deep_nodes(t) if deep else None
 
     def canonicalize(self, rows) -> torch.Tensor:
         """Raw rows [R, C] -> [R, width] f32 (``[x, -x]`` lanes in the dual
@@ -394,15 +420,11 @@ class FoldKernelEngine:
     def margins_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Margins of canonicalized rows: the plain version on a CPU tensor,
         the engine's kernel on a CUDA one."""
-        t = self.tables
         if x.device.type == "cpu":
-            return fold_margins_plain(x, t.thresholds, t.fids, t.leaf, t.depth,
-                                      t.form)
+            return fold_margins_plain(x, self.tables)
         if self.nodes is not None:
-            return fold_deep_cuda(x, self.nodes, t.leaf, t.depth, self.launch,
-                                  t.form)
-        return fold_margins_cuda(x, t.thresholds, t.fids, t.leaf, t.depth,
-                                 self.launch, t.form)
+            return fold_deep_cuda(x, self.tables, self.nodes, self.launch)
+        return fold_margins_cuda(x, self.tables, self.launch)
 
     def margins(self, rows) -> torch.Tensor:
         return self.margins_rows(self.canonicalize(rows))

@@ -17,8 +17,10 @@ from tahoe_tpu_torch.ops.bucketed import (
     DepthBucketedRankEngine,
 )
 from tahoe_tpu_torch.ops.fold_kernel import (
+    DEEP_KERNELS,
     FOLD,
     FOLD_DEEP,
+    FOLD_DEEP_SIGN,
     FOLD_NONGE,
     FOLD_SIGN,
     FoldKernelEngine,
@@ -108,9 +110,9 @@ def test_fold_kernel(dev, depth, trees):
     # kernel C's own block, also at depth 12, where the engine takes the
     # deep kernel
     launch = fold_launch(t.width, t.depth, trees, GpuLimits.for_device(dev))
-    got = fold_margins_cuda(x2, t.thresholds, t.fids, t.leaf, t.depth, launch)
+    got = fold_margins_cuda(x2, t, launch)
     torch.cuda.synchronize()
-    want = fold_margins_plain(x2, t.thresholds, t.fids, t.leaf, t.depth)
+    want = fold_margins_plain(x2, t)
     assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
 
 
@@ -154,19 +156,21 @@ def _wide_forest(trees, depth, num_cols, active, seed, **kw):
 
 @pytest.mark.parametrize("depth", [6, 8])
 def test_fold_sign_kernel(dev, depth):
+    """Kernel C's sign form in its own block (cup98-class rows route to the
+    deep kernel, tested below)."""
     forest = compiler.hot_child_swap(_wide_forest(
         60, depth, 479, 300, seed=depth, leaf_prob=0.05, missing=-999.0))
     data = _data(2500, 479, depth + 1, missing=-999.0)
     eng = FoldKernelEngine(forest, device=dev)
-    assert eng.kernel is FOLD_SIGN
     x = eng.canonicalize(data)
     t = eng.tables
+    assert t.form == "sign"
+    launch = fold_launch(t.width, t.depth, 60, GpuLimits.for_device(dev))
     before = FOLD_SIGN.launches
-    got = fold_margins_cuda(x, t.thresholds, t.fids, t.leaf, t.depth,
-                            eng.launch, "sign")
+    got = fold_margins_cuda(x, t, launch)
     torch.cuda.synchronize()
     assert FOLD_SIGN.launches == before + 1
-    want = fold_margins_plain(x, t.thresholds, t.fids, t.leaf, t.depth, "sign")
+    want = fold_margins_plain(x, t)
     assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
     np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
                                Forest(forest, device="cpu").predict_oracle(data),
@@ -182,10 +186,9 @@ def test_fold_nonge_kernel(dev, depth, cols):
     assert eng.kernel is FOLD_NONGE
     x = eng.canonicalize(data)
     t = eng.tables
-    got = fold_margins_cuda(x, t.thresholds, t.fids, t.leaf, t.depth,
-                            eng.launch, "nonge")
+    got = fold_margins_cuda(x, t, eng.launch)
     torch.cuda.synchronize()
-    want = fold_margins_plain(x, t.thresholds, t.fids, t.leaf, t.depth, "nonge")
+    want = fold_margins_plain(x, t)
     assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
     np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
                                Forest(forest, device="cpu").predict_oracle(data),
@@ -199,14 +202,15 @@ def test_fold_deep_kernel(dev, depth, cols, active):
         9, depth, cols, active, seed=depth, leaf_prob=0.02))
     data = _data(1500, cols, depth + 2)
     eng = FoldKernelEngine(forest, device=dev)
-    assert eng.kernel is FOLD_DEEP
-    x = eng.canonicalize(data)
     t = eng.tables
-    before = FOLD_DEEP.launches
-    got = fold_deep_cuda(x, eng.nodes, t.leaf, t.depth, eng.launch, t.form)
+    kernel = FOLD_DEEP_SIGN if active > 64 else FOLD_DEEP
+    assert eng.kernel is kernel and DEEP_KERNELS[t.form] is kernel
+    x = eng.canonicalize(data)
+    before = kernel.launches
+    got = fold_deep_cuda(x, t, eng.nodes, eng.launch)
     torch.cuda.synchronize()
-    assert FOLD_DEEP.launches == before + 1
-    want = fold_margins_plain(x, t.thresholds, t.fids, t.leaf, t.depth, t.form)
+    assert kernel.launches == before + 1
+    want = fold_margins_plain(x, t)
     assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
     np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
                                Forest(forest, device="cpu").predict_oracle(data),
@@ -222,10 +226,8 @@ def test_kernel_c_and_deep_kernel_agree_at_depth_12(dev):
     t = eng.tables
     x = eng.canonicalize(data)
     limits = GpuLimits.for_device(dev)
-    c = fold_margins_cuda(x, t.thresholds, t.fids, t.leaf, t.depth,
-                          fold_launch(t.width, t.depth, 10, limits))
-    deep = fold_deep_cuda(x, deep_nodes(t.thresholds, t.fids), t.leaf, t.depth,
-                          deep_launch(t.width, limits))
+    c = fold_margins_cuda(x, t, fold_launch(t.width, t.depth, 10, limits))
+    deep = fold_deep_cuda(x, t, deep_nodes(t), deep_launch(t.width, limits))
     assert torch.allclose(c, deep, atol=KERNEL_ATOL, rtol=0)
 
 
@@ -233,7 +235,12 @@ def test_facade_vmem_and_bucketed_count_launches(dev):
     stumps = synthetic.generate_forest(800, 3, 10, leaf_prob=0.05, seed=23)
     mixed9 = synthetic.generate_mixed_depth_forest(60, 10, 9, seed=24)
     mixed90 = synthetic.generate_mixed_depth_forest(40, 9, 90, seed=25)
+    shallow_wide = synthetic.generate_forest(60, 6, 100, seed=27)
+    deep_wide = _wide_forest(40, 8, 479, 300, seed=28)
     for forest, strategy, engine_type, kernels in (
+            (shallow_wide, Strategy.SPLIT_FOREST, FoldKernelEngine, (FOLD_SIGN,)),
+            (deep_wide, Strategy.SPLIT_FOREST, FoldKernelEngine,
+             (FOLD_DEEP_SIGN,)),
             (stumps, Strategy.VMEM_FOREST, FoldKernelEngine, (FOLD,)),
             (mixed9, Strategy.DEPTH_BUCKETED, DepthBucketedRankEngine,
              (RANK_PLANES, RANK_FOLD)),

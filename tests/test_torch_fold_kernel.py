@@ -18,6 +18,7 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     FOLD,
     MAX_DUAL_COLS,
     FOLD_DEEP,
+    FOLD_DEEP_SIGN,
     FOLD_NONGE,
     FOLD_SIGN,
     NONGE_FID,
@@ -154,7 +155,7 @@ def test_sign_form_matches_jax_and_oracle(name):
     data = synthetic.generate_data(48, num_cols, missing=missing,
                                    missing_prob=0.1, seed=active)
     eng = FoldKernelEngine(forest, device=CPU)
-    assert eng.form == "sign" and eng.kernel is FOLD_SIGN
+    assert eng.form == "sign" and eng.kernel in (FOLD_SIGN, FOLD_DEEP_SIGN)
     assert MAX_DUAL_COLS < eng.tables.num_cols <= 512
     assert eng.canonicalize(data).shape == (48, eng.tables.num_cols)
     got = eng.predict(data).numpy()
@@ -306,10 +307,16 @@ def test_fold_caps_hold(what):
         FoldKernelEngine(forest, device=CPU, **kw)
 
 
-# (form, width, depth, trees, whole_forest) -> kernel C block or deep kernel
+# (form, width, depth, trees, whole_forest) -> kernel C block or deep kernel;
+# the ge routes are the faster kernel as measured on the sweep's shapes
 PLANS = {
     "susy_dual": ("dual", 36, 8, 500, False, FoldLaunch(256, 25, 114488)),
-    "cup98_sign": ("sign", 300, 8, 150, False, FoldLaunch(64, 12, 113824)),
+    "cup98_sign": ("sign", 300, 8, 150, False, DeepLaunch(64, 77056)),
+    "svhn_sign": ("sign", 100, 6, 200, False, FoldLaunch(256, 16, 115584)),
+    "gisette_sign": ("sign", 120, 6, 100, False, FoldLaunch(128, 70, 115152)),
+    "cifar_sign": ("sign", 120, 7, 150, False, DeepLaunch(128, 61952)),
+    "covtype_dual": ("dual", 108, 9, 250, False, DeepLaunch(256, 111616)),
+    "narrow_depth9_dual": ("dual", 32, 9, 300, False, DeepLaunch(256, 33792)),
     "deep12_dual": ("dual", 56, 12, 100, False, DeepLaunch(256, 58368)),
     "deep15_dual": ("dual", 32, 15, 30, False, DeepLaunch(256, 33792)),
     "wide_deep_sign": ("sign", 512, 12, 60, False, DeepLaunch(32, 65664)),
@@ -323,8 +330,13 @@ PLANS = {
 @pytest.mark.parametrize("name", sorted(PLANS))
 def test_fold_plan_routes(name):
     form, width, depth, trees, whole, want = PLANS[name]
-    assert fold_plan(form, width, depth, trees, GpuLimits(),
+    limits = GpuLimits()
+    assert fold_plan(form, width, depth, trees, limits,
                      whole_forest=whole) == want
+    if want is not None and want.smem_bytes <= limits.smem_half_sm:
+        # two such blocks and the runtime's reserve fit one SM
+        assert 2 * (want.smem_bytes + limits.SMEM_RESERVED_PER_BLOCK) \
+            <= limits.smem_per_sm
 
 
 @pytest.mark.parametrize("depth,rows,fits", [

@@ -20,7 +20,7 @@ from tahoe_tpu_torch.ops.bucketed import (
     DepthBucketedFoldEngine,
     DepthBucketedRankEngine,
 )
-from tahoe_tpu_torch.ops.fold_kernel import FOLD, FOLD_DEEP, FOLD_SIGN
+from tahoe_tpu_torch.ops.fold_kernel import FOLD, FOLD_DEEP, FOLD_DEEP_SIGN, FOLD_SIGN
 from tahoe_tpu_torch.ops.rows import canonicalize_rows
 from tahoe_tpu_torch.ops.transform import apply_output_transform
 
@@ -169,22 +169,23 @@ def test_depth_bucketed_through_the_facade(tmp_path, cols, variant):
     assert "uniform" in uniform.feasible(Strategy.DEPTH_BUCKETED)
 
 
-# sweep families (scripts/run_sweep.py SHAPES): (trees, depth, cols, active)
+# sweep families (scripts/run_sweep.py SHAPES): (trees, depth, cols, active,
+# the kernel measured faster on the H100)
 SWEEP_SHAPES = {
-    "susy_like": (500, 8, 18, None),
-    "allstate_like": (250, 8, 130, None),
-    "cup98_like": (150, 8, 479, 300),
-    "gisette_like": (100, 6, 5000, 120),
-    "mnist_like": (100, 6, 400, None),
-    "deep13_like": (80, 13, 24, None),
-    "deep15_like": (30, 15, 16, None),
-    "stumps_like": (800, 3, 10, None),
+    "susy_like": (500, 8, 18, None, FOLD),
+    "allstate_like": (250, 8, 130, None, FOLD_DEEP_SIGN),
+    "cup98_like": (150, 8, 479, 300, FOLD_DEEP_SIGN),
+    "gisette_like": (100, 6, 5000, 120, FOLD_SIGN),
+    "mnist_like": (100, 6, 400, None, FOLD_DEEP_SIGN),
+    "deep13_like": (80, 13, 24, None, FOLD_DEEP),
+    "deep15_like": (30, 15, 16, None, FOLD_DEEP),
+    "stumps_like": (800, 3, 10, None, FOLD),
 }
 
 
 @pytest.mark.parametrize("name", sorted(SWEEP_SHAPES))
 def test_split_forest_feasible_where_jax_is(name):
-    trees, depth, cols, active = SWEEP_SHAPES[name]
+    trees, depth, cols, active, kernel = SWEEP_SHAPES[name]
     spec = synthetic.generate_forest(trees, depth, cols, active_cols=active,
                                      seed=1)
     f = Forest(spec, device="cpu")
@@ -194,10 +195,7 @@ def test_split_forest_feasible_where_jax_is(name):
     live = jax_feasibility.fold_cols(f.spec)[0]
     assert eng.tables.num_cols == live
     assert eng.form == ("dual" if live <= 64 else "sign")
-    if eng.form == "sign" and depth <= 8:
-        assert eng.kernel is FOLD_SIGN
-    if depth >= 13:
-        assert eng.kernel is FOLD_DEEP
+    assert eng.kernel is kernel
 
 
 def test_depth_bucketed_feasible_where_jax_is():
