@@ -27,9 +27,16 @@ Phases, each of which exits non-zero when it fails:
    forest in one shared-memory tile of kernel C;
 9. DEPTH_BUCKETED: its rank variant on trained_mix-class (300 trees, depths
    6-12, 26 features; kernel A once, kernel B per bucket) and its fold
-   variant on a mixed-depth forest of 90 columns (kernel C's non-ge form).
+   variant on a mixed-depth forest of 90 columns (kernel C's non-ge form);
+10. SPARSE: rf_deep18-class (200 trained trees, depth 18, 24 features),
+   which no dense strategy takes, through kernel A and the sparse kernel;
+   then a forest of 1,440 live features, past the rank planes, through the
+   plain torch gather tier, which launches no kernel;
+11. HBM_DIRECT, ROW_TILED and TENSOR, plain torch and launching no kernel,
+   on the SUSY-class forest and on phase 5's forest.
 
-Phases 6-9 run 65,536 rows each against the numpy oracle at ORACLE_ATOL,
+Phases 6-11 run 65,536 rows each (phase 11's second forest 4,096) against
+the numpy oracle at ORACLE_ATOL,
 with every kernel count set to 0 just before the path and read just after:
 the path must launch exactly its own kernels. Every kernel a path runs is
 held to its plain version on that path's tables and 65,536 rows, and every
@@ -78,7 +85,8 @@ def main() -> int:
     import numpy as np
 
     from tahoe_tpu_torch import ORACLE_ATOL, Forest, GpuLimits, Output, Strategy
-    from tahoe_tpu_torch.forest import io, quantize, synthetic
+    from tahoe_tpu_torch.forest import io, quantize, synthetic, train
+    from tahoe_tpu_torch.forest.sparse import SparseGatherEngine
     from tahoe_tpu_torch.ops import _build
     from tahoe_tpu_torch.ops.bucketed import (
         DepthBucketedFoldEngine, DepthBucketedRankEngine)
@@ -91,13 +99,17 @@ def main() -> int:
     from tahoe_tpu_torch.ops.rank_transform import (
         RANK_PLANES, rank_planes_cuda, rank_planes_plain)
     from tahoe_tpu_torch.ops.rows import canonicalize_rows
+    from tahoe_tpu_torch.ops.sparse_kernel import (
+        SPARSE_RANK, SparseRankEngine, sparse_leaves_plain, sparse_margins_cuda,
+        sparse_margins_plain)
     from tahoe_tpu_torch.utils.profiling import cuda_median_ms
 
     dev = torch.device("cuda", 0)
     kernels = {"rank_transform": RANK_PLANES, "rank_fold": RANK_FOLD,
                "fold": FOLD}
     all_kernels = {**kernels, "fold_sign": FOLD_SIGN, "fold_nonge": FOLD_NONGE,
-                   "fold_deep": FOLD_DEEP, "fold_deep_sign": FOLD_DEEP_SIGN}
+                   "fold_deep": FOLD_DEEP, "fold_deep_sign": FOLD_DEEP_SIGN,
+                   "sparse_rank": SPARSE_RANK}
 
     # -- 1. device --------------------------------------------------------
     card = card_line(torch)
@@ -231,7 +243,7 @@ def main() -> int:
         fail("[5] the thresholded oracle output is constant: no check made")
 
     # -- 6-9: the other fold paths ------------------------------------------
-    def run_path(tag, f, strategy, rows_np, want, expected):
+    def run_path(tag, f, strategy, rows_np, want, expected, iters=20):
         """One predict through the facade with every count set to 0 before
         it; exactly the ``expected`` kernels must launch. Then the output
         against the oracle, and its time."""
@@ -250,7 +262,8 @@ def main() -> int:
         err = float(np.abs(got - want).max())
         if err > ORACLE_ATOL:
             fail(f"[{tag}] {strategy.name}: max |pred - oracle| {err} > {ORACLE_ATOL}")
-        us = cuda_median_ms(lambda: f.predict(rows_d, strategy)) * 1e3 / len(rows_np)
+        us = cuda_median_ms(lambda: f.predict(rows_d, strategy),
+                            iters=iters) * 1e3 / len(rows_np)
         print(f"[{tag}] {strategy.name}: max |pred - oracle| {err} (tolerance "
               f"{ORACLE_ATOL}), {us:.6f} us/sample over {len(rows_np)} rows, "
               f"launches {counts} ({card})")
@@ -272,6 +285,24 @@ def main() -> int:
             record.setdefault(name, []).append((tag, err, ms, plain_ms))
             print(f"[{tag}] {name}: max |kernel - plain| {err} (tolerance "
                   f"{atol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+
+    def descent_reads(st, planes):
+        """Records the sparse kernel reads per (row, tree), [R, T], and the
+        share of its lane-steps that read one: a warp (32 rows) steps over
+        each group of 4 trees as long as the deepest of its 128 descents."""
+        rec = st.records.to(torch.int64)
+        internal = rec[:, 2] >= 0
+        depth = torch.zeros(rec.shape[0], dtype=torch.int64, device=dev)
+        for _ in range(st.max_depth):
+            d = depth[internal] + 1
+            depth[rec[internal, 2]] = d
+            depth[rec[internal, 2] + 1] = d
+        reads = depth[sparse_leaves_plain(planes, st.records, st.roots,
+                                          st.max_depth)] + 1
+        R, T = reads.shape
+        padded = torch.nn.functional.pad(reads, (0, -T % 4, 0, -R % 32))
+        steps = padded.view(-1, 32, padded.shape[1] // 4, 4).amax(dim=(1, 3))
+        return reads, float(reads.sum()) / float(steps.sum() * 128)
 
     limits = GpuLimits.for_device(dev)
 
@@ -409,6 +440,74 @@ def main() -> int:
                       f.predict_oracle(mix90_rows), {"fold_nonge"})
     launches["fold_nonge"] = counts["fold_nonge"]
     del f, eng, x
+
+    # 10. SPARSE: rf_deep18-class (scripts/run_sweep.py rf_deep18_like),
+    # then the gather tier past the rank planes
+    t0 = time.perf_counter()
+    deep18 = train.train_forest(200, 18, 24, rows=2048, seed=1)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f = Forest(deep18, device="cuda")
+    reason = f.feasible(Strategy.SPLIT_FOREST)
+    if reason is None or "depth 15" not in reason:
+        fail(f"[10] SPLIT_FOREST on depth {f.spec.depth}: {reason!r}, not the depth cap")
+    eng = f.engine(Strategy.SPARSE)
+    if not isinstance(eng, SparseRankEngine):
+        fail(f"[10] rf_deep18-class takes {type(eng).__name__}, not SparseRankEngine")
+    t_tables = time.perf_counter() - t0
+    st = eng.tables
+    leaves = int((st.records[:, 2] < 0).sum())
+    print(f"[10] rf_deep18-class: {f.spec.num_trees} trees, depth {f.spec.depth}, "
+          f"pool of {st.records.shape[0]} nodes ({st.records.shape[0] - leaves} "
+          f"internal), {st.groups} plane group(s), {st.q.max_ranks} thresholds "
+          f"at most per feature; trained in {t_train:.1f} s, Forest and SPARSE "
+          f"tables built in {t_tables:.1f} s (host)")
+    print(f"[10] SPLIT_FOREST: {reason}")
+    deep_rows = synthetic.generate_data(ROWS, 24, missing_prob=0.02, seed=11)
+    x = canonicalize_rows(deep_rows, eng.raw_missing, device=dev,
+                          col_index=st.col_index)
+    hold("10", {"rank_transform": lambda: rank_planes_cuda(x, st.thresholds,
+                                                           st.counts)},
+         lambda: rank_planes_plain(x, st.thresholds, st.counts), atol=0)
+    planes = rank_planes_plain(x, st.thresholds, st.counts)
+    hold("10", {"sparse_rank": lambda: sparse_margins_cuda(
+        planes, st.records, st.roots, st.max_depth)},
+        lambda: sparse_margins_plain(planes, st.records, st.roots, st.max_depth))
+    reads, lane_share = descent_reads(st, planes)
+    sparse_ms = record["sparse_rank"][0][2]
+    print(f"[10] the descent reads {float(reads.double().mean()):.3f} records per "
+          f"(row, tree), {int(reads.max())} at most, {int(reads.sum())} in all "
+          f"({int(reads.sum()) * 16 / 1e9:.3f} GB; "
+          f"{int(reads.sum()) / sparse_ms / 1e6:.3f} G records/s over the "
+          f"kernel's {sparse_ms:.4f} ms); {lane_share:.4f} of a warp's "
+          f"lane-steps read a record")
+    t0 = time.perf_counter()
+    want = f.predict_oracle(deep_rows)
+    print(f"[10] numpy oracle in {time.perf_counter() - t0:.1f} s (host)")
+    counts = run_path("10", f, Strategy.SPARSE, deep_rows, want,
+                      {"rank_transform", "sparse_rank"})
+    launches["sparse_rank"] = counts["sparse_rank"]
+    del f, eng, st, x, planes, deep18
+
+    wide = synthetic.generate_forest(40, 6, 3 * 480, seed=23)
+    wide_rows = synthetic.generate_data(ROWS, 3 * 480, missing_prob=0.02, seed=12)
+    f = Forest(wide, device="cuda")
+    reason = SparseRankEngine.feasible(f.spec)
+    if reason is None or not isinstance(f.engine(Strategy.SPARSE),
+                                        SparseGatherEngine):
+        fail("[10] the 1,440-feature forest does not take the gather tier")
+    print(f"[10] 1,440 live features: {reason}; SPARSE takes SparseGatherEngine")
+    run_path("10", f, Strategy.SPARSE, wide_rows, f.predict_oracle(wide_rows),
+             set(), iters=5)
+    del f, wide_rows
+
+    # 11. the plain torch strategies, no kernel
+    for spec, rows_np in ((forest, data), (edge, edge_data)):
+        f = Forest(spec, device="cuda")
+        want = f.predict_oracle(rows_np)
+        for s in (Strategy.HBM_DIRECT, Strategy.ROW_TILED, Strategy.TENSOR):
+            run_path("11", f, s, rows_np, want, set(), iters=5)
+        del f
 
     # the non-ge buckets are timed one at a time: the record sums them
     nonge = record.pop("fold_nonge")

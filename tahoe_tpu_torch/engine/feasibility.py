@@ -1,9 +1,11 @@
-"""Per-strategy feasibility predicates for the ported strategies.
+"""Per-strategy feasibility predicates.
 
-The counterpart of tahoe_tpu/engine/feasibility.py for SPLIT_FOREST,
-VMEM_FOREST, DEPTH_BUCKETED and RANK_MXU: where the TPU engines check VMEM
-budgets and compile walls, the CUDA kernels check feature caps, the dense
-depth cap and shared memory per block (GpuLimits).
+The counterpart of tahoe_tpu/engine/feasibility.py for all eight
+strategies: where the TPU engines check VMEM budgets and compile walls, the
+CUDA kernels check feature caps, the dense depth cap and shared memory per
+block (GpuLimits). The plain torch engines and SPARSE keep the JAX limits
+(feasibility.py:128-146): 2 GiB of device tables, priced at the port's bytes
+per node, and depth <= 14 for the leveled form.
 """
 from __future__ import annotations
 
@@ -12,12 +14,12 @@ from typing import Optional, Tuple
 import numpy as np
 
 from tahoe_tpu.forest.compiler import (
-    RANK_MAX,
     RANK_MAX_COLS,
     rank_groups,
     reachable_depths,
     reachable_mask,
 )
+from tahoe_tpu.config import forest_num_nodes
 from tahoe_tpu.forest.spec import ForestSpec
 from tahoe_tpu_torch.config import GpuLimits, Strategy
 from tahoe_tpu_torch.ops.fold_kernel import (
@@ -30,6 +32,14 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     fold_plan,
     row_width,
 )
+from tahoe_tpu_torch.ops.gather_engine import NODE_BYTES
+from tahoe_tpu_torch.ops.rank_kernel import rank_virtual_cols
+from tahoe_tpu_torch.ops.sparse_kernel import RECORD_BYTES
+
+# the JAX package's caps on device tables (feasibility.py:138, :145)
+TABLE_CAP_BYTES = 2 << 30
+# the leveled form stores 2^depth leaves per tree (feasibility.py:130)
+MAX_LEVELED_DEPTH = 14
 
 
 def fold_cols(forest: ForestSpec) -> Tuple[int, str]:
@@ -38,22 +48,6 @@ def fold_cols(forest: ForestSpec) -> Tuple[int, str]:
     package): "dual" up to 64 live features, "sign" above."""
     lev, _, form = fold_leveled(forest)
     return lev.num_cols, form
-
-
-def rank_virtual_cols(forest: ForestSpec) -> int:
-    """Virtual feature count after rank band splitting over LIVE features
-    (engine/feasibility.py:203 of the JAX package)."""
-    internal = ~forest.is_leaf & reachable_mask(forest)
-    if not internal.any():
-        return 1
-    f = forest.fids[internal].ravel()
-    v = forest.values[internal].ravel()
-    order = np.lexsort((v, f))
-    fs, vs = f[order], v[order]
-    new = np.ones(fs.size, bool)
-    new[1:] = (fs[1:] != fs[:-1]) | (vs[1:] != vs[:-1])
-    k = np.bincount(fs[new], minlength=forest.num_cols)
-    return int(sum(max(1, -(-int(k[ff]) // RANK_MAX)) for ff in np.unique(fs)))
 
 
 def rank_buckets_fit(forest: ForestSpec) -> bool:
@@ -68,8 +62,26 @@ def rank_buckets_fit(forest: ForestSpec) -> bool:
 def _depth_reason(depth: int) -> Optional[str]:
     if depth > MAX_DENSE_DEPTH:
         return (f"dense fold tables stop at depth {MAX_DENSE_DEPTH}, forest "
-                f"has depth {depth} (SPARSE's range, ROADMAP Queue 1 item 7)")
+                f"has depth {depth} (SPARSE serves it)")
     return None
+
+
+def _table_reason(what: str, nbytes: int) -> Optional[str]:
+    if nbytes > TABLE_CAP_BYTES:
+        return (f"{what} ~{nbytes / 2**30:.1f} GiB > "
+                f"{TABLE_CAP_BYTES / 2**30:.0f} GiB")
+    return None
+
+
+def _rank_reason(forest: ForestSpec) -> Optional[str]:
+    vcols = rank_virtual_cols(forest)
+    if vcols > RANK_MAX_COLS:
+        return (f"forest needs {vcols} banded virtual live features "
+                f"> {RANK_MAX_COLS}")
+    nodes = (1 << forest.depth) - 1
+    return _table_reason(
+        f"dense rank tables (depth {forest.depth})",
+        forest.num_trees * (nodes * 128 * rank_groups(vcols) + 4 * (nodes + 1)))
 
 
 def _fold_reason(strategy: Strategy, forest: ForestSpec,
@@ -123,8 +135,17 @@ def check(strategy: Strategy, forest: ForestSpec,
     if strategy == Strategy.DEPTH_BUCKETED:
         return _bucketed_reason(forest, limits)
     if strategy == Strategy.RANK_MXU:
-        vcols = rank_virtual_cols(forest)
-        if vcols > RANK_MAX_COLS:
-            return (f"forest needs {vcols} banded virtual live features "
-                    f"> {RANK_MAX_COLS}")
+        return _rank_reason(forest)
+    if strategy == Strategy.SPARSE:
+        pool = int(reachable_mask(forest).sum())
+        return _table_reason(f"sparse node pool of {pool} nodes",
+                             pool * RECORD_BYTES)
+    if strategy == Strategy.HBM_DIRECT:
+        return _table_reason(
+            f"dense node tables (complete trees of depth {forest.depth})",
+            forest_num_nodes(forest.num_trees, forest.depth) * NODE_BYTES)
+    if strategy in (Strategy.ROW_TILED, Strategy.TENSOR):
+        if forest.depth > MAX_LEVELED_DEPTH:
+            return (f"leveled form of depth {forest.depth} is too large "
+                    f"(> {MAX_LEVELED_DEPTH})")
     return None

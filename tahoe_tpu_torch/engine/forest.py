@@ -1,7 +1,6 @@
 """User-facing runtime of the port: one Forest handle, one predict.
 
-The counterpart of tahoe_tpu/engine/forest.py for the strategies ported so
-far:
+The counterpart of tahoe_tpu/engine/forest.py, serving all eight strategies:
 
   SPLIT_FOREST   -> FoldKernelEngine (f32 fold: kernel C in the dual or sign
                     form, or the deep kernel at depth 12-15)
@@ -10,32 +9,38 @@ far:
   DEPTH_BUCKETED -> make_depth_bucketed_engine (kernels A + B per bucket, or
                     the fold per bucket, non-ge for 65-128 columns)
   RANK_MXU       -> RankFoldEngine   (rank transform + traversal, kernels A, B)
+  SPARSE         -> SparseRankEngine (kernel A + the sparse kernel) where its
+                    ``feasible`` holds, else SparseGatherEngine (plain torch)
+  HBM_DIRECT     -> GatherEngine on the hot-swapped, clustered forest
+  ROW_TILED      -> TensorEngine("take") on the leveled forest
+  TENSOR         -> TensorEngine("onehot") on the leveled forest
 
-Every other strategy raises NotImplementedError naming its ROADMAP item; none
-is routed to another engine. The device is an explicit argument: on ``cpu``
-the engines run the kernels' plain PyTorch versions, on ``cuda`` the kernels.
+The last three are plain torch, as they are plain XLA in the JAX package.
+The compiled and leveled layouts are built on first use, only for the
+strategies that read them: at depth 18 a complete-tree layout holds 10^8
+nodes. The device is an explicit argument: on ``cpu`` the engines run the
+kernels' plain PyTorch versions, on ``cuda`` the kernels; no strategy falls
+back to another engine when a build or a launch fails.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
 
 from tahoe_tpu.forest import compiler, io
-from tahoe_tpu.forest.spec import ForestSpec
+from tahoe_tpu.forest.spec import ForestSpec, LeveledForest
 from tahoe_tpu.ops import oracle
 from tahoe_tpu_torch.config import GpuLimits, Output, Strategy, resolve_device
 from tahoe_tpu_torch.engine import feasibility
+from tahoe_tpu_torch.forest.sparse import SparseGatherEngine, from_dense
 from tahoe_tpu_torch.ops.bucketed import make_depth_bucketed_engine
 from tahoe_tpu_torch.ops.fold_kernel import FoldKernelEngine
+from tahoe_tpu_torch.ops.gather_engine import GatherEngine
 from tahoe_tpu_torch.ops.rank_kernel import RankFoldEngine
-
-NOT_PORTED = {
-    Strategy.HBM_DIRECT: "ROADMAP Queue 1 item 6",
-    Strategy.ROW_TILED: "ROADMAP Queue 1 item 6",
-    Strategy.TENSOR: "ROADMAP Queue 1 item 6",
-    Strategy.SPARSE: "ROADMAP Queue 1 item 7",
-}
+from tahoe_tpu_torch.ops.sparse_kernel import SparseRankEngine
+from tahoe_tpu_torch.ops.tensor_engine import TensorEngine
 
 
 class Forest:
@@ -73,14 +78,23 @@ class Forest:
                              num_cols=num_cols)
         return cls(spec, device=device)
 
+    @functools.cached_property
+    def compiled(self) -> ForestSpec:
+        """The hot-swapped, clustered forest (compiler.compile_forest's
+        first two passes) that HBM_DIRECT reads."""
+        swapped = compiler.hot_child_swap(self.spec)
+        return compiler.cluster_trees(swapped)[0]
+
+    @functools.cached_property
+    def leveled(self) -> LeveledForest:
+        """The unswapped leveled form that ROW_TILED and TENSOR read."""
+        return compiler.levelize(self.spec)
+
     def feasible(self, strategy: Strategy) -> Optional[str]:
         return feasibility.check(strategy, self.spec, self.limits)
 
     def engine(self, strategy: Strategy):
         """Build (or fetch) the engine realizing a strategy."""
-        if strategy in NOT_PORTED:
-            raise NotImplementedError(
-                f"strategy {strategy.name} not ported yet: {NOT_PORTED[strategy]}")
         if strategy in self._engines:
             return self._engines[strategy]
         reason = self.feasible(strategy)
@@ -90,6 +104,17 @@ class Forest:
             eng = RankFoldEngine(self.spec, device=self.device)
         elif strategy == Strategy.DEPTH_BUCKETED:
             eng = make_depth_bucketed_engine(self.spec, device=self.device)
+        elif strategy == Strategy.SPARSE:
+            if SparseRankEngine.feasible(self.spec) is None:
+                eng = SparseRankEngine(self.spec, device=self.device)
+            else:
+                eng = SparseGatherEngine(from_dense(self.spec), device=self.device)
+        elif strategy == Strategy.HBM_DIRECT:
+            eng = GatherEngine(self.compiled, device=self.device)
+        elif strategy in (Strategy.ROW_TILED, Strategy.TENSOR):
+            eng = TensorEngine(
+                self.leveled, device=self.device,
+                select_mode="take" if strategy == Strategy.ROW_TILED else "onehot")
         else:
             eng = FoldKernelEngine(
                 self.spec, device=self.device,

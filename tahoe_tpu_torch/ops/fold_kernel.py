@@ -57,7 +57,7 @@ MAX_DUAL_COLS = 64
 MAX_SIGN_COLS = 512
 # the JAX non-ge kernel gathers from one 128-lane feature vreg
 MAX_NONGE_COLS = 128
-# deeper dense tables are the SPARSE strategy's (ROADMAP Queue 1 item 7)
+# deeper forests are the SPARSE strategy's (ops/sparse_kernel.py)
 MAX_DENSE_DEPTH = 15
 # both kernels descend this many trees together (kTreesInFlight,
 # csrc/common.cuh)

@@ -2,8 +2,9 @@
 rank-MXU engine around it.
 
 The port of tahoe_tpu/ops/rank_kernel.py ``RankFoldEngine``. The host side
-is the JAX engine's, on the shared numpy compiler: truncate_depth ->
-compact_features -> quantize -> band_split -> quantized_spec_for_engines ->
+is the JAX engine's, on the shared numpy compiler: ``rank_quantize``
+(truncate_depth -> compact_features -> quantize -> band_split, shared with
+the sparse engine, ops/sparse_kernel.py) -> quantized_spec_for_engines ->
 levelize -> rank_normalize. Each node's whole routing rule (missing,
 def_left, exchange, compare) is one int8 column R_d[:, node] with
 
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from tahoe_tpu.forest.compiler import (
+    RANK_MAX,
     RANK_MAX_COLS,
     RANK_MAX_GROUPS,
     compact_features,
@@ -34,6 +36,7 @@ from tahoe_tpu.forest.compiler import (
     rank_groups,
     rank_normalize,
     reachable_depths,
+    reachable_mask,
     truncate_depth,
 )
 from tahoe_tpu.forest.quantize import (
@@ -62,31 +65,100 @@ RANK_FOLD = CudaKernel(
 PLAIN_CHUNK_BYTES = 256 << 20
 
 
+def rank_virtual_cols(forest: ForestSpec) -> int:
+    """Virtual feature count after rank band splitting over LIVE features
+    (engine/feasibility.py:203 of the JAX package)."""
+    internal = ~forest.is_leaf & reachable_mask(forest)
+    if not internal.any():
+        return 1
+    f = forest.fids[internal].ravel()
+    v = forest.values[internal].ravel()
+    order = np.lexsort((v, f))
+    fs, vs = f[order], v[order]
+    new = np.ones(fs.size, bool)
+    new[1:] = (fs[1:] != fs[:-1]) | (vs[1:] != vs[:-1])
+    k = np.bincount(fs[new], minlength=forest.num_cols)
+    return int(sum(max(1, -(-int(k[ff]) // RANK_MAX)) for ff in np.unique(fs)))
+
+
+def rank_quantize(spec: ForestSpec, band: int | None = None
+                  ) -> tuple[RankQuantizedForest, np.ndarray | None]:
+    """The host quantization both rank engines share (rank_kernel.py:662-668,
+    sparse_kernel.py:415-437): truncate_depth -> compact_features ->
+    quantize -> band_split. Returns (q, gather): the (banded) rank-quantized
+    forest and the data column of each virtual feature, or None when that
+    is the identity."""
+    forest = truncate_depth(spec, int(reachable_depths(spec).max(initial=0)))
+    forest, col_index = compact_features(forest)
+    if forest.num_cols > RANK_MAX_COLS:
+        raise NotImplementedError(
+            f"rank kernels support <= {RANK_MAX_COLS} live features; "
+            f"got {forest.num_cols}")
+    q, vf_base = band_split(quantize(forest), band)
+    if col_index is None:
+        return q, vf_base
+    if vf_base is None:
+        return q, col_index
+    return q, col_index[vf_base]
+
+
 @dataclasses.dataclass(frozen=True)
-class RankTables:
-    """A forest compiled for the rank engine, as tensors on one device.
+class RankInput:
+    """What kernel A needs, on one device; both rank engines' tables extend
+    it.
 
     - ``q``: the (banded) rank-quantized forest, on the host;
     - ``col_index``: [F_v] int64 data-column gather (compaction composed
       with band expansion), or None;
     - ``thresholds`` [F_v, K] f32 / ``counts`` [F_v] int32: kernel A's
-      tables (rank_transform.threshold_table);
-    - ``mats`` [T, 2^D - 1, 128*G] int8: node n = 2^d - 1 + j of a tree is
-      column j of level d's R_d;
-    - ``leaf`` [T, 2^D] f32, in the mirror-composed rank_normalize order.
+      tables (rank_transform.threshold_table).
     """
 
     q: RankQuantizedForest
     col_index: torch.Tensor | None
     thresholds: torch.Tensor
     counts: torch.Tensor
-    mats: torch.Tensor
-    leaf: torch.Tensor
-    depth: int
 
     @property
     def groups(self) -> int:
-        return self.mats.shape[2] // LANE
+        return rank_groups(self.q.spec.num_cols)
+
+    def planes(self, rows, raw_missing: float) -> torch.Tensor:
+        """Raw rows [R, C] -> int8 planes [R, 128*G] (kernel A)."""
+        x = canonicalize_rows(rows, raw_missing, device=self.thresholds.device,
+                              col_index=self.col_index)
+        return rank_planes(x, self.thresholds, self.counts)
+
+
+def rank_input(q: RankQuantizedForest, gather: np.ndarray | None, *,
+               device: torch.device) -> dict:
+    """The RankInput fields of a quantized forest, on ``device``."""
+    if q.spec.num_cols > RANK_MAX_COLS:
+        raise NotImplementedError(
+            f"banded forest needs {q.spec.num_cols} virtual features "
+            f"> {RANK_MAX_COLS}")
+    thresholds, counts = threshold_table(q.tables, device=device)
+    return dict(
+        q=q,
+        col_index=(None if gather is None
+                   else torch.as_tensor(gather, dtype=torch.int64, device=device)),
+        thresholds=thresholds,
+        counts=counts,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class RankTables(RankInput):
+    """A forest compiled for the rank engine: kernel A's RankInput, plus
+
+    - ``mats`` [T, 2^D - 1, 128*G] int8: node n = 2^d - 1 + j of a tree is
+      column j of level d's R_d;
+    - ``leaf`` [T, 2^D] f32, in the mirror-composed rank_normalize order.
+    """
+
+    mats: torch.Tensor
+    leaf: torch.Tensor
+    depth: int
 
 
 def rank_tables(spec: ForestSpec, band: int | None = None, *,
@@ -99,38 +171,16 @@ def rank_tables(spec: ForestSpec, band: int | None = None, *,
     larger forest, of which ``q.spec`` is a tree subset, and the final data
     column gather (rank_kernel.py:662-668): every subset then shares one
     threshold table and so one kernel-A transform."""
-    if prequantized is not None:
-        q, gather = prequantized
-    else:
-        forest = truncate_depth(spec, int(reachable_depths(spec).max(initial=0)))
-        forest, col_index = compact_features(forest)
-        if forest.num_cols > RANK_MAX_COLS:
-            raise NotImplementedError(
-                f"rank-MXU kernel supports <= {RANK_MAX_COLS} live features; "
-                f"got {forest.num_cols}")
-        q, vf_base = band_split(quantize(forest), band)
-        if col_index is None:
-            gather = vf_base
-        elif vf_base is None:
-            gather = col_index
-        else:
-            gather = col_index[vf_base]
-    if q.spec.num_cols > RANK_MAX_COLS:
-        raise NotImplementedError(
-            f"banded forest needs {q.spec.num_cols} virtual features "
-            f"> {RANK_MAX_COLS}")
+    q, gather = (prequantized if prequantized is not None
+                 else rank_quantize(spec, band))
+    fields = rank_input(q, gather, device=device)
     lev = levelize(quantized_spec_for_engines(q))
     mats, leaf = rank_normalize(lev)
     K = LANE * rank_groups(lev.num_cols)
     node_cols = (np.concatenate([m.transpose(1, 2, 0) for m in mats], axis=1)
                  if mats else np.zeros((lev.num_trees, 0, K), np.int8))
-    thresholds, counts = threshold_table(q.tables, device=device)
     return RankTables(
-        q=q,
-        col_index=(None if gather is None
-                   else torch.as_tensor(gather, dtype=torch.int64, device=device)),
-        thresholds=thresholds,
-        counts=counts,
+        **fields,
         mats=torch.as_tensor(np.ascontiguousarray(node_cols), device=device),
         leaf=torch.as_tensor(leaf, device=device),
         depth=lev.depth,
@@ -231,9 +281,7 @@ class RankFoldEngine:
 
     def transform(self, rows) -> torch.Tensor:
         """Raw rows [R, C] -> int8 planes [R, 128*G] (kernel A)."""
-        x = canonicalize_rows(rows, self.raw_missing, device=self.device,
-                              col_index=self.tables.col_index)
-        return rank_planes(x, self.tables.thresholds, self.tables.counts)
+        return self.tables.planes(rows, self.raw_missing)
 
     def margins_planes(self, planes) -> torch.Tensor:
         planes = torch.as_tensor(planes, dtype=torch.int8, device=self.device)

@@ -9,7 +9,10 @@ One function for what the JAX package does in four places
   engine, the banded virtual features' source columns);
 - the fold's dual ``[x, -x]`` lanes (compiler.ge_normalize).
 
-The CUDA kernels need no lane padding, so none is added.
+The CUDA kernels need no lane padding, so none is added. ``missing_mask``
+is the missing test on its own, for the plain torch engines that test rows
+as they gather them, and ``map_row_chunks`` runs those engines over a batch
+in row chunks bounded by bytes.
 """
 from __future__ import annotations
 
@@ -17,6 +20,30 @@ import numpy as np
 import torch
 
 from tahoe_tpu_torch.config import MISSING_EPS
+
+# the plain torch engines (gather, sparse gather, tensor) take a batch in row
+# chunks; this bounds the bytes of one chunk's working tensors
+ROW_CHUNK_BYTES = 256 << 20
+
+
+def map_row_chunks(fn, x: torch.Tensor, bytes_per_row: int) -> torch.Tensor:
+    """``fn`` over consecutive row chunks of ``x``, each of at most
+    ``ROW_CHUNK_BYTES`` worth of ``bytes_per_row`` (and at least one row),
+    concatenated; an empty ``x`` is one empty chunk."""
+    step = max(1, ROW_CHUNK_BYTES // max(1, bytes_per_row))
+    return torch.cat([fn(x[r:r + step])
+                      for r in range(0, max(x.shape[0], 1), step)])
+
+
+def missing_mask(x: torch.Tensor, missing: float) -> torch.Tensor:
+    """The reference's missing test on f32 values: ``isnan(x)`` for a NaN
+    sentinel, ``|x - sentinel| <= MISSING_EPS`` for a finite one."""
+    if np.isnan(np.float32(missing)):
+        return torch.isnan(x)
+    # Python scalars keep the arithmetic in f32 (both are exact f32 values)
+    # and cost no host-to-device copy
+    sentinel = float(np.float32(missing))
+    return torch.abs(x - sentinel) <= float(np.float32(MISSING_EPS))
 
 
 def canonicalize_rows(rows, missing: float, *, device: torch.device,
@@ -29,11 +56,7 @@ def canonicalize_rows(rows, missing: float, *, device: torch.device,
     if x.dim() != 2:
         raise ValueError(f"rows must be [R, C]; got shape {tuple(x.shape)}")
     if not np.isnan(np.float32(missing)):
-        # Python scalars keep the arithmetic in f32 (both are exact f32
-        # values) and cost no host-to-device copy
-        sentinel = float(np.float32(missing))
-        eps = float(np.float32(MISSING_EPS))
-        x = x.masked_fill(torch.abs(x - sentinel) <= eps, float("nan"))
+        x = x.masked_fill(missing_mask(x, missing), float("nan"))
     if col_index is not None:
         x = x.index_select(1, col_index)
     if dual:

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from tahoe_tpu_torch import ORACLE_ATOL, Forest, GpuLimits, Output, Strategy
-from tahoe_tpu_torch.forest import compiler, quantize, synthetic
+from tahoe_tpu_torch.forest import compiler, quantize, synthetic, train
+from tahoe_tpu_torch.forest.sparse import SparseGatherEngine
 from tahoe_tpu_torch.ops.bucketed import (
     DepthBucketedFoldEngine,
     DepthBucketedRankEngine,
@@ -42,6 +43,12 @@ from tahoe_tpu_torch.ops.rank_transform import (
     rank_planes_cuda,
     rank_planes_plain,
     threshold_table,
+)
+from tahoe_tpu_torch.ops.sparse_kernel import (
+    SPARSE_RANK,
+    SparseRankEngine,
+    sparse_margins_cuda,
+    sparse_margins_plain,
 )
 
 KERNEL_ATOL = 1e-5  # both sides sum leaves in f64; only the last rounding differs
@@ -255,3 +262,74 @@ def test_facade_vmem_and_bucketed_count_launches(dev):
                                    f.predict_oracle(data), atol=ORACLE_ATOL,
                                    rtol=0)
         assert all(k.launches > c for k, c in zip(kernels, counts))
+
+
+@pytest.mark.parametrize("case", ["trained_deep", "exchange", "banded",
+                                  "wide_groups", "single_tree"])
+def test_sparse_rank_kernel(dev, case):
+    """The sparse kernel against its plain version (the TPU kernel's matmul
+    and masked descent) on the same planes and records."""
+    forest, band = {
+        "trained_deep": (train.train_forest(30, 16, 12, rows=512, seed=3), None),
+        "exchange": (compiler.hot_child_swap(synthetic.generate_forest(
+            40, 7, 18, leaf_prob=0.15, missing=-999.0, seed=31)), None),
+        "banded": (synthetic.generate_forest(20, 6, 6, seed=32), 64),
+        "wide_groups": (synthetic.generate_forest(10, 5, 480, leaf_prob=0.15,
+                                                  seed=33), None),
+        "single_tree": (train.train_forest(1, 12, 8, rows=256, seed=34), None),
+    }[case]
+    data = _data(3000, forest.num_cols, 35, missing=forest.missing)
+    eng = SparseRankEngine(forest, device=dev, band=band)
+    t = eng.tables
+    planes = eng.transform(data)
+    before = SPARSE_RANK.launches
+    got = sparse_margins_cuda(planes, t.records, t.roots, t.max_depth)
+    torch.cuda.synchronize()
+    assert SPARSE_RANK.launches == before + 1
+    want = sparse_margins_plain(planes, t.records, t.roots, t.max_depth)
+    if forest.num_trees == 1:  # one leaf per row: the same f32 value
+        assert torch.equal(got, want)
+    assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+    np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
+                               Forest(forest, device="cpu").predict_oracle(data),
+                               atol=ORACLE_ATOL, rtol=0)
+
+
+def test_sparse_rank_kernel_rejects_bad_operands(dev):
+    eng = SparseRankEngine(synthetic.generate_forest(5, 4, 6, seed=36), device=dev)
+    t = eng.tables
+    planes = eng.transform(_data(64, 6, 37))
+    with pytest.raises(ValueError):
+        sparse_margins_cuda(planes, t.records[:, :3].contiguous(), t.roots,
+                            t.max_depth)
+    with pytest.raises(ValueError):
+        sparse_margins_cuda(planes[:, :100].contiguous(), t.records, t.roots,
+                            t.max_depth)
+    with pytest.raises(TypeError):
+        sparse_margins_cuda(planes, t.records.long(), t.roots, t.max_depth)
+
+
+def test_facade_sparse_and_plain_strategies(dev):
+    """SPARSE launches kernel A and the sparse kernel; its gather tier and
+    the three plain torch strategies launch no kernel."""
+    deep = train.train_forest(12, 17, 10, rows=512, seed=38)
+    wide = synthetic.generate_forest(40, 6, 1440, seed=39)
+    shallow = synthetic.generate_forest(30, 6, 18, leaf_prob=0.1, seed=40)
+    kernels = (RANK_PLANES, RANK_FOLD, FOLD, FOLD_SIGN, FOLD_NONGE, FOLD_DEEP,
+               FOLD_DEEP_SIGN, SPARSE_RANK)
+    for forest, strategy, engine_type, launched in (
+            (deep, Strategy.SPARSE, SparseRankEngine, {RANK_PLANES, SPARSE_RANK}),
+            (wide, Strategy.SPARSE, SparseGatherEngine, set()),
+            (shallow, Strategy.HBM_DIRECT, object, set()),
+            (shallow, Strategy.ROW_TILED, object, set()),
+            (shallow, Strategy.TENSOR, object, set())):
+        data = _data(1024, forest.num_cols, 41)
+        f = Forest(forest, device=dev)
+        assert isinstance(f.engine(strategy), engine_type)
+        counts = [k.launches for k in kernels]
+        got = f.predict(data, strategy)
+        torch.cuda.synchronize()
+        assert got.device == dev
+        np.testing.assert_allclose(got.cpu().numpy(), f.predict_oracle(data),
+                                   atol=ORACLE_ATOL, rtol=0)
+        assert {k for k, c in zip(kernels, counts) if k.launches > c} == launched

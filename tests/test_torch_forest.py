@@ -1,7 +1,6 @@
-"""The port's Forest facade on the CPU: text-format round trip, the ported
+"""The port's Forest facade on the CPU: text-format round trip, the
 strategies against the numpy oracle under every output transform and a
-finite missing sentinel, feasibility against the JAX package's, and the
-strategies not ported yet."""
+finite missing sentinel, and feasibility against the JAX package's."""
 import itertools
 
 import numpy as np
@@ -15,7 +14,6 @@ from tahoe_tpu.ops import oracle
 from tahoe_tpu.ops.transform import apply_output_transform as np_transform
 from tahoe_tpu_torch import Forest, Output, Strategy
 from tahoe_tpu_torch.config import MISSING_EPS, resolve_device
-from tahoe_tpu_torch.engine.forest import NOT_PORTED
 from tahoe_tpu_torch.ops.bucketed import (
     DepthBucketedFoldEngine,
     DepthBucketedRankEngine,
@@ -100,13 +98,22 @@ def test_unreachable_depth_truncated():
                                    atol=ORACLE_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("strategy", sorted(NOT_PORTED, key=lambda s: s.value),
-                         ids=lambda s: s.name)
-def test_unported_strategies_raise(strategy):
-    f = Forest(synthetic.generate_forest(5, 3, 4, seed=69), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP"):
-        f.predict(np.zeros((4, 4), np.float32), strategy)
-    assert (set(NOT_PORTED) | set(PORTED) | {Strategy.DEPTH_BUCKETED}
+# the strategies served since the facade took every strategy
+LATER = (Strategy.HBM_DIRECT, Strategy.ROW_TILED, Strategy.TENSOR,
+         Strategy.SPARSE)
+
+
+@pytest.mark.parametrize("strategy", LATER, ids=lambda s: s.name)
+def test_every_strategy_is_served(strategy):
+    forest = synthetic.generate_forest(5, 3, 4, leaf_prob=0.1, seed=69)
+    data = synthetic.generate_data(40, 4, missing_prob=0.1, seed=70)
+    f = Forest(forest, device="cpu")
+    assert f.feasible(strategy) is None
+    got = f.predict(data, strategy)
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    np.testing.assert_allclose(got.numpy(), oracle.predict(forest, data),
+                               atol=ORACLE_ATOL, rtol=0)
+    assert (set(LATER) | set(PORTED) | {Strategy.DEPTH_BUCKETED}
             == set(Strategy))
 
 

@@ -16,16 +16,28 @@ import sys
 import numpy as np
 import tahoe_tpu_torch
 from tahoe_tpu_torch import Forest, Strategy
-from tahoe_tpu_torch.forest import synthetic
+from tahoe_tpu_torch.forest import sparse, synthetic, train
 from tahoe_tpu_torch.ops import bucketed, fold_kernel, rank_kernel, rank_transform  # noqa
+from tahoe_tpu_torch.ops import gather_engine, sparse_kernel, tensor_engine  # noqa
 from tahoe_tpu_torch.utils import profiling  # noqa
 
 forest = synthetic.generate_forest(9, 4, 6, leaf_prob=0.1, seed=1)
 data = synthetic.generate_data(32, 6, missing_prob=0.1, seed=2)
 f = Forest(forest, device="cpu")
 want = f.predict_oracle(data)
-for s in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST, Strategy.RANK_MXU):
+for s in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST, Strategy.RANK_MXU,
+          Strategy.SPARSE, Strategy.HBM_DIRECT, Strategy.ROW_TILED,
+          Strategy.TENSOR):
     assert np.abs(f.predict(data, s).numpy() - want).max() <= 1e-3
+deep = Forest(train.train_forest(3, 17, 6, rows=256, seed=5), device="cpu")
+assert isinstance(deep.engine(Strategy.SPARSE), sparse_kernel.SparseRankEngine)
+assert np.abs(deep.predict(data, Strategy.SPARSE).numpy()
+              - deep.predict_oracle(data)).max() <= 1e-3
+wide = Forest(synthetic.generate_forest(40, 6, 1440, seed=6), device="cpu")
+rows = synthetic.generate_data(32, 1440, missing_prob=0.1, seed=7)
+assert isinstance(wide.engine(Strategy.SPARSE), sparse.SparseGatherEngine)
+assert np.abs(wide.predict(rows, Strategy.SPARSE).numpy()
+              - wide.predict_oracle(rows)).max() <= 1e-3
 for cols in (6, 90):  # DEPTH_BUCKETED, rank and fold variants
     mixed = Forest(synthetic.generate_mixed_depth_forest(12, 6, cols, seed=3),
                    device="cpu")
