@@ -33,23 +33,39 @@ Phases, each of which exits non-zero when it fails:
    then a forest of 1,440 live features, past the rank planes, through the
    plain torch gather tier, which launches no kernel;
 11. HBM_DIRECT, ROW_TILED and TENSOR, plain torch and launching no kernel,
-   on the SUSY-class forest and on phase 5's forest.
+   on the SUSY-class forest and on phase 5's forest;
+12. the fused rank transform + traversal: RankFoldEngine(fuse_transform=
+   True) on the SUSY-class forest and 65,536 rows, the fused kernel held to
+   its plain version and bit for bit to kernels A then B, the predictions
+   bit-equal to the unfused engine's and within ORACLE_ATOL of the oracle,
+   with only the fused kernel launching;
+13. the probes of tahoe_tpu_torch/scripts (int8_cast_probe, overhead_bench,
+   unit_bench) in-process, every probe kernel equal to its plain version,
+   each printing its JSON line.
 
-Phases 6-11 run 65,536 rows each (phase 11's second forest 4,096) against
+Phases 6-12 run 65,536 rows each (phase 11's second forest 4,096) against
 the numpy oracle at ORACLE_ATOL,
 with every kernel count set to 0 just before the path and read just after:
 the path must launch exactly its own kernels. Every kernel a path runs is
 held to its plain version on that path's tables and 65,536 rows, and every
-path is timed in us/sample with CUDA events.
+path is timed in us/sample with CUDA events, beside the host's wall time to
+issue one call on an idle card.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
+The line before the last is the kernels' JSON record: each kernel's
+launches on its path, its largest error against its plain version, its
+time and its plain version's at its own path's shapes, its bound (the
+larger of its bytes over 3.35 TB/s and its operations over the card's peak
+for their type, counted from that check's inputs) and, where one PyTorch
+call computes the same function, that call's time. The last line is
+{"ok": true, "device": {...}}. It fails if any module of jax or of the JAX
+package (tahoe_tpu) was loaded. Without a CUDA device it exits 2 and prints
 no result.
 """
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -58,6 +74,26 @@ import time
 ROWS = 65536
 EDGE_ROWS = 4096
 KERNEL_ATOL = 1e-5  # kernel vs plain version: f64 leaf sums on both sides
+
+# an H100 SXM's published peaks (NVIDIA's data sheet, dense): device memory,
+# int8 tensor-core operations, and f32 outside the tensor cores, the rate
+# taken here for the kernels' scalar compares and integer steps
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+SCALAR_OPS_PER_S = 67e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, *work):
+    """(bound_ms, bound_by): the larger of ``moved`` bytes over the memory
+    rate and the operations, given as (count, rate) pairs, over their
+    rates."""
+    mem_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = sum(n / rate for n, rate in work) * 1e3
+    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
 
 
 def fail(msg: str) -> None:
@@ -94,14 +130,18 @@ def main() -> int:
         FOLD, FOLD_DEEP, FOLD_DEEP_SIGN, FOLD_NONGE, FOLD_SIGN,
         FoldKernelEngine, deep_launch, deep_nodes, fold_deep_cuda, fold_launch,
         fold_margins_cuda, fold_margins_plain)
+    from tahoe_tpu_torch.ops.probes import (
+        PROBE_INT8, PROBE_OVERHEAD, PROBE_RANK_PARTS)
     from tahoe_tpu_torch.ops.rank_kernel import (
-        RANK_FOLD, RankFoldEngine, rank_margins_cuda, rank_margins_plain)
+        RANK_FOLD, RANK_FUSED, RankFoldEngine, rank_margins_cuda,
+        rank_margins_fused_cuda, rank_margins_fused_plain, rank_margins_plain)
     from tahoe_tpu_torch.ops.rank_transform import (
         RANK_PLANES, rank_planes_cuda, rank_planes_plain)
     from tahoe_tpu_torch.ops.rows import canonicalize_rows
     from tahoe_tpu_torch.ops.sparse_kernel import (
         SPARSE_RANK, SparseRankEngine, sparse_leaves_plain, sparse_margins_cuda,
         sparse_margins_plain)
+    from tahoe_tpu_torch.scripts import int8_cast_probe, overhead_bench, unit_bench
     from tahoe_tpu_torch.utils.profiling import cuda_median_ms
 
     dev = torch.device("cuda", 0)
@@ -109,7 +149,9 @@ def main() -> int:
                "fold": FOLD}
     all_kernels = {**kernels, "fold_sign": FOLD_SIGN, "fold_nonge": FOLD_NONGE,
                    "fold_deep": FOLD_DEEP, "fold_deep_sign": FOLD_DEEP_SIGN,
-                   "sparse_rank": SPARSE_RANK}
+                   "sparse_rank": SPARSE_RANK, "rank_fused": RANK_FUSED,
+                   "probe_int8": PROBE_INT8, "probe_overhead": PROBE_OVERHEAD,
+                   "probe_rank_parts": PROBE_RANK_PARTS}
 
     # -- 1. device --------------------------------------------------------
     card = card_line(torch)
@@ -131,6 +173,33 @@ def main() -> int:
     data = synthetic.generate_data(ROWS, 18, missing_prob=0.02, seed=1)
     record = {}
 
+    # the bounds: bytes each input read once and each output written once;
+    # operations as the inputs need them (a descent's visited nodes)
+    def search_steps(counts):
+        """Binary-search steps of one row over every feature's table."""
+        return int(torch.ceil(torch.log2(counts.double() + 1)).sum())
+
+    def rank_a_cost(x, thr, counts):
+        out = x.shape[0] * 128 * -(-x.shape[1] // 30)
+        return bound(nbytes(x, thr, counts) + out,
+                     (x.shape[0] * search_steps(counts), SCALAR_OPS_PER_S))
+
+    def rank_b_ops(rows, mats, depth):
+        """int8 operations of the descent: 2 * 128*G per visited column."""
+        return 2 * rows * mats.shape[0] * depth * mats.shape[2]
+
+    def rank_b_cost(planes, mats, leaf, depth):
+        return bound(nbytes(planes, mats, leaf) + 4 * planes.shape[0],
+                     (rank_b_ops(planes.shape[0], mats, depth), INT8_OPS_PER_S))
+
+    def fold_cost(x, t, *tables):
+        """A compare per visited node (D a (row, tree) on the leveled
+        forest) and an add per leaf."""
+        rows, trees = x.shape[0], t.leaf.shape[0]
+        return bound(nbytes(x, *(tables or (t.thresholds, t.fids)), t.leaf)
+                     + 4 * rows,
+                     (rows * trees * (t.depth + 1), SCALAR_OPS_PER_S))
+
     rank = RankFoldEngine(forest, device=dev)
     rt = rank.tables
     x = canonicalize_rows(data, forest.missing, device=dev,
@@ -141,11 +210,15 @@ def main() -> int:
     if a_k.shape != (ROWS, 128 * rt.groups) or a_err != 0:
         fail(f"rank transform kernel differs from its plain version "
              f"(max |diff| {a_err}, shape {tuple(a_k.shape)})")
+    xt = x.t().contiguous()
     record["rank_transform"] = [(
         "3", a_err,
         cuda_median_ms(lambda: rank_planes_cuda(x, rt.thresholds, rt.counts)),
         cuda_median_ms(lambda: rank_planes_plain(x, rt.thresholds, rt.counts),
-                       warmup=1, iters=5))]
+                       warmup=1, iters=5),
+        *rank_a_cost(x, rt.thresholds, rt.counts),
+        # the ranks alone, by one library call (no plane assembly)
+        cuda_median_ms(lambda: torch.searchsorted(rt.thresholds, xt, right=True)))]
 
     b_k = rank_margins_cuda(a_p, rt.mats, rt.leaf, rt.depth)
     b_p = rank_margins_plain(a_p, rt.mats, rt.leaf, rt.depth)
@@ -156,7 +229,8 @@ def main() -> int:
         "3", b_err,
         cuda_median_ms(lambda: rank_margins_cuda(a_p, rt.mats, rt.leaf, rt.depth)),
         cuda_median_ms(lambda: rank_margins_plain(a_p, rt.mats, rt.leaf, rt.depth),
-                       warmup=1, iters=5))]
+                       warmup=1, iters=5),
+        *rank_b_cost(a_p, rt.mats, rt.leaf, rt.depth), None)]
 
     fold = FoldKernelEngine(forest, device=dev)
     ft = fold.tables
@@ -169,14 +243,15 @@ def main() -> int:
     record["fold"] = [(
         "3", c_err,
         cuda_median_ms(lambda: fold_margins_cuda(x2, ft, fold.launch)),
-        cuda_median_ms(lambda: fold_margins_plain(x2, ft), warmup=1, iters=5))]
+        cuda_median_ms(lambda: fold_margins_plain(x2, ft), warmup=1, iters=5),
+        *fold_cost(x2, ft), None)]
     print(f"[3] fold launch {fold.launch}")
     tolerance = {"rank_transform": 0, "rank_fold": KERNEL_ATOL, "fold": KERNEL_ATOL}
-    for name, [(_, err, ms, plain_ms)] in record.items():
+    for name, [(_, err, ms, plain_ms, b_ms, b_by, lib_ms)] in record.items():
         print(f"[3] {name}: max |kernel - plain| {err} (tolerance "
-              f"{tolerance[name]}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"({card})")
-    del a_k, a_p, b_k, b_p, c_k, c_p, x, x2, rank, fold
+              f"{tolerance[name]}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), library {lib_ms} ms ({card})")
+    del a_k, a_p, b_k, b_p, c_k, c_p, x, xt, x2, rank, fold
 
     # -- 4. main path through the facade ------------------------------------
     def drive(spec, rows_np, missing, tag, timed, **out_kw):
@@ -229,7 +304,7 @@ def main() -> int:
         print(f"[{tag}] launches on the main path: {launches}")
         return want, launches
 
-    _, launches = drive(forest, data, float("nan"), "4", True)
+    susy_want, launches = drive(forest, data, float("nan"), "4", True)
 
     # -- 5. finite sentinel, early leaves, AVG|SIGMOID|THRESHOLD -------------
     out_flags = int(Output.AVG | Output.SIGMOID | Output.THRESHOLD)
@@ -262,17 +337,32 @@ def main() -> int:
         err = float(np.abs(got - want).max())
         if err > ORACLE_ATOL:
             fail(f"[{tag}] {strategy.name}: max |pred - oracle| {err} > {ORACLE_ATOL}")
-        us = cuda_median_ms(lambda: f.predict(rows_d, strategy),
-                            iters=iters) * 1e3 / len(rows_np)
+        ms = cuda_median_ms(lambda: f.predict(rows_d, strategy), iters=iters)
         print(f"[{tag}] {strategy.name}: max |pred - oracle| {err} (tolerance "
-              f"{ORACLE_ATOL}), {us:.6f} us/sample over {len(rows_np)} rows, "
-              f"launches {counts} ({card})")
+              f"{ORACLE_ATOL}), {ms * 1e3 / len(rows_np):.6f} us/sample over "
+              f"{len(rows_np)} rows ({ms:.4f} ms a call; the host issues one "
+              f"in {host_ms(lambda: f.predict(rows_d, strategy), iters):.4f} "
+              f"ms), launches {counts} ({card})")
         return counts
 
-    def hold(tag, kernel_fns, plain_fn, atol=KERNEL_ATOL):
+    def host_ms(fn, iters):
+        """Median host wall time to issue ``fn()`` on an idle card (a
+        synchronize before each call, none after): where it passes the
+        call's CUDA-event time, the path waits on the host."""
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    def hold(tag, kernel_fns, plain_fn, costs, atol=KERNEL_ATOL):
         """Kernels against their plain version on the same inputs, the plain
         output computed once; each kernel's check (its error and median
-        time, and the plain version's) joins the kernel's record."""
+        time, the plain version's, and its bound from ``costs``) joins the
+        kernel's record. No library call computes these functions."""
         p_out = plain_fn()
         plain_ms = cuda_median_ms(plain_fn, warmup=1, iters=3)
         for name, fn in kernel_fns.items():
@@ -282,9 +372,12 @@ def main() -> int:
                     and err <= atol):
                 fail(f"[{tag}] {name} differs from its plain version by {err}")
             ms = cuda_median_ms(fn)
-            record.setdefault(name, []).append((tag, err, ms, plain_ms))
+            b_ms, b_by = costs[name]
+            record.setdefault(name, []).append(
+                (tag, err, ms, plain_ms, b_ms, b_by, None))
             print(f"[{tag}] {name}: max |kernel - plain| {err} (tolerance "
-                  f"{atol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+                  f"{atol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}) ({card})")
 
     def descent_reads(st, planes):
         """Records the sparse kernel reads per (row, tree), [R, T], and the
@@ -339,7 +432,8 @@ def main() -> int:
         hold("6", {
             "fold_sign": lambda: fold_margins_cuda(x, t, c_launch),
             "fold_deep_sign": lambda: fold_deep_cuda(x, t, nodes, d_launch),
-        }, lambda: fold_margins_plain(x, t))
+        }, lambda: fold_margins_plain(x, t),
+            {"fold_sign": fold_cost(x, t), "fold_deep_sign": fold_cost(x, t, nodes)})
         own = next(n for n, k in all_kernels.items() if k is kernel)
         counts = run_path("6", f, Strategy.SPLIT_FOREST, rows_np,
                           f.predict_oracle(rows_np), {own})
@@ -358,7 +452,7 @@ def main() -> int:
     t, x = eng.tables, eng.canonicalize(torch.as_tensor(deep_rows, device=dev))
     print(f"[7] {eng.launch}")
     hold("7", {"fold_deep": lambda: fold_deep_cuda(x, t, eng.nodes, eng.launch)},
-         lambda: fold_margins_plain(x, t))
+         lambda: fold_margins_plain(x, t), {"fold_deep": fold_cost(x, t, eng.nodes)})
     counts = run_path("7", f, Strategy.SPLIT_FOREST, deep_rows,
                       f.predict_oracle(deep_rows), {"fold_deep"})
     launches["fold_deep"] = counts["fold_deep"]
@@ -373,7 +467,8 @@ def main() -> int:
     print(f"[7] deep12-class: kernel C {c_launch}, deep kernel {d12.launch}")
     hold("7", {"fold": lambda: fold_margins_cuda(x, t, c_launch),
                "fold_deep": lambda: fold_deep_cuda(x, t, d12.nodes, d12.launch)},
-         lambda: fold_margins_plain(x, t))
+         lambda: fold_margins_plain(x, t),
+         {"fold": fold_cost(x, t), "fold_deep": fold_cost(x, t, d12.nodes)})
     del d12, x
 
     # 8. VMEM_FOREST, stumps-class: the whole forest in one tile
@@ -386,7 +481,7 @@ def main() -> int:
     print(f"[8] {eng.launch}; SPLIT_FOREST {f.engine(Strategy.SPLIT_FOREST).launch}")
     t, x = eng.tables, eng.canonicalize(torch.as_tensor(stump_rows, device=dev))
     hold("8", {"fold": lambda: fold_margins_cuda(x, t, eng.launch)},
-         lambda: fold_margins_plain(x, t))
+         lambda: fold_margins_plain(x, t), {"fold": fold_cost(x, t)})
     want = f.predict_oracle(stump_rows)
     run_path("8", f, Strategy.VMEM_FOREST, stump_rows, want, {"fold"})
     run_path("8", f, Strategy.SPLIT_FOREST, stump_rows, want, {"fold"})
@@ -406,14 +501,16 @@ def main() -> int:
                           col_index=rt.col_index)
     hold("9", {"rank_transform": lambda: rank_planes_cuda(x, rt.thresholds,
                                                           rt.counts)},
-         lambda: rank_planes_plain(x, rt.thresholds, rt.counts), atol=0)
+         lambda: rank_planes_plain(x, rt.thresholds, rt.counts),
+         {"rank_transform": rank_a_cost(x, rt.thresholds, rt.counts)}, atol=0)
     planes = rank_planes_plain(x, rt.thresholds, rt.counts)
     for e in eng.sub:
         bt = e.tables
         print(f"[9] bucket of {e.num_trees} trees at depth {bt.depth}")
         hold("9", {"rank_fold": lambda bt=bt: rank_margins_cuda(
             planes, bt.mats, bt.leaf, bt.depth)},
-            lambda bt=bt: rank_margins_plain(planes, bt.mats, bt.leaf, bt.depth))
+            lambda bt=bt: rank_margins_plain(planes, bt.mats, bt.leaf, bt.depth),
+            {"rank_fold": rank_b_cost(planes, bt.mats, bt.leaf, bt.depth)})
     want = f.predict_oracle(mix_rows)
     run_path("9", f, Strategy.DEPTH_BUCKETED, mix_rows, want,
              {"rank_transform", "rank_fold"})
@@ -435,7 +532,8 @@ def main() -> int:
     for e in eng.sub:
         hold("9", {"fold_nonge": lambda e=e: fold_margins_cuda(x, e.tables,
                                                                e.launch)},
-             lambda e=e: fold_margins_plain(x, e.tables))
+             lambda e=e: fold_margins_plain(x, e.tables),
+             {"fold_nonge": fold_cost(x, e.tables)})
     counts = run_path("9", f, Strategy.DEPTH_BUCKETED, mix90_rows,
                       f.predict_oracle(mix90_rows), {"fold_nonge"})
     launches["fold_nonge"] = counts["fold_nonge"]
@@ -468,12 +566,18 @@ def main() -> int:
                           col_index=st.col_index)
     hold("10", {"rank_transform": lambda: rank_planes_cuda(x, st.thresholds,
                                                            st.counts)},
-         lambda: rank_planes_plain(x, st.thresholds, st.counts), atol=0)
+         lambda: rank_planes_plain(x, st.thresholds, st.counts),
+         {"rank_transform": rank_a_cost(x, st.thresholds, st.counts)}, atol=0)
     planes = rank_planes_plain(x, st.thresholds, st.counts)
+    reads, lane_share = descent_reads(st, planes)
+    # a visited record: its closed-form diff (two multiply-adds), the
+    # compare and the child step; an add per leaf
+    sparse_bound = bound(nbytes(planes, st.records, st.roots) + 4 * ROWS,
+                         (4 * int(reads.sum()) + reads.numel(), SCALAR_OPS_PER_S))
     hold("10", {"sparse_rank": lambda: sparse_margins_cuda(
         planes, st.records, st.roots, st.max_depth)},
-        lambda: sparse_margins_plain(planes, st.records, st.roots, st.max_depth))
-    reads, lane_share = descent_reads(st, planes)
+        lambda: sparse_margins_plain(planes, st.records, st.roots, st.max_depth),
+        {"sparse_rank": sparse_bound})
     sparse_ms = record["sparse_rank"][0][2]
     print(f"[10] the descent reads {float(reads.double().mean()):.3f} records per "
           f"(row, tree), {int(reads.max())} at most, {int(reads.sum())} in all "
@@ -509,21 +613,141 @@ def main() -> int:
             run_path("11", f, s, rows_np, want, set(), iters=5)
         del f
 
+    # 12. the fused rank transform + traversal on SUSY-class rows
+    fused = RankFoldEngine(forest, device=dev, fuse_transform=True)
+    if not fused.fused:
+        fail("[12] RankFoldEngine(fuse_transform=True) is not fused on the "
+             "SUSY-class forest")
+    ft = fused.tables
+    x = ft.rows(data, fused.raw_missing)
+    steps = search_steps(ft.counts)
+    fused_bound = bound(nbytes(x, ft.thresholds, ft.counts, ft.mats, ft.leaf)
+                        + 4 * ROWS,
+                        (rank_b_ops(ROWS, ft.mats, ft.depth), INT8_OPS_PER_S),
+                        (ROWS * steps, SCALAR_OPS_PER_S))
+
+    def fused_kernel():
+        return rank_margins_fused_cuda(x, ft.thresholds, ft.counts, ft.mats,
+                                       ft.leaf, ft.depth)
+
+    hold("12", {"rank_fused": fused_kernel},
+         lambda: rank_margins_fused_plain(x, ft.thresholds, ft.counts, ft.mats,
+                                          ft.leaf, ft.depth),
+         {"rank_fused": fused_bound})
+    two = rank_margins_cuda(rank_planes_cuda(x, ft.thresholds, ft.counts),
+                            ft.mats, ft.leaf, ft.depth)
+    if not torch.equal(fused_kernel(), two):
+        fail("[12] the fused kernel is not bit-equal to kernels A then B")
+    rows_d = torch.as_tensor(data, device=dev)
+    unfused = RankFoldEngine(forest, device=dev)
+    for k in all_kernels.values():
+        k.launches = 0
+    pred = fused.predict(rows_d)
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in all_kernels.items()}
+    if {n for n, c in counts.items() if c} != {"rank_fused"}:
+        fail(f"[12] the fused path launched {counts}, expected only rank_fused")
+    launches["rank_fused"] = counts["rank_fused"]
+    if not torch.equal(pred, unfused.predict(rows_d)):
+        fail("[12] fused predictions are not bit-equal to the unfused engine's")
+    got = pred.cpu().numpy()
+    err = float(np.abs(got - susy_want).max())
+    if got.shape != susy_want.shape or not np.isfinite(got).all() or err > ORACLE_ATOL:
+        fail(f"[12] fused predict: max |pred - oracle| {err} > {ORACLE_ATOL}")
+    us_fused = cuda_median_ms(lambda: fused.predict(rows_d)) * 1e3 / ROWS
+    us_unfused = cuda_median_ms(lambda: unfused.predict(rows_d)) * 1e3 / ROWS
+    planes = rank_planes_cuda(x, ft.thresholds, ft.counts)
+    a_ms = cuda_median_ms(lambda: rank_planes_cuda(x, ft.thresholds, ft.counts))
+    b_ms = cuda_median_ms(lambda: rank_margins_cuda(planes, ft.mats, ft.leaf,
+                                                    ft.depth))
+    f_ms = cuda_median_ms(fused_kernel)
+    print(f"[12] RANK_MXU fused: max |pred - oracle| {err} (tolerance "
+          f"{ORACLE_ATOL}), bit-equal to the unfused engine; {us_fused:.6f} "
+          f"us/sample fused, {us_unfused:.6f} unfused, over {ROWS} rows; "
+          f"launches {counts}; kernels: fused {f_ms:.4f} ms, A {a_ms:.4f} + "
+          f"B {b_ms:.4f} = {a_ms + b_ms:.4f} ms, fused / (A + B) "
+          f"{f_ms / (a_ms + b_ms):.4f} ({card})")
+    del fused, x, planes, two, pred, rows_d
+
+    # 13. the probes, in-process
+    probes = {"probe_int8": (PROBE_INT8, int8_cast_probe),
+              "probe_overhead": (PROBE_OVERHEAD, overhead_bench),
+              "probe_rank_parts": (PROBE_RANK_PARTS, unit_bench)}
+    for k in all_kernels.values():
+        k.launches = 0
+    results = {}
+    for name, (kernel, script) in probes.items():
+        results[name] = res = script.run(dev)
+        print(f"[13] {script.__name__.rsplit('.', 1)[-1]}: {json.dumps(res)}")
+        if not res["all_exact"]:
+            fail(f"[13] a {name} kernel differs from its plain version")
+    # the probes also time kernels A, B and the fused kernel beside theirs
+    counts = {n: k.launches for n, k in all_kernels.items()}
+    if min(counts[n] for n in probes) < 1:
+        fail(f"[13] a probe kernel was not launched: {counts}")
+    for name in probes:
+        launches[name] = counts[name]
+    # each probe's record: the mode that answers its question, at its shapes
+    i8 = results["probe_int8"]["checks"]
+    x32, _ = int8_cast_probe.inputs()
+    m, k_ = x32.shape
+    record["probe_int8"] = [(
+        "13", max(c["max_abs_err"] for c in i8.values()),
+        i8["scratch_dot_mma"]["ms"], i8["scratch_dot_mma"]["plain_ms"],
+        *bound(m * k_ * 4 + k_ * k_ + m * k_ * 4, (2 * m * k_ * k_, INT8_OPS_PER_S)),
+        results["probe_int8"]["library_int_mm_ms"])]
+    big = results["probe_overhead"]["rows"][str(ROWS)]
+    rt = unfused.tables
+    T, D, K = rt.mats.shape[0], rt.depth, rt.mats.shape[2]
+    record["probe_overhead"] = [(
+        "13", max(r[mo]["max_abs_err"] for r in results["probe_overhead"]["rows"].values()
+                  for mo in ("noop", "stream")),
+        big["stream"]["ms"], big["stream"]["plain_ms"],
+        # the planes, the fixed path's columns once, and a XOR a lane-word
+        *bound(ROWS * K + T * D * K + 4 * ROWS, (ROWS * T * D * K // 4, SCALAR_OPS_PER_S)),
+        None)]
+    parts = results["probe_rank_parts"]
+    record["probe_rank_parts"] = [(
+        "13", max(parts[mo]["max_abs_err"] for mo in ("dot", "descent")),
+        parts["dot"]["ms"], parts["dot"]["plain_ms"],
+        *bound(ROWS * K + nbytes(rt.mats) + 4 * ROWS,
+               (rank_b_ops(ROWS, rt.mats, D), INT8_OPS_PER_S)),
+        None)]
+    rank_fold_ms = parts["rank_fold_ms"]
+    print(f"[13] kernel B {rank_fold_ms:.4f} ms at {ROWS} rows: noop "
+          f"{big['noop']['ms']:.4f} ({big['noop']['share_of_rank_fold']:.4f}), "
+          f"stream {big['stream']['ms']:.4f} ({big['stream']['share_of_rank_fold']:.4f}), "
+          f"dot {parts['dot']['ms']:.4f} ({parts['dot']['share_of_rank_fold']:.4f}), "
+          f"descent {parts['descent']['ms']:.4f} "
+          f"({parts['descent']['share_of_rank_fold']:.4f}); fused "
+          f"{parts['rank_fused_ms']:.4f} ms ({card})")
+    del rt, unfused
+
     # the non-ge buckets are timed one at a time: the record sums them
     nonge = record.pop("fold_nonge")
+    widest = max(nonge, key=lambda c: c[4])
     record["fold_nonge"] = [("9", max(c[1] for c in nonge),
-                             sum(c[2] for c in nonge), sum(c[3] for c in nonge))]
+                             sum(c[2] for c in nonge), sum(c[3] for c in nonge),
+                             sum(c[4] for c in nonge), widest[5], None)]
     for name, checks in record.items():
         print(f"[record] {name}: " + "; ".join(
-            f"phase {tag} |err| {err} kernel {ms:.4f} ms plain {p:.4f} ms"
-            for tag, err, ms, p in checks))
-    # each kernel's time is that of its first check (its own path's shapes);
-    # its error is the largest over every check
+            f"phase {tag} |err| {err} kernel {ms:.4f} ms plain {p:.4f} ms "
+            f"bound {b:.4f} ms ({by}) library {lib}"
+            for tag, err, ms, p, b, by, lib in checks))
+    leaked = sorted(m for m in sys.modules
+                    if m in ("jax", "jaxlib", "tahoe_tpu")
+                    or m.startswith(("jax.", "jaxlib.", "tahoe_tpu.")))
+    if leaked:
+        fail(f"modules of jax or of the JAX package were loaded: {leaked}")
+    # each kernel's time and bound are those of its first check (its own
+    # path's shapes); its error is the largest over every check
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[name],
          "max_abs_err": max(c[1] for c in record[name]),
-         "ms": record[name][0][2], "plain_ms": record[name][0][3]}
+         "ms": record[name][0][2], "plain_ms": record[name][0][3],
+         "bound_ms": record[name][0][4], "bound_by": record[name][0][5],
+         "library_ms": record[name][0][6]}
         for name, k in all_kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

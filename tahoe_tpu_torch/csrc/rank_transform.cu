@@ -19,12 +19,11 @@
 // int8 plane stores are 128 B per row. The design keeps the row's 30
 // features of a group in 30 adjacent threads so x loads coalesce, and gives
 // the constant lanes to a 31st thread, so no thread loops over features.
+// The per-lane work is tahoe_rank_lanes (common.cuh), which the fused
+// kernel (rank_fused.cu) runs too.
 #include "common.cuh"
 
 namespace {
-
-constexpr int kGroupCols = 30;  // compiler.RANK_GROUP_COLS
-constexpr int kBase = 127;      // compiler.RANK_BASE
 
 __global__ void rank_planes_kernel(const float* __restrict__ x, int rows, int F,
                                    int G, const float* __restrict__ thr, int K,
@@ -36,40 +35,7 @@ __global__ void rank_planes_kernel(const float* __restrict__ x, int rows, int F,
     if (rg >= static_cast<long long>(rows) * G) return;
     const int g = static_cast<int>(rg % G);
     const long long r = rg / G;
-    int8_t* o = out + r * 128 * G + 128 * g;
-
-    if (i < kGroupCols) {
-        const int f = g * kGroupCols + i;
-        int8_t qh = 0, ql = 0, nqh = 0, nql = 0;
-        if (f < F) {
-            const float v = x[r * F + f];
-            if (v != v) {  // missing: -128 in all four segments
-                qh = ql = nqh = nql = -128;
-            } else {
-                const float* u = thr + static_cast<long long>(f) * K;
-                int lo = 0, hi = counts[f];
-                while (lo < hi) {  // first index with u > v
-                    const int mid = (lo + hi) >> 1;
-                    if (u[mid] <= v) lo = mid + 1; else hi = mid;
-                }
-                const int h = lo / kBase;
-                const int l = lo - kBase * h;
-                qh = static_cast<int8_t>(h);
-                ql = static_cast<int8_t>(l);
-                nqh = static_cast<int8_t>(-h);
-                nql = static_cast<int8_t>(-l);
-            }
-        }
-        o[i] = qh;
-        o[kGroupCols + i] = ql;
-        o[2 * kGroupCols + i] = nqh;
-        o[3 * kGroupCols + i] = nql;
-    } else if (i == kGroupCols) {  // lanes 120..127: 127, 1, then zeros
-        o[120] = 127;
-        o[121] = 1;
-#pragma unroll
-        for (int k = 122; k < 128; ++k) o[k] = 0;
-    }
+    tahoe_rank_lanes(x + r * F, F, g, thr, K, counts, out + r * 128 * G + 128 * g, i);
 }
 
 }  // namespace

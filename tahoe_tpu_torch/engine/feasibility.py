@@ -13,15 +13,14 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from tahoe_tpu.forest.compiler import (
+from tahoe_tpu_torch.config import GpuLimits, Strategy, forest_num_nodes
+from tahoe_tpu_torch.forest.compiler import (
     RANK_MAX_COLS,
     rank_groups,
     reachable_depths,
     reachable_mask,
 )
-from tahoe_tpu.config import forest_num_nodes
-from tahoe_tpu.forest.spec import ForestSpec
-from tahoe_tpu_torch.config import GpuLimits, Strategy
+from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops.fold_kernel import (
     MAX_DENSE_DEPTH,
     MAX_DUAL_COLS,

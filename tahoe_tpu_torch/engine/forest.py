@@ -29,14 +29,14 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from tahoe_tpu.forest import compiler, io
-from tahoe_tpu.forest.spec import ForestSpec, LeveledForest
-from tahoe_tpu.ops import oracle
 from tahoe_tpu_torch.config import GpuLimits, Output, Strategy, resolve_device
 from tahoe_tpu_torch.engine import feasibility
+from tahoe_tpu_torch.forest import compiler, io
 from tahoe_tpu_torch.forest.sparse import SparseGatherEngine, from_dense
+from tahoe_tpu_torch.forest.spec import ForestSpec, LeveledForest
 from tahoe_tpu_torch.ops.bucketed import make_depth_bucketed_engine
 from tahoe_tpu_torch.ops.fold_kernel import FoldKernelEngine
+from tahoe_tpu_torch.ops import oracle
 from tahoe_tpu_torch.ops.gather_engine import GatherEngine
 from tahoe_tpu_torch.ops.rank_kernel import RankFoldEngine
 from tahoe_tpu_torch.ops.sparse_kernel import SparseRankEngine
@@ -127,5 +127,6 @@ class Forest:
         return self.engine(strategy).predict(rows)
 
     def predict_oracle(self, rows) -> np.ndarray:
-        """The numpy CPU golden model (the JAX package's ops/oracle.py)."""
+        """The numpy CPU golden model (ops/oracle.py, the port's copy of the
+        JAX package's)."""
         return oracle.predict(self.spec, np.asarray(rows, np.float32))

@@ -27,10 +27,10 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from tahoe_tpu.forest.compiler import reachable_depths, truncate_depth
-from tahoe_tpu.forest.quantize import band_split, quantize
-from tahoe_tpu.forest.spec import ForestSpec
 from tahoe_tpu_torch.config import resolve_device
+from tahoe_tpu_torch.forest.compiler import reachable_depths, truncate_depth
+from tahoe_tpu_torch.forest.quantize import band_split, quantize
+from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.engine import feasibility
 from tahoe_tpu_torch.ops.fold_kernel import (
     MAX_DUAL_COLS,

@@ -1,8 +1,8 @@
 """f32 fold traversal: rows -> f32 margins (kernel C and the deep kernel).
 
 The port of tahoe_tpu/ops/fold_kernel.py ``FoldKernelEngine``. The host side
-is the JAX engine's, on the shared numpy compiler: levelize -> used-feature
-compaction -> one of three node forms, chosen as the JAX engine chooses them
+is the JAX engine's, on the port's copy of the numpy compiler: levelize ->
+used-feature compaction -> one of three node forms, chosen as the JAX engine chooses them
 (fold_kernel.py:135-165):
 
 - **dual** (ge, <= 64 live features): ge_normalize folds missing routing,
@@ -43,9 +43,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tahoe_tpu.forest.compiler import compact_leveled, ge_normalize, levelize
-from tahoe_tpu.forest.spec import ForestSpec, LeveledForest
 from tahoe_tpu_torch.config import GpuLimits, resolve_device
+from tahoe_tpu_torch.forest.compiler import compact_leveled, ge_normalize, levelize
+from tahoe_tpu_torch.forest.spec import ForestSpec, LeveledForest
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
 from tahoe_tpu_torch.ops.rows import canonicalize_rows
 from tahoe_tpu_torch.ops.transform import apply_output_transform

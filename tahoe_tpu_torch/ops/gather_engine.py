@@ -19,8 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tahoe_tpu.forest.spec import ForestSpec
 from tahoe_tpu_torch.config import resolve_device
+from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops.rows import map_row_chunks, missing_mask
 from tahoe_tpu_torch.ops.transform import apply_output_transform
 

@@ -1,22 +1,32 @@
-"""Rank traversal: int8 rank planes -> f32 margins (kernel B), and the
-rank-MXU engine around it.
+"""Rank traversal: int8 rank planes -> f32 margins (kernel B), the fused
+transform + traversal, and the rank-MXU engine around them.
 
 The port of tahoe_tpu/ops/rank_kernel.py ``RankFoldEngine``. The host side
-is the JAX engine's, on the shared numpy compiler: ``rank_quantize``
-(truncate_depth -> compact_features -> quantize -> band_split, shared with
-the sparse engine, ops/sparse_kernel.py) -> quantized_spec_for_engines ->
-levelize -> rank_normalize. Each node's whole routing rule (missing,
-def_left, exchange, compare) is one int8 column R_d[:, node] with
+is the JAX engine's, on the port's copy of the numpy compiler:
+``rank_quantize`` (truncate_depth -> compact_features -> quantize ->
+band_split, shared with the sparse engine, ops/sparse_kernel.py) ->
+quantized_spec_for_engines -> levelize -> rank_normalize. Each node's whole
+routing rule (missing, def_left, exchange, compare) is one int8 column
+R_d[:, node] with
 
     cond(node) = planes[row] . R_d[:, node] >= 0      (int32 sum)
 
 and in the levelize/rank_normalize layout node j of level d has its children
 at j (cond False) and j + 2^d (cond True) of level d + 1.
 
+With ``fuse_transform=True`` a forest of one plane group (<= 30 virtual
+features) whose widest feature has more than 256 thresholds runs the fused
+kernel (csrc/rank_fused.cu): kernels A and B in one launch, the planes kept
+in shared memory. That is the JAX engine's gate (rank_kernel.py:807-814,
+:1043) without its two TPU grid conditions (a split level, no stream-once
+chunking), which have no counterpart here; other forests run kernels A and
+B, as the JAX engine does.
+
 Not ported, because they are TPU workarounds with no counterpart here: the
 row/tree tiling and tree padding with RANK_LANE_C1 = -1 columns, the split
 levels and stream-once grid (VMEM budgets), cond_lead/chunk_lead, the
-sub-128-lane leaf split-halves layout and the fused transform.
+sub-128-lane leaf split-halves layout, and the fused kernel's ``planes0``
+seed dispatch (it primes the TPU's ping-pong pipeline).
 """
 from __future__ import annotations
 
@@ -27,7 +37,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tahoe_tpu.forest.compiler import (
+from tahoe_tpu_torch.config import resolve_device
+from tahoe_tpu_torch.forest.compiler import (
+    RANK_GROUP_COLS,
     RANK_MAX,
     RANK_MAX_COLS,
     RANK_MAX_GROUPS,
@@ -39,16 +51,20 @@ from tahoe_tpu.forest.compiler import (
     reachable_mask,
     truncate_depth,
 )
-from tahoe_tpu.forest.quantize import (
+from tahoe_tpu_torch.forest.quantize import (
     RankQuantizedForest,
     band_split,
     quantize,
     quantized_spec_for_engines,
 )
-from tahoe_tpu.forest.spec import ForestSpec
-from tahoe_tpu_torch.config import resolve_device
+from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
-from tahoe_tpu_torch.ops.rank_transform import LANE, rank_planes, threshold_table
+from tahoe_tpu_torch.ops.rank_transform import (
+    LANE,
+    rank_planes,
+    rank_planes_plain,
+    threshold_table,
+)
 from tahoe_tpu_torch.ops.rows import canonicalize_rows
 from tahoe_tpu_torch.ops.transform import apply_output_transform
 
@@ -59,6 +75,20 @@ RANK_FOLD = CudaKernel(
     source="tahoe_tpu_torch/csrc/rank_fold.cu",
     replaces="tahoe_tpu/ops/rank_kernel.py:231",
 )
+
+RANK_FUSED = CudaKernel(
+    "tahoe_rank_fused",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    source="tahoe_tpu_torch/csrc/rank_fused.cu",
+    replaces="tahoe_tpu/ops/rank_kernel.py:560",
+)
+
+# the JAX engine runs its fused kernel only on the bucketed (v2) transform,
+# which it takes for more than 256 thresholds in the widest feature or more
+# than 128 virtual features (rank_kernel.py:1043)
+FUSE_MIN_THRESHOLDS = 256
 
 # the plain version folds a chunk of rows at a time; this bounds the bytes of
 # one chunk's widest level (int32 diffs + the f32 fold frontier)
@@ -123,11 +153,15 @@ class RankInput:
     def groups(self) -> int:
         return rank_groups(self.q.spec.num_cols)
 
+    def rows(self, rows, raw_missing: float) -> torch.Tensor:
+        """Raw rows [R, C] -> kernel A's input [R, F_v] f32, NaN = missing."""
+        return canonicalize_rows(rows, raw_missing, device=self.thresholds.device,
+                                 col_index=self.col_index)
+
     def planes(self, rows, raw_missing: float) -> torch.Tensor:
         """Raw rows [R, C] -> int8 planes [R, 128*G] (kernel A)."""
-        x = canonicalize_rows(rows, raw_missing, device=self.thresholds.device,
-                              col_index=self.col_index)
-        return rank_planes(x, self.thresholds, self.counts)
+        return rank_planes(self.rows(rows, raw_missing), self.thresholds,
+                           self.counts)
 
 
 def rank_input(q: RankQuantizedForest, gather: np.ndarray | None, *,
@@ -251,16 +285,65 @@ def rank_margins(planes: torch.Tensor, mats: torch.Tensor, leaf: torch.Tensor,
     return rank_margins_cuda(planes, mats, leaf, depth)
 
 
-class RankFoldEngine:
-    """Rank-quantize a forest and run it through kernels A and B.
+def rank_margins_fused_plain(x: torch.Tensor, thresholds: torch.Tensor,
+                             counts: torch.Tensor, mats: torch.Tensor,
+                             leaf: torch.Tensor, depth: int) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernel: kernel A's plain version,
+    then kernel B's."""
+    return rank_margins_plain(rank_planes_plain(x, thresholds, counts), mats,
+                              leaf, depth)
 
-    ``predict(rows)`` takes raw f32 rows (transform, then traversal);
-    ``predict_planes`` takes planes encoded once per batch (the serving
-    path of bench.py's ``rank_mxu_planes_us``)."""
+
+def rank_margins_fused_cuda(x: torch.Tensor, thresholds: torch.Tensor,
+                            counts: torch.Tensor, mats: torch.Tensor,
+                            leaf: torch.Tensor, depth: int) -> torch.Tensor:
+    """The fused kernel on the card (csrc/rank_fused.cu): rows [R, F_v] f32
+    (NaN = missing, F_v <= 30) -> margins [R] f32."""
+    dev = x.device
+    check_operand(x, "x", torch.float32, dev, 2)
+    check_operand(thresholds, "thresholds", torch.float32, dev, 2)
+    check_operand(counts, "counts", torch.int32, dev, 1)
+    check_operand(mats, "mats", torch.int8, dev, 3)
+    check_operand(leaf, "leaf", torch.float32, dev, 2)
+    R, nf = x.shape
+    T = leaf.shape[0]
+    if not 1 <= nf <= RANK_GROUP_COLS:
+        raise ValueError(f"the fused kernel takes 1..{RANK_GROUP_COLS} "
+                         f"features (one plane group); x has {nf}")
+    if thresholds.shape[0] != nf or counts.shape[0] != nf:
+        raise ValueError(f"tables cover {thresholds.shape[0]} features, x has {nf}")
+    if mats.shape != (T, (1 << depth) - 1, LANE) or leaf.shape[1] != 1 << depth:
+        raise ValueError(
+            f"tables {tuple(mats.shape)} / {tuple(leaf.shape)} do not match "
+            f"depth {depth} and one plane group")
+    out = torch.empty(R, dtype=torch.float32, device=dev)
+    RANK_FUSED.launch(dev, ptr(x), R, nf, ptr(thresholds), thresholds.shape[1],
+                      ptr(counts), ptr(mats), T, depth, ptr(leaf), ptr(out))
+    return out
+
+
+def rank_margins_fused(x: torch.Tensor, thresholds: torch.Tensor,
+                       counts: torch.Tensor, mats: torch.Tensor,
+                       leaf: torch.Tensor, depth: int) -> torch.Tensor:
+    """The fused kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return rank_margins_fused_plain(x, thresholds, counts, mats, leaf, depth)
+    return rank_margins_fused_cuda(x, thresholds, counts, mats, leaf, depth)
+
+
+class RankFoldEngine:
+    """Rank-quantize a forest and run it through kernels A and B, or the
+    fused kernel.
+
+    ``predict(rows)`` takes raw f32 rows (transform, then traversal; one
+    fused launch when ``fused``); ``predict_planes`` takes planes encoded
+    once per batch (the serving path of bench.py's ``rank_mxu_planes_us``).
+    """
 
     def __init__(self, forest: ForestSpec, *, device, band: int | None = None,
                  prequantized: tuple[RankQuantizedForest, np.ndarray | None,
-                                     float] | None = None):
+                                     float] | None = None,
+                 fuse_transform: bool = False):
         self.device = resolve_device(device)
         # the rank-domain spec's sentinel is NaN (quantized_spec_for_engines);
         # raw rows still carry the forest's own. ``prequantized`` = (q,
@@ -274,6 +357,13 @@ class RankFoldEngine:
                                   prequantized=prequantized)
         self.q = self.tables.q
         self.groups = self.tables.groups
+        # the JAX gate (rank_kernel.py:807-814) less its TPU grid conditions;
+        # one plane group (<= 30 virtual features) already rules out the
+        # v2 transform's other arm, more than 128 virtual features (:1043)
+        self.fused = bool(
+            fuse_transform
+            and self.groups == 1
+            and self.q.max_ranks > FUSE_MIN_THRESHOLDS)
         self.num_trees = forest.num_trees
         self.output = forest.output
         self.global_bias = forest.global_bias
@@ -289,7 +379,11 @@ class RankFoldEngine:
         return rank_margins(planes.contiguous(), t.mats, t.leaf, t.depth)
 
     def margins(self, rows) -> torch.Tensor:
-        return self.margins_planes(self.transform(rows))
+        if not self.fused:
+            return self.margins_planes(self.transform(rows))
+        t = self.tables
+        return rank_margins_fused(t.rows(rows, self.raw_missing), t.thresholds,
+                                  t.counts, t.mats, t.leaf, t.depth)
 
     def _finish(self, margins: torch.Tensor) -> torch.Tensor:
         return apply_output_transform(margins, self.num_trees, self.output,

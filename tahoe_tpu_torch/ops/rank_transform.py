@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tahoe_tpu.forest.compiler import RANK_BASE, RANK_GROUP_COLS, rank_groups
+from tahoe_tpu_torch.forest.compiler import RANK_BASE, RANK_GROUP_COLS, rank_groups
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
 
 LANE = 128

@@ -38,7 +38,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from tahoe_tpu.forest.compiler import (
+from tahoe_tpu_torch.config import resolve_device
+from tahoe_tpu_torch.forest.compiler import (
     RANK_BASE,
     RANK_GROUP_COLS,
     RANK_LANE_C1,
@@ -50,10 +51,9 @@ from tahoe_tpu.forest.compiler import (
     RANK_MAX_COLS,
     RANK_MAX_GROUPS,
 )
-from tahoe_tpu.forest.quantize import quantized_spec_for_engines
-from tahoe_tpu.forest.sparse import SparseForest, from_dense
-from tahoe_tpu.forest.spec import ForestSpec
-from tahoe_tpu_torch.config import resolve_device
+from tahoe_tpu_torch.forest.quantize import quantized_spec_for_engines
+from tahoe_tpu_torch.forest.sparse import SparseForest, from_dense
+from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
 from tahoe_tpu_torch.ops.rank_kernel import (
     PLAIN_CHUNK_BYTES,

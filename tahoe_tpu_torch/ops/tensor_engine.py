@@ -31,8 +31,8 @@ from typing import Literal
 import numpy as np
 import torch
 
-from tahoe_tpu.forest.spec import LeveledForest
 from tahoe_tpu_torch.config import resolve_device
+from tahoe_tpu_torch.forest.spec import LeveledForest
 from tahoe_tpu_torch.ops.rows import map_row_chunks, missing_mask
 from tahoe_tpu_torch.ops.transform import apply_output_transform
 

@@ -4,6 +4,8 @@ JAX package's depth-bucketed engines (interpret mode) and the numpy oracle.
 Margins are held to the JAX engines within 1e-5 and to the oracle within
 ORACLE_ATOL.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -12,6 +14,7 @@ from tahoe_tpu.config import ORACLE_ATOL
 from tahoe_tpu.forest import synthetic
 from tahoe_tpu.ops import bucketed as jax_bucketed
 from tahoe_tpu.ops import oracle
+from tahoe_tpu_torch.forest.spec import from_arrays
 from tahoe_tpu_torch.ops.bucketed import (
     DepthBucketedFoldEngine,
     DepthBucketedRankEngine,
@@ -23,6 +26,11 @@ from tahoe_tpu_torch.ops.fold_kernel import FOLD, FOLD_DEEP, FOLD_NONGE
 
 CPU = torch.device("cpu")
 JAX_ATOL = 1e-5
+
+
+def _port(spec):
+    """A forest built by the JAX package, carried across to the port."""
+    return from_arrays(dataclasses.asdict(spec))
 
 
 def _mixed_depth_forest(trees=24, stored=7, cols=9, seed=5, missing=float("nan")):
@@ -60,7 +68,7 @@ def test_plan_buckets_matches_jax(seed):
 def test_subset_trees_matches_jax():
     f = _mixed_depth_forest()
     idx = np.array([1, 5, 7, 20], np.int64)
-    got, want = subset_trees(f, idx), jax_bucketed.subset_trees(f, idx)
+    got, want = subset_trees(_port(f), idx), jax_bucketed.subset_trees(f, idx)
     for name in ("values", "weights", "fids", "def_left", "is_leaf", "exchange"):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
     assert got.num_cols == want.num_cols and got.depth == want.depth
@@ -71,7 +79,7 @@ def test_bucketed_fold_matches_jax(missing_prob):
     f = _mixed_depth_forest()
     data = synthetic.generate_data(70, f.num_cols, missing_prob=missing_prob,
                                    seed=7)
-    eng = DepthBucketedFoldEngine(f, device=CPU)
+    eng = DepthBucketedFoldEngine(_port(f), device=CPU)
     assert eng.ge_mode and len(eng.sub) >= 2
     assert {e.kernel for e in eng.sub} <= {FOLD, FOLD_DEEP}
     jeng = jax_bucketed.DepthBucketedFoldEngine(f, row_tile=8, tree_tile=16,
@@ -85,7 +93,7 @@ def test_bucketed_fold_non_ge_matches_jax():
     f = _mixed_depth_forest(trees=30, cols=90, seed=31, missing=-999.0)
     data = synthetic.generate_data(50, 90, missing=-999.0, missing_prob=0.1,
                                    seed=32)
-    eng = DepthBucketedFoldEngine(f, device=CPU)
+    eng = DepthBucketedFoldEngine(_port(f), device=CPU)
     assert not eng.ge_mode
     assert all(e.form == "nonge" and e.kernel is FOLD_NONGE for e in eng.sub)
     jeng = jax_bucketed.DepthBucketedFoldEngine(f, row_tile=8, tree_tile=16,
@@ -97,7 +105,7 @@ def test_bucketed_fold_with_stump_bucket():
     f = _mixed_depth_forest(seed=11)
     f.is_leaf[:9, :] = True  # nine stumps: a bucket of constant margin
     data = synthetic.generate_data(25, f.num_cols, seed=12)
-    eng = DepthBucketedFoldEngine(f, device=CPU)
+    eng = DepthBucketedFoldEngine(_port(f), device=CPU)
     assert eng.stumps_margin == pytest.approx(float(f.values[:9, 0].sum()),
                                               abs=1e-6)
     jeng = jax_bucketed.DepthBucketedFoldEngine(f, row_tile=8, tree_tile=16,
@@ -110,7 +118,7 @@ def test_bucketed_rank_matches_jax(missing_prob):
     f = _mixed_depth_forest()
     data = synthetic.generate_data(70, f.num_cols, missing_prob=missing_prob,
                                    seed=17)
-    eng = DepthBucketedRankEngine(f, device=CPU)
+    eng = DepthBucketedRankEngine(_port(f), device=CPU)
     assert len(eng.sub) >= 2
     # one threshold table, so one kernel-A transform, for every bucket
     for e in eng.sub[1:]:
@@ -126,7 +134,7 @@ def test_bucketed_rank_with_stump_bucket_and_sentinel():
     f.is_leaf[:9, :] = True  # nine stumps: a bucket of constant margin
     data = synthetic.generate_data(40, f.num_cols, missing=-999.0,
                                    missing_prob=0.1, seed=14)
-    eng = DepthBucketedRankEngine(f, device=CPU)
+    eng = DepthBucketedRankEngine(_port(f), device=CPU)
     assert eng.stumps_margin == pytest.approx(float(f.values[:9, 0].sum()),
                                               abs=1e-6)
     jeng = jax_bucketed.DepthBucketedRankEngine(f, row_tile=32, tree_tile=8,
@@ -138,7 +146,7 @@ def test_bucketed_rank_with_stump_bucket_and_sentinel():
                                           (125, DepthBucketedFoldEngine)])
 def test_make_depth_bucketed_engine_chooses_as_jax(cols, variant):
     f = _mixed_depth_forest(cols=cols, seed=21)
-    eng = make_depth_bucketed_engine(f, device=CPU)
+    eng = make_depth_bucketed_engine(_port(f), device=CPU)
     jeng = jax_bucketed.make_depth_bucketed_engine(f, row_tile=32,
                                                    interpret=True)
     assert isinstance(eng, variant)
@@ -152,7 +160,7 @@ def test_rank_variant_refusal_falls_to_fold():
     returns the constant margin."""
     f = synthetic.generate_forest(10, 3, 5, seed=41)
     f.is_leaf[:] = True
-    eng = make_depth_bucketed_engine(f, device=CPU)
+    eng = make_depth_bucketed_engine(_port(f), device=CPU)
     assert isinstance(eng, DepthBucketedFoldEngine) and not eng.sub
     data = synthetic.generate_data(12, 5, seed=42)
     np.testing.assert_allclose(eng.predict(data).numpy(),

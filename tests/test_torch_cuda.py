@@ -32,10 +32,27 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     fold_margins_cuda,
     fold_margins_plain,
 )
+from tahoe_tpu_torch.ops.probes import (
+    INT8_MODES,
+    OVERHEAD_MODES,
+    PROBE_INT8,
+    PROBE_OVERHEAD,
+    PROBE_RANK_PARTS,
+    RANK_PARTS_MODES,
+    int8_probe_cuda,
+    int8_probe_plain,
+    overhead_probe_cuda,
+    overhead_probe_plain,
+    rank_parts_probe_cuda,
+    rank_parts_probe_plain,
+)
 from tahoe_tpu_torch.ops.rank_kernel import (
     RANK_FOLD,
+    RANK_FUSED,
     RankFoldEngine,
     rank_margins_cuda,
+    rank_margins_fused_cuda,
+    rank_margins_fused_plain,
     rank_margins_plain,
 )
 from tahoe_tpu_torch.ops.rank_transform import (
@@ -50,6 +67,7 @@ from tahoe_tpu_torch.ops.sparse_kernel import (
     sparse_margins_cuda,
     sparse_margins_plain,
 )
+from tahoe_tpu_torch.scripts import int8_cast_probe
 
 KERNEL_ATOL = 1e-5  # both sides sum leaves in f64; only the last rounding differs
 
@@ -333,3 +351,98 @@ def test_facade_sparse_and_plain_strategies(dev):
         np.testing.assert_allclose(got.cpu().numpy(), f.predict_oracle(data),
                                    atol=ORACLE_ATOL, rtol=0)
         assert {k for k, c in zip(kernels, counts) if k.launches > c} == launched
+
+
+@pytest.mark.parametrize("case", ["susy_like", "sentinel_swapped", "banded"])
+def test_rank_fused_kernel(dev, case):
+    """The fused kernel is bit for bit kernel A then kernel B on the same
+    rows and tables, and within KERNEL_ATOL of its plain version."""
+    forest, band = {
+        "susy_like": (synthetic.generate_forest(60, 8, 18, seed=51), None),
+        "sentinel_swapped": (compiler.hot_child_swap(synthetic.generate_forest(
+            40, 7, 12, leaf_prob=0.1, missing=-999.0, seed=52)), None),
+        "banded": (synthetic.generate_forest(30, 6, 9, seed=53), 80),
+    }[case]
+    data = _data(3000, forest.num_cols, 54, missing=forest.missing)
+    eng = RankFoldEngine(forest, device=dev, band=band, fuse_transform=True)
+    t = eng.tables
+    assert eng.groups == 1 and eng.fused == (band is None)
+    x = t.rows(data, eng.raw_missing)
+    before = RANK_FUSED.launches
+    got = rank_margins_fused_cuda(x, t.thresholds, t.counts, t.mats, t.leaf,
+                                  t.depth)
+    torch.cuda.synchronize()
+    assert RANK_FUSED.launches == before + 1
+    two = rank_margins_cuda(rank_planes_cuda(x, t.thresholds, t.counts),
+                            t.mats, t.leaf, t.depth)
+    assert torch.equal(got, two)
+    want = rank_margins_fused_plain(x, t.thresholds, t.counts, t.mats, t.leaf,
+                                    t.depth)
+    assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+    np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
+                               Forest(forest, device="cpu").predict_oracle(data),
+                               atol=ORACLE_ATOL, rtol=0)
+
+
+def test_fused_engine_launches_only_the_fused_kernel(dev):
+    forest = synthetic.generate_forest(60, 8, 18, leaf_prob=0.05, seed=55)
+    data = _data(2048, 18, 56)
+    eng = RankFoldEngine(forest, device=dev, fuse_transform=True)
+    unfused = RankFoldEngine(forest, device=dev)
+    assert eng.fused
+    counts = [k.launches for k in (RANK_PLANES, RANK_FOLD, RANK_FUSED)]
+    got = eng.predict(data)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (RANK_PLANES, RANK_FOLD, RANK_FUSED)] == [
+        counts[0], counts[1], counts[2] + 1]
+    assert torch.equal(got, unfused.predict(data))
+    with pytest.raises(ValueError, match="one plane group"):
+        x = torch.zeros(8, 40, device=dev)
+        thr = torch.zeros(40, 4, device=dev)
+        rank_margins_fused_cuda(x, thr, torch.zeros(40, dtype=torch.int32,
+                                                    device=dev),
+                                eng.tables.mats, eng.tables.leaf, eng.tables.depth)
+
+
+@pytest.mark.parametrize("mode", INT8_MODES)
+def test_probe_int8_kernel(dev, mode):
+    x32, w8 = int8_cast_probe.inputs()
+    x = torch.as_tensor(x32, device=dev)
+    w = torch.as_tensor(w8, device=dev)
+    before = PROBE_INT8.launches
+    got = int8_probe_cuda(x, w, mode)
+    torch.cuda.synchronize()
+    assert PROBE_INT8.launches == before + 1
+    assert torch.equal(got, int8_probe_plain(x, w, mode))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  int8_cast_probe.numpy_reference(x32, w8, mode))
+
+
+def _probe_tables(dev, cols):
+    forest = synthetic.generate_forest(50, 8, cols, leaf_prob=0.05, seed=cols)
+    eng = RankFoldEngine(forest, device=dev)
+    t = eng.tables
+    return eng.transform(_data(1500, cols, cols + 1)), t
+
+
+@pytest.mark.parametrize("cols", [18, 45])
+@pytest.mark.parametrize("mode", OVERHEAD_MODES)
+def test_probe_overhead_kernel(dev, mode, cols):
+    planes, t = _probe_tables(dev, cols)
+    before = PROBE_OVERHEAD.launches
+    got = overhead_probe_cuda(planes, t.mats, t.depth, mode)
+    torch.cuda.synchronize()
+    assert PROBE_OVERHEAD.launches == before + 1
+    assert torch.equal(got, overhead_probe_plain(planes, t.mats, t.depth, mode))
+
+
+@pytest.mark.parametrize("cols", [18, 45])
+@pytest.mark.parametrize("mode", RANK_PARTS_MODES)
+def test_probe_rank_parts_kernel(dev, mode, cols):
+    planes, t = _probe_tables(dev, cols)
+    before = PROBE_RANK_PARTS.launches
+    got = rank_parts_probe_cuda(planes, t.mats, t.leaf, t.depth, mode)
+    torch.cuda.synchronize()
+    assert PROBE_RANK_PARTS.launches == before + 1
+    assert torch.equal(got, rank_parts_probe_plain(planes, t.mats, t.leaf,
+                                                   t.depth, mode))

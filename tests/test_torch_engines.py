@@ -7,6 +7,7 @@ Margins are held to JAX within 1e-5 (the per-node math is the same, the
 f32 tree sums run in another order) and predictions to the oracle within
 ORACLE_ATOL.
 """
+import dataclasses
 import types
 
 import numpy as np
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from tahoe_tpu.config import ORACLE_ATOL, Output
+from tahoe_tpu.config import Strategy as JaxStrategy
 from tahoe_tpu.engine import feasibility as jax_feasibility
 from tahoe_tpu.forest import compiler, synthetic
 from tahoe_tpu.ops import oracle
@@ -21,12 +23,19 @@ from tahoe_tpu.ops.gather_engine import GatherEngine as JaxGatherEngine
 from tahoe_tpu.ops.tensor_engine import TensorEngine as JaxTensorEngine
 from tahoe_tpu_torch import Forest, Strategy
 from tahoe_tpu_torch.engine import feasibility
+from tahoe_tpu_torch.forest import compiler as port_compiler
+from tahoe_tpu_torch.forest.spec import from_arrays
 from tahoe_tpu_torch.ops import rows as rows_mod
 from tahoe_tpu_torch.ops.gather_engine import GatherEngine
 from tahoe_tpu_torch.ops.tensor_engine import TensorEngine
 
 CPU = torch.device("cpu")
 JAX_ATOL = 1e-5
+
+
+def _port(spec):
+    """A forest built by the JAX package, carried across to the port."""
+    return from_arrays(dataclasses.asdict(spec))
 
 # (depth, trees, cols, leaf_prob, missing, output) of tests/test_gather_engine.py
 # and tests/test_tensor_engine.py, plus a finite sentinel and AVG|SIGMOID
@@ -57,7 +66,7 @@ def test_gather_engine_matches_jax(name):
     """Both run on the hot-swapped, clustered forest, as both facades do."""
     forest, data = _case(name)
     compiled = compiler.compile_forest(forest)[0]
-    got = GatherEngine(compiled, device=CPU).predict(data)
+    got = GatherEngine(_port(compiled), device=CPU).predict(data)
     assert got.dtype == torch.float32 and got.shape == (37,)
     want = np.asarray(JaxGatherEngine(compiled).predict(data))
     np.testing.assert_allclose(got.numpy(), want, atol=JAX_ATOL, rtol=0)
@@ -70,7 +79,8 @@ def test_gather_engine_matches_jax(name):
 def test_tensor_engine_matches_jax(name, mode):
     forest, data = _case(name)
     lev = compiler.levelize(compiler.hot_child_swap(forest))
-    got = TensorEngine(lev, select_mode=mode, device=CPU).predict(data)
+    port_lev = port_compiler.levelize(port_compiler.hot_child_swap(_port(forest)))
+    got = TensorEngine(port_lev, select_mode=mode, device=CPU).predict(data)
     want = np.asarray(JaxTensorEngine(lev, select_mode=mode,
                                       row_tile=16).predict(data))
     np.testing.assert_allclose(got.numpy(), want, atol=JAX_ATOL, rtol=0)
@@ -90,7 +100,7 @@ def test_onehot_selects_values_exactly():
     data[1, :] = np.nextafter(forest.values[1, :20], np.float32(-np.inf))
     data[2, :4] = [np.inf, -np.inf, -0.0, 1e-40]
     data[3, :] = np.inf
-    lev = compiler.levelize(forest)
+    lev = port_compiler.levelize(_port(forest))
     take = TensorEngine(lev, select_mode="take", device=CPU).margins(data)
     onehot = TensorEngine(lev, select_mode="onehot", device=CPU).margins(data)
     assert torch.equal(take, onehot)
@@ -100,7 +110,8 @@ def test_onehot_selects_values_exactly():
 
 def test_row_chunks_do_not_change_the_margins(monkeypatch):
     forest, data = _case("depth6")
-    lev = compiler.levelize(forest)
+    forest = _port(forest)
+    lev = port_compiler.levelize(forest)
     engines = [GatherEngine(forest, device=CPU),
                TensorEngine(lev, select_mode="take", device=CPU),
                TensorEngine(lev, select_mode="onehot", device=CPU)]
@@ -116,7 +127,7 @@ def test_row_chunks_do_not_change_the_margins(monkeypatch):
 
 
 def test_facade_builds_layouts_only_for_their_strategies():
-    f = Forest(synthetic.generate_forest(12, 5, 8, leaf_prob=0.1, seed=9),
+    f = Forest(_port(synthetic.generate_forest(12, 5, 8, leaf_prob=0.1, seed=9)),
                device=CPU)
     data = synthetic.generate_data(30, 8, missing_prob=0.1, seed=10)
     for s in (Strategy.SPLIT_FOREST, Strategy.RANK_MXU, Strategy.SPARSE):
@@ -136,8 +147,8 @@ def test_facade_builds_layouts_only_for_their_strategies():
 def test_leveled_depth_cap_matches_jax(depth, trees):
     spec = synthetic.generate_forest(trees, depth, 4, seed=11)
     for s in (Strategy.ROW_TILED, Strategy.TENSOR):
-        jax_reason = jax_feasibility.check(s, spec)
-        port_reason = feasibility.check(s, spec)
+        jax_reason = jax_feasibility.check(JaxStrategy[s.name], spec)
+        port_reason = feasibility.check(s, _port(spec))
         assert (jax_reason is None) == (port_reason is None)
 
 
@@ -150,12 +161,12 @@ def test_table_caps(monkeypatch, trees, depth, feasible):
     shape = types.SimpleNamespace(num_trees=trees, depth=depth)
     reason = feasibility.check(Strategy.HBM_DIRECT, shape)
     assert (reason is None) == feasible
-    assert (jax_feasibility.check(Strategy.HBM_DIRECT, shape) is None) == feasible
+    assert (jax_feasibility.check(JaxStrategy.HBM_DIRECT, shape) is None) == feasible
     if not feasible:
         assert "dense node tables" in reason and "> 2 GiB" in reason
     # two depth-16 trees' rank tables take 2 x 65,535 x 128 + 2 x 65,536 x 4
     # bytes, 17.3 MB
-    deep = synthetic.generate_forest(2, 16, 4, seed=12)
+    deep = _port(synthetic.generate_forest(2, 16, 4, seed=12))
     assert feasibility.check(Strategy.RANK_MXU, deep) is None
     monkeypatch.setattr(feasibility, "TABLE_CAP_BYTES", 17_300_000)
     assert "dense rank tables" in feasibility.check(Strategy.RANK_MXU, deep)

@@ -5,6 +5,8 @@ subtree-split forms (interpret mode) and the numpy oracle.
 Margins are held to the JAX engine within 1e-5 (the port sums leaves in f64,
 the TPU kernel in f32 tiles) and to the oracle within ORACLE_ATOL.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from tahoe_tpu.forest import compiler, synthetic
 from tahoe_tpu.ops import oracle
 from tahoe_tpu.ops.fold_kernel import FoldKernelEngine as JaxFoldKernelEngine
 from tahoe_tpu_torch.config import GpuLimits
+from tahoe_tpu_torch.forest.spec import from_arrays
 from tahoe_tpu_torch.ops.fold_kernel import (
     FOLD,
     MAX_DUAL_COLS,
@@ -34,6 +37,11 @@ from tahoe_tpu_torch.ops.fold_kernel import (
 
 CPU = torch.device("cpu")
 JAX_ATOL = 1e-5
+
+
+def _port(spec):
+    """A forest built by the JAX package, carried across to the port."""
+    return from_arrays(dataclasses.asdict(spec))
 
 
 def _forest(depth, trees, cols, leaf_prob, def_left, swap, missing, seed):
@@ -66,7 +74,7 @@ def test_predict_matches_jax_and_oracle(name):
                                    seed=trees)
     k = min(cols, forest.nodes_per_tree)
     data[0, :k] = forest.values[0, :k]  # exact threshold hits
-    eng = FoldKernelEngine(forest, device=CPU)
+    eng = FoldKernelEngine(_port(forest), device=CPU)
     assert eng.form == "dual" and eng.kernel is FOLD
     got = eng.predict(data).numpy()
     jeng = JaxFoldKernelEngine(compiler.levelize(forest), row_tile=16,
@@ -83,7 +91,7 @@ def test_compacted_wide_forest_matches_jax():
     forest = synthetic.generate_forest(20, 5, 100, leaf_prob=0.1,
                                        active_cols=30, seed=41)
     data = synthetic.generate_data(64, 100, missing_prob=0.1, seed=42)
-    eng = FoldKernelEngine(forest, device=CPU)
+    eng = FoldKernelEngine(_port(forest), device=CPU)
     assert eng.tables.col_index is not None and eng.tables.num_cols <= 30
     got = eng.predict(data).numpy()
     jeng = JaxFoldKernelEngine(compiler.levelize(forest), row_tile=16,
@@ -108,7 +116,7 @@ def test_zero_and_denormal_thresholds_match_oracle():
     vals = np.array([0.0, -0.0, 1e-45, -1e-45, 2e-45, 1e-40, -1e-40, 3e-40,
                      -3e-40, np.nan, 1.0, -1.0], np.float32)
     data = rng.choice(vals, (200, 4)).astype(np.float32)
-    got = FoldKernelEngine(forest, device=CPU).margins(data).numpy()
+    got = FoldKernelEngine(_port(forest), device=CPU).margins(data).numpy()
     np.testing.assert_allclose(got, oracle.predict_margins(forest, data),
                                atol=JAX_ATOL, rtol=0)
 
@@ -117,7 +125,7 @@ def test_tables_layout():
     """thresholds/fids[t, 2^d - 1 + j] is column (t, j) of ge_normalize's
     level d."""
     forest = synthetic.generate_forest(6, 3, 5, leaf_prob=0.2, seed=10)
-    t = fold_tables(forest, device=CPU)
+    t = fold_tables(_port(forest), device=CPU)
     fid_l, thr_l, leaf = compiler.ge_normalize(compiler.levelize(forest))
     for d in range(3):
         sl = slice((1 << d) - 1, (2 << d) - 1)
@@ -154,7 +162,7 @@ def test_sign_form_matches_jax_and_oracle(name):
         missing=missing))
     data = synthetic.generate_data(48, num_cols, missing=missing,
                                    missing_prob=0.1, seed=active)
-    eng = FoldKernelEngine(forest, device=CPU)
+    eng = FoldKernelEngine(_port(forest), device=CPU)
     assert eng.form == "sign" and eng.kernel in (FOLD_SIGN, FOLD_DEEP_SIGN)
     assert MAX_DUAL_COLS < eng.tables.num_cols <= 512
     assert eng.canonicalize(data).shape == (48, eng.tables.num_cols)
@@ -185,7 +193,7 @@ def test_non_ge_matches_jax_and_oracle(name):
     data = synthetic.generate_data(40, cols, missing=missing, missing_prob=0.15,
                                    seed=cols)
     data[0, :min(cols, 7)] = forest.values[0, :min(cols, 7)]  # threshold hits
-    eng = FoldKernelEngine(forest, device=CPU, ge_mode=False)
+    eng = FoldKernelEngine(_port(forest), device=CPU, ge_mode=False)
     assert eng.form == "nonge" and eng.kernel is FOLD_NONGE
     assert eng.tables.col_index is None  # no compaction up to 128 columns
     got = eng.predict(data).numpy()
@@ -203,7 +211,7 @@ def test_deep_form_matches_jax_split(split_level):
     split fold at depth 10 (tests/test_fold_kernel.py:95-109)."""
     forest = synthetic.generate_forest(12, 10, 12, leaf_prob=0.1, seed=91)
     data = synthetic.generate_data(33, 12, missing_prob=0.1, seed=92)
-    got = FoldKernelEngine(forest, device=CPU).predict(data).numpy()
+    got = FoldKernelEngine(_port(forest), device=CPU).predict(data).numpy()
     jeng = JaxFoldKernelEngine(compiler.levelize(forest), row_tile=8,
                                tree_tile=16, interpret=True,
                                split_level=split_level)
@@ -219,7 +227,7 @@ def test_deep_sign_form_matches_jax_split():
     forest = _sparse_wide_forest(16, 7, 600, 150, seed=9, missing=-999.0)
     data = synthetic.generate_data(40, 600, missing=-999.0, missing_prob=0.05,
                                    seed=5)
-    got = FoldKernelEngine(forest, device=CPU).predict(data).numpy()
+    got = FoldKernelEngine(_port(forest), device=CPU).predict(data).numpy()
     jeng = JaxFoldKernelEngine(compiler.levelize(forest), row_tile=8,
                                tree_tile=64, split_level=3, interpret=True)
     assert jeng.sign_form and jeng.split_level == 3
@@ -230,7 +238,7 @@ def test_deep_sign_form_matches_jax_split():
 def test_depth15_matches_oracle_on_the_deep_route():
     forest = synthetic.generate_forest(3, 15, 6, leaf_prob=0.02, seed=95)
     data = synthetic.generate_data(50, 6, missing_prob=0.1, seed=96)
-    eng = FoldKernelEngine(forest, device=CPU)
+    eng = FoldKernelEngine(_port(forest), device=CPU)
     assert eng.kernel is FOLD_DEEP and isinstance(eng.launch, DeepLaunch)
     assert eng.nodes.shape == (3, (1 << 15) - 1, 2)
     assert np.array_equal(eng.nodes[..., 0].numpy().view(np.float32),
@@ -253,7 +261,7 @@ def test_zero_and_denormal_thresholds_match_oracle_forms(form):
     vals = np.array([0.0, -0.0, 1e-45, -1e-45, 2e-45, 1e-40, -1e-40, 3e-40,
                      -3e-40, np.nan, 1.0, -1.0], np.float32)
     data = rng.choice(vals, (200, cols)).astype(np.float32)
-    eng = FoldKernelEngine(forest, device=CPU, ge_mode=form == "sign")
+    eng = FoldKernelEngine(_port(forest), device=CPU, ge_mode=form == "sign")
     assert eng.form == form
     np.testing.assert_allclose(eng.margins(data).numpy(),
                                oracle.predict_margins(forest, data),
@@ -266,7 +274,7 @@ def test_sign_and_non_ge_tables_layout():
     def_right."""
     forest = compiler.hot_child_swap(_sparse_wide_forest(
         40, 5, 200, 90, seed=31, leaf_prob=0.2))
-    t = fold_tables(forest, device=CPU)
+    t = fold_tables(_port(forest), device=CPU)
     lev, _ = compiler.compact_leveled(compiler.levelize(forest))
     fid_l, thr_l, _ = compiler.ge_normalize(lev)
     F = lev.num_cols
@@ -278,7 +286,7 @@ def test_sign_and_non_ge_tables_layout():
         np.testing.assert_array_equal(t.thresholds[:, sl].numpy(), thr_l[d])
     small = compiler.hot_child_swap(synthetic.generate_forest(
         7, 3, 5, leaf_prob=0.2, seed=32))
-    t = fold_tables(small, device=CPU, ge_mode=False)
+    t = fold_tables(_port(small), device=CPU, ge_mode=False)
     lev = compiler.levelize(small)
     assert t.form == "nonge" and t.width == 5
     for d in range(3):
@@ -304,7 +312,7 @@ def test_fold_caps_hold(what):
         forest = synthetic.generate_forest(60, 4, 200, seed=90)
         kw = {"ge_mode": False}
     with pytest.raises(NotImplementedError, match="depth <= 15|<= 512|<= 128"):
-        FoldKernelEngine(forest, device=CPU, **kw)
+        FoldKernelEngine(_port(forest), device=CPU, **kw)
 
 
 # (form, width, depth, trees, whole_forest) -> kernel C block or deep kernel;

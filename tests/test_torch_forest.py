@@ -1,6 +1,7 @@
 """The port's Forest facade on the CPU: text-format round trip, the
 strategies against the numpy oracle under every output transform and a
 finite missing sentinel, and feasibility against the JAX package's."""
+import dataclasses
 import itertools
 
 import numpy as np
@@ -8,12 +9,15 @@ import pytest
 import torch
 
 from tahoe_tpu.config import ORACLE_ATOL
+from tahoe_tpu.config import Strategy as JaxStrategy
 from tahoe_tpu.engine import feasibility as jax_feasibility
 from tahoe_tpu.forest import compiler, io, synthetic
+from tahoe_tpu.forest.spec import ForestSpec as JaxForestSpec
 from tahoe_tpu.ops import oracle
 from tahoe_tpu.ops.transform import apply_output_transform as np_transform
 from tahoe_tpu_torch import Forest, Output, Strategy
 from tahoe_tpu_torch.config import MISSING_EPS, resolve_device
+from tahoe_tpu_torch.forest.spec import from_arrays, to_arrays
 from tahoe_tpu_torch.ops.bucketed import (
     DepthBucketedFoldEngine,
     DepthBucketedRankEngine,
@@ -27,6 +31,16 @@ PORTED = (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST, Strategy.RANK_MXU)
 OUTPUTS = [int(sum(c)) for n in range(4)
            for c in itertools.combinations(
                (Output.AVG, Output.SIGMOID, Output.THRESHOLD), n)]
+
+
+def _port(spec):
+    """A forest built by the JAX package, carried across to the port."""
+    return from_arrays(dataclasses.asdict(spec))
+
+
+def _jax(spec):
+    """A port forest carried back to the JAX package."""
+    return JaxForestSpec(**to_arrays(spec))
 
 
 def _files(tmp_path, forest, data, missing):
@@ -64,7 +78,7 @@ def test_output_flags_and_sentinel(strategy, output):
     data = synthetic.generate_data(80, 10, missing=-999.0, missing_prob=0.15,
                                    seed=64)
     data[1, 2] = np.float32(-999.0 + 5e-7)  # within MISSING_EPS of the sentinel
-    got = Forest(forest, device="cpu").predict(data, strategy).numpy()
+    got = Forest(_port(forest), device="cpu").predict(data, strategy).numpy()
     np.testing.assert_allclose(got, oracle.predict(forest, data),
                                atol=ORACLE_ATOL, rtol=0)
 
@@ -89,7 +103,7 @@ def test_from_files_output_transform(tmp_path):
 def test_unreachable_depth_truncated():
     forest = synthetic.generate_forest(9, 6, 5, seed=67)
     forest.is_leaf[:, forest.level_slice(3).start:] = True
-    f = Forest(forest, device="cpu")
+    f = Forest(_port(forest), device="cpu")
     assert f.stored_depth == 6 and f.spec.depth == 3
     data = synthetic.generate_data(40, 5, missing_prob=0.1, seed=68)
     for s in PORTED:
@@ -107,7 +121,7 @@ LATER = (Strategy.HBM_DIRECT, Strategy.ROW_TILED, Strategy.TENSOR,
 def test_every_strategy_is_served(strategy):
     forest = synthetic.generate_forest(5, 3, 4, leaf_prob=0.1, seed=69)
     data = synthetic.generate_data(40, 4, missing_prob=0.1, seed=70)
-    f = Forest(forest, device="cpu")
+    f = Forest(_port(forest), device="cpu")
     assert f.feasible(strategy) is None
     got = f.predict(data, strategy)
     assert got.dtype == torch.float32 and got.device.type == "cpu"
@@ -119,7 +133,7 @@ def test_every_strategy_is_served(strategy):
 
 def test_infeasible_fold_raises():
     """Dense fold tables stop at depth 15: depth 16 is SPARSE's range."""
-    f = Forest(synthetic.generate_forest(2, 16, 4, seed=70), device="cpu")
+    f = Forest(_port(synthetic.generate_forest(2, 16, 4, seed=70)), device="cpu")
     for s in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST,
               Strategy.DEPTH_BUCKETED):
         assert "depth 15" in f.feasible(s)
@@ -133,7 +147,7 @@ def test_depth15_split_forest_matches_oracle():
     393 KB tree)."""
     forest = synthetic.generate_forest(2, 15, 4, leaf_prob=0.02, seed=70)
     data = synthetic.generate_data(64, 4, missing_prob=0.1, seed=71)
-    f = Forest(forest, device="cpu")
+    f = Forest(_port(forest), device="cpu")
     assert f.feasible(Strategy.SPLIT_FOREST) is None
     assert f.engine(Strategy.SPLIT_FOREST).kernel is FOLD_DEEP
     np.testing.assert_allclose(f.predict(data).numpy(), f.predict_oracle(data),
@@ -141,13 +155,13 @@ def test_depth15_split_forest_matches_oracle():
 
 
 def test_vmem_forest_needs_the_whole_forest_in_one_block():
-    susy = Forest(synthetic.susy_class_forest(seed=0), device="cpu")
+    susy = Forest(_port(synthetic.susy_class_forest(seed=0)), device="cpu")
     assert "shared memory" in susy.feasible(Strategy.VMEM_FOREST)
     stumps = synthetic.generate_forest(800, 3, 10, leaf_prob=0.05,
                                        missing=-999.0, seed=72)
     data = synthetic.generate_data(100, 10, missing=-999.0, missing_prob=0.1,
                                    seed=73)
-    f = Forest(stumps, device="cpu")
+    f = Forest(_port(stumps), device="cpu")
     eng = f.engine(Strategy.VMEM_FOREST)
     assert eng.kernel is FOLD and eng.launch.tile_trees == 800
     np.testing.assert_allclose(f.predict(data, Strategy.VMEM_FOREST).numpy(),
@@ -172,7 +186,8 @@ def test_depth_bucketed_through_the_facade(tmp_path, cols, variant):
     np.testing.assert_allclose(
         f.predict(data, Strategy.DEPTH_BUCKETED).numpy(),
         oracle.predict(forest, data), atol=ORACLE_ATOL, rtol=0)
-    uniform = Forest(synthetic.generate_forest(10, 4, cols, seed=1), device="cpu")
+    uniform = Forest(_port(synthetic.generate_forest(10, 4, cols, seed=1)),
+                     device="cpu")
     assert "uniform" in uniform.feasible(Strategy.DEPTH_BUCKETED)
 
 
@@ -195,11 +210,11 @@ def test_split_forest_feasible_where_jax_is(name):
     trees, depth, cols, active, kernel = SWEEP_SHAPES[name]
     spec = synthetic.generate_forest(trees, depth, cols, active_cols=active,
                                      seed=1)
-    f = Forest(spec, device="cpu")
-    assert jax_feasibility.check(Strategy.SPLIT_FOREST, f.spec) is None
+    f = Forest(_port(spec), device="cpu")
+    assert jax_feasibility.check(JaxStrategy.SPLIT_FOREST, _jax(f.spec)) is None
     assert f.feasible(Strategy.SPLIT_FOREST) is None
     eng = f.engine(Strategy.SPLIT_FOREST)
-    live = jax_feasibility.fold_cols(f.spec)[0]
+    live = jax_feasibility.fold_cols(_jax(f.spec))[0]
     assert eng.tables.num_cols == live
     assert eng.form == ("dual" if live <= 64 else "sign")
     assert eng.kernel is kernel
@@ -208,8 +223,8 @@ def test_split_forest_feasible_where_jax_is(name):
 def test_depth_bucketed_feasible_where_jax_is():
     """trained_mix-class, the sweep's DEPTH_BUCKETED family."""
     spec = synthetic.generate_mixed_depth_forest(300, 12, 26, seed=1)
-    f = Forest(spec, device="cpu")
-    assert jax_feasibility.check(Strategy.DEPTH_BUCKETED, f.spec) is None
+    f = Forest(_port(spec), device="cpu")
+    assert jax_feasibility.check(JaxStrategy.DEPTH_BUCKETED, _jax(f.spec)) is None
     assert f.feasible(Strategy.DEPTH_BUCKETED) is None
     assert isinstance(f.engine(Strategy.DEPTH_BUCKETED), DepthBucketedRankEngine)
 
@@ -219,7 +234,7 @@ def test_cuda_device_without_gpu_raises():
         pytest.skip("a GPU is present")
     forest = synthetic.generate_forest(5, 3, 4, seed=71)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
-        Forest(forest, device="cuda")
+        Forest(_port(forest), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         resolve_device("cuda:0")
     with pytest.raises(ValueError, match="unsupported device"):

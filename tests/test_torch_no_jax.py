@@ -1,7 +1,9 @@
-"""The port runs without JAX: the machine with the GPU has none.
+"""The port runs without JAX and without the JAX package: the machine with
+the GPU has neither, and the port keeps its own copy of the numpy host
+layer.
 
-The test process itself has jax loaded (tests/conftest.py), so the import
-check runs in a fresh interpreter."""
+The test process itself has jax and tahoe_tpu loaded (tests/conftest.py and
+the other tests), so the import check runs in a fresh interpreter."""
 import os
 import re
 import subprocess
@@ -18,7 +20,9 @@ import tahoe_tpu_torch
 from tahoe_tpu_torch import Forest, Strategy
 from tahoe_tpu_torch.forest import sparse, synthetic, train
 from tahoe_tpu_torch.ops import bucketed, fold_kernel, rank_kernel, rank_transform  # noqa
-from tahoe_tpu_torch.ops import gather_engine, sparse_kernel, tensor_engine  # noqa
+from tahoe_tpu_torch.ops import gather_engine, oracle, probes, sparse_kernel  # noqa
+from tahoe_tpu_torch.ops import tensor_engine  # noqa
+from tahoe_tpu_torch.scripts import int8_cast_probe, overhead_bench, unit_bench  # noqa
 from tahoe_tpu_torch.utils import profiling  # noqa
 
 forest = synthetic.generate_forest(9, 4, 6, leaf_prob=0.1, seed=1)
@@ -44,7 +48,17 @@ for cols in (6, 90):  # DEPTH_BUCKETED, rank and fold variants
     rows = synthetic.generate_data(32, cols, missing_prob=0.1, seed=4)
     got = mixed.predict(rows, Strategy.DEPTH_BUCKETED).numpy()
     assert np.abs(got - mixed.predict_oracle(rows)).max() <= 1e-3
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+# the fused rank transform + traversal (one plane group, > 256 thresholds)
+susy = synthetic.generate_forest(60, 6, 12, seed=91)
+rows = synthetic.generate_data(64, 12, missing_prob=0.1, seed=92)
+fused = rank_kernel.RankFoldEngine(susy, device="cpu", fuse_transform=True)
+assert fused.fused
+assert np.array_equal(fused.predict(rows).numpy(),
+                      rank_kernel.RankFoldEngine(susy, device="cpu")
+                      .predict(rows).numpy())
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "tahoe_tpu")
+                or m.startswith(("jax.", "jaxlib.", "tahoe_tpu.")))
 assert not leaked, leaked
 print("no-jax-ok")
 """
@@ -65,6 +79,13 @@ def _sources():
 
 def test_no_jax_import_in_port_sources():
     bad = re.compile(r"^\s*(import|from)\s+jax(lib)?\b", re.M)
+    for path in _sources():
+        assert not bad.search(path.read_text()), path
+
+
+def test_no_jax_package_import_in_port_sources():
+    """Not even the JAX package's numpy modules: the port has its own."""
+    bad = re.compile(r"^\s*(from|import) tahoe_tpu(\.|\s|$)", re.M)
     for path in _sources():
         assert not bad.search(path.read_text()), path
 

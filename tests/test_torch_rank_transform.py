@@ -5,6 +5,8 @@ Planes must be bit-identical: a rank off by one at a threshold tie routes a
 row down the other branch. The numpy reference is
 ``encode_rank_planes_np(transform_rows_np(q, x))`` (bench.py:132-134).
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from tahoe_tpu.ops.rank_transform import (
     rank_planes_kernel,
     rank_planes_kernel_v2,
 )
+from tahoe_tpu_torch.forest.spec import from_arrays
 from tahoe_tpu_torch.ops.rank_kernel import RankFoldEngine
 from tahoe_tpu_torch.ops.rank_transform import (
     assemble_planes,
@@ -29,6 +32,11 @@ from tahoe_tpu_torch.ops.rank_transform import (
 from tahoe_tpu_torch.ops.rows import canonicalize_rows
 
 CPU = torch.device("cpu")
+
+
+def _port(spec):
+    """A forest built by the JAX package, carried across to the port."""
+    return from_arrays(dataclasses.asdict(spec))
 
 
 def _numpy_planes(tables, x):
@@ -76,7 +84,7 @@ def test_engine_planes_match_numpy_and_jax_v1(missing, cols):
     """<= 256 thresholds per feature: the JAX engine's flat v1 regime."""
     forest = synthetic.generate_forest(17, 4, cols, leaf_prob=0.1,
                                        missing=missing, seed=cols)
-    eng = RankFoldEngine(forest, device=CPU)
+    eng = RankFoldEngine(_port(forest), device=CPU)
     data = _rows_with_edges(64, cols, eng.q.tables, cols + 1, missing)
     got = eng.transform(data).numpy()
     gather = (np.arange(cols) if eng.tables.col_index is None
@@ -140,7 +148,7 @@ def test_banded_features_match_numpy_and_jax():
     features; rows expand through the column gather."""
     forest = synthetic.generate_forest(30, 6, 9, leaf_prob=0.1, seed=31)
     data = synthetic.generate_data(64, 9, missing_prob=0.1, seed=32)
-    eng = RankFoldEngine(forest, device=CPU, band=50)
+    eng = RankFoldEngine(_port(forest), device=CPU, band=50)
     assert eng.q.spec.num_cols > 9
     gather = eng.tables.col_index.numpy()
     got = eng.transform(data).numpy()

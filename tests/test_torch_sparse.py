@@ -9,20 +9,25 @@ per 128-tree tile, the port sums leaves in f64) and to the oracle within
 ORACLE_ATOL. A single tree's margin is one leaf value, so there the port
 must equal the oracle bit for bit.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from tahoe_tpu.config import ORACLE_ATOL
 from tahoe_tpu.forest import compiler, synthetic
-from tahoe_tpu.forest.quantize import quantized_spec_for_engines
+from tahoe_tpu.forest import sparse as jax_sparse
 from tahoe_tpu.forest.sparse import SparseGatherEngine as JaxSparseGatherEngine
+from tahoe_tpu.forest.spec import ForestSpec as JaxForestSpec
 from tahoe_tpu.forest.train import train_forest
 from tahoe_tpu.ops import oracle
 from tahoe_tpu.ops.sparse_kernel import SparseRankEngine as JaxSparseRankEngine
 from tahoe_tpu.ops.sparse_kernel import _node_column
 from tahoe_tpu_torch import Forest, Strategy
 from tahoe_tpu_torch.forest import sparse
+from tahoe_tpu_torch.forest.quantize import quantized_spec_for_engines
+from tahoe_tpu_torch.forest.spec import from_arrays, to_arrays
 from tahoe_tpu_torch.ops.rank_kernel import rank_quantize
 from tahoe_tpu_torch.ops.sparse_kernel import (
     SparseRankEngine,
@@ -34,6 +39,11 @@ from tahoe_tpu_torch.ops.sparse_kernel import (
 
 CPU = torch.device("cpu")
 JAX_ATOL = 1e-5
+
+
+def _port(spec):
+    """A forest built by the JAX package, carried across to the port."""
+    return from_arrays(dataclasses.asdict(spec))
 
 
 def _hot(forest):
@@ -74,7 +84,7 @@ CASES = {
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_sparse_matches_jax_and_oracle(name):
     forest, data, band = CASES[name]()
-    eng = SparseRankEngine(forest, device=CPU, band=band)
+    eng = SparseRankEngine(_port(forest), device=CPU, band=band)
     got = eng.predict(data)
     assert got.dtype == torch.float32 and got.shape == (data.shape[0],)
     jeng = JaxSparseRankEngine(forest, interpret=True, row_tile=8, band=band)
@@ -101,7 +111,7 @@ def test_single_tree_margins_equal_the_oracle(make):
     forest = make()
     data = synthetic.generate_data(300, forest.num_cols, missing=forest.missing,
                                    missing_prob=0.1, seed=34)
-    got = SparseRankEngine(forest, device=CPU).margins(data).numpy()
+    got = SparseRankEngine(_port(forest), device=CPU).margins(data).numpy()
     np.testing.assert_array_equal(got, oracle.predict_margins(forest, data))
 
 
@@ -112,7 +122,7 @@ def test_records_expand_to_the_jax_columns(name):
     the JAX build_sparse_leveled writes for that node
     (sparse_kernel.py:130-144, with its swap and form, :224-235)."""
     forest, _, band = CASES[name]()
-    q, _ = rank_quantize(forest, band)
+    q, _ = rank_quantize(_port(forest), band)
     G = compiler.rank_groups(q.spec.num_cols)
     sf = sparse.from_dense(quantized_spec_for_engines(q))
     records, pos = sparse_records(sf)
@@ -140,7 +150,7 @@ def test_plain_margins_chunk_rows(monkeypatch):
     from tahoe_tpu_torch.ops import sparse_kernel
 
     forest, data, _ = CASES["trained_deep"]()
-    eng = SparseRankEngine(forest, device=CPU)
+    eng = SparseRankEngine(_port(forest), device=CPU)
     t = eng.tables
     planes = eng.transform(data)
     whole = sparse_margins(planes, t.records, t.roots, t.max_depth)
@@ -152,10 +162,10 @@ def test_plain_margins_chunk_rows(monkeypatch):
 def test_all_leaf_forest():
     forest = synthetic.generate_forest(6, 3, 5, seed=35)
     forest.is_leaf[:] = True
-    t = sparse_tables(forest, device=CPU)
+    t = sparse_tables(_port(forest), device=CPU)
     assert t.max_depth == 0 and t.records.shape[0] == 6
     data = synthetic.generate_data(10, 5, seed=36)
-    got = SparseRankEngine(forest, device=CPU).predict(data).numpy()
+    got = SparseRankEngine(_port(forest), device=CPU).predict(data).numpy()
     np.testing.assert_allclose(got, oracle.predict(forest, data),
                                atol=ORACLE_ATOL, rtol=0)
 
@@ -168,10 +178,11 @@ def test_gather_tier_matches_jax(missing):
                                             missing=missing, seed=23))
     data = synthetic.generate_data(50, 1440, missing=missing, missing_prob=0.1,
                                    seed=24)
-    sf = sparse.from_dense(forest)
+    sf = sparse.from_dense(_port(forest))
     eng = sparse.SparseGatherEngine(sf, device=CPU)
     got = eng.predict(data).numpy()
-    want = np.asarray(JaxSparseGatherEngine(sf).predict(data))
+    want = np.asarray(JaxSparseGatherEngine(jax_sparse.from_dense(forest))
+                      .predict(data))
     np.testing.assert_allclose(got, want, atol=JAX_ATOL, rtol=0)
     np.testing.assert_allclose(eng.margins(data).numpy(),
                                sparse.predict_margins_np(sf, data),
@@ -184,9 +195,10 @@ def test_facade_picks_the_tier_by_feasibility():
     """SPARSE takes the rank engine where its planes hold the forest, the
     gather tier otherwise, by SparseRankEngine.feasible."""
     forest = train_forest(20, 9, 12, rows=512, seed=20)
-    f = Forest(forest, device=CPU)
+    f = Forest(_port(forest), device=CPU)
     assert isinstance(f.engine(Strategy.SPARSE), SparseRankEngine)
-    wide = Forest(synthetic.generate_forest(40, 6, 1440, seed=23), device=CPU)
+    wide = Forest(_port(synthetic.generate_forest(40, 6, 1440, seed=23)),
+                  device=CPU)
     assert "virtual features > 480" in SparseRankEngine.feasible(wide.spec)
     assert isinstance(wide.engine(Strategy.SPARSE), sparse.SparseGatherEngine)
     for fo in (f, wide):
@@ -201,14 +213,15 @@ def test_deep_trained_forest_through_the_facade():
     """Depth > 15: SPARSE serves it (and agrees with JAX); the dense
     strategies give their reasons."""
     forest = train_forest(10, 17, 10, rows=512, seed=25)
-    f = Forest(forest, device=CPU)
+    f = Forest(_port(forest), device=CPU)
     assert f.spec.depth > 15
     data = synthetic.generate_data(48, 10, missing_prob=0.05, seed=26)
     assert f.feasible(Strategy.SPARSE) is None
     got = f.predict(data, Strategy.SPARSE).numpy()
     np.testing.assert_allclose(got, f.predict_oracle(data), atol=ORACLE_ATOL,
                                rtol=0)
-    jeng = JaxSparseRankEngine(f.spec, interpret=True, row_tile=8)
+    jeng = JaxSparseRankEngine(JaxForestSpec(**to_arrays(f.spec)),
+                               interpret=True, row_tile=8)
     np.testing.assert_allclose(got, np.asarray(jeng.predict(data)),
                                atol=JAX_ATOL, rtol=0)
     for s in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST,
