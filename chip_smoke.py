@@ -6,10 +6,15 @@
 Phases, each of which exits non-zero when it fails:
 
 1. the card's name and power limit;
-2. build the CUDA kernels from the checkout (into build/tahoe_tpu_torch/);
+2. build the CUDA kernels from the checkout (into build/tahoe_tpu_torch/),
+   printing ptxas's registers per kernel, kernel B's on a line of its own;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the SUSY-class main path (500 trees, depth 8, 18 features, 65,536
-   rows, 2% missing), with both median times from CUDA events;
+   rows, 2% missing), with both median times from CUDA events; kernel A,
+   whose call is shorter than the host's time to issue it, by its device
+   time (20 calls in a CUDA graph, utils/profiling.cuda_device_ms) here and
+   on every path, against torch.searchsorted on the same table in
+   alternating rounds;
 4. the main path through the user's entry points: Forest.from_files on the
    reference text formats, then SPLIT_FOREST and RANK_MXU (full predict and
    plane-resident) on 65,536 rows, each held to the numpy oracle at
@@ -142,7 +147,7 @@ def main() -> int:
         SPARSE_RANK, SparseRankEngine, sparse_leaves_plain, sparse_margins_cuda,
         sparse_margins_plain)
     from tahoe_tpu_torch.scripts import int8_cast_probe, overhead_bench, unit_bench
-    from tahoe_tpu_torch.utils.profiling import cuda_median_ms
+    from tahoe_tpu_torch.utils.profiling import cuda_device_ms, cuda_median_ms
 
     dev = torch.device("cuda", 0)
     kernels = {"rank_transform": RANK_PLANES, "rank_fold": RANK_FOLD,
@@ -164,9 +169,18 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     print(f"[2] built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    entry, kernel_b_regs = "", []
     for line in open(str(lib) + ".log"):
         if "Used" in line or "Compiling entry" in line:
             print("    ptxas:", line.strip().split("ptxas info    : ")[-1])
+        if "Compiling entry" in line:
+            entry = line
+        elif "Used" in line and "rank_fold_kernel" in entry:
+            kernel_b_regs.append(line.split("Used")[1].split("registers")[0].strip())
+    if not kernel_b_regs:
+        fail("no ptxas report for kernel B (rank_fold_kernel) in the build log")
+    print(f"[2] kernel B (rank_fold_kernel, pair and byte stagings): "
+          f"{' / '.join(kernel_b_regs)} registers")
 
     # -- 3. kernels vs plain versions at SUSY shapes -----------------------
     forest = synthetic.susy_class_forest(seed=0)
@@ -184,13 +198,30 @@ def main() -> int:
         return bound(nbytes(x, thr, counts) + out,
                      (x.shape[0] * search_steps(counts), SCALAR_OPS_PER_S))
 
-    def rank_b_ops(rows, mats, depth):
-        """int8 operations of the descent: 2 * 128*G per visited column."""
+    def column_ops(rows, mats, depth):
+        """int8 operations of a descent that reads each visited column
+        whole, as the probes do: 2 * 128*G per visit."""
         return 2 * rows * mats.shape[0] * depth * mats.shape[2]
 
-    def rank_b_cost(planes, mats, leaf, depth):
-        return bound(nbytes(planes, mats, leaf) + 4 * planes.shape[0],
-                     (rank_b_ops(planes.shape[0], mats, depth), INT8_OPS_PER_S))
+    def descent_ops(rows, records, depth):
+        """A visited node's closed-form diff (two multiply-adds), the compare
+        and the step; an add per leaf."""
+        trees = records.shape[0]
+        return 4 * rows * trees * depth + rows * trees
+
+    def rank_b_cost(planes, records, leaf, depth):
+        return bound(nbytes(planes, records, leaf) + 4 * planes.shape[0],
+                     (descent_ops(planes.shape[0], records, depth), SCALAR_OPS_PER_S))
+
+    def alternating(fns, rounds=5, calls=20):
+        """Device ms a call of each fn (cuda_device_ms over ``calls``
+        calls), in ``rounds`` rounds that take the fns in turn; returns
+        (median of the rounds, the rounds) per name."""
+        meds = {name: [] for name in fns}
+        for _ in range(rounds):
+            for name, fn in fns.items():
+                meds[name].append(cuda_device_ms(fn, calls=calls))
+        return {name: (statistics.median(v), v) for name, v in meds.items()}
 
     def fold_cost(x, t, *tables):
         """A compare per visited node (D a (row, tree) on the leveled
@@ -211,26 +242,37 @@ def main() -> int:
         fail(f"rank transform kernel differs from its plain version "
              f"(max |diff| {a_err}, shape {tuple(a_k.shape)})")
     xt = x.t().contiguous()
+    # kernel A and the ranks alone by one library call (no plane assembly),
+    # on the same [F, K] table, in alternating rounds of device time: an
+    # event pair around a call this short also times the host's issue
+    a_times = alternating({
+        "kernel A": lambda: rank_planes_cuda(x, rt.thresholds, rt.counts),
+        "torch.searchsorted": lambda: torch.searchsorted(rt.thresholds, xt,
+                                                         right=True)})
+    for name, (med, rounds) in a_times.items():
+        print(f"[3] {name} on {tuple(x.shape)} rows, [{rt.thresholds.shape[0]}, "
+              f"{rt.thresholds.shape[1]}] table: device time median {med:.4f} ms, "
+              f"rounds {', '.join(f'{r:.4f}' for r in rounds)} ({card})")
+    print(f"[3] kernel A / torch.searchsorted: "
+          f"{a_times['kernel A'][0] / a_times['torch.searchsorted'][0]:.4f}")
     record["rank_transform"] = [(
-        "3", a_err,
-        cuda_median_ms(lambda: rank_planes_cuda(x, rt.thresholds, rt.counts)),
+        "3", a_err, a_times["kernel A"][0],
         cuda_median_ms(lambda: rank_planes_plain(x, rt.thresholds, rt.counts),
                        warmup=1, iters=5),
         *rank_a_cost(x, rt.thresholds, rt.counts),
-        # the ranks alone, by one library call (no plane assembly)
-        cuda_median_ms(lambda: torch.searchsorted(rt.thresholds, xt, right=True)))]
+        a_times["torch.searchsorted"][0])]
 
-    b_k = rank_margins_cuda(a_p, rt.mats, rt.leaf, rt.depth)
+    b_k = rank_margins_cuda(a_p, rt.records, rt.leaf, rt.depth)
     b_p = rank_margins_plain(a_p, rt.mats, rt.leaf, rt.depth)
     b_err = float((b_k - b_p).abs().max())
     if not (torch.isfinite(b_k).all() and b_err <= KERNEL_ATOL):
         fail(f"rank fold kernel differs from its plain version by {b_err}")
     record["rank_fold"] = [(
         "3", b_err,
-        cuda_median_ms(lambda: rank_margins_cuda(a_p, rt.mats, rt.leaf, rt.depth)),
+        cuda_median_ms(lambda: rank_margins_cuda(a_p, rt.records, rt.leaf, rt.depth)),
         cuda_median_ms(lambda: rank_margins_plain(a_p, rt.mats, rt.leaf, rt.depth),
                        warmup=1, iters=5),
-        *rank_b_cost(a_p, rt.mats, rt.leaf, rt.depth), None)]
+        *rank_b_cost(a_p, rt.records, rt.leaf, rt.depth), None)]
 
     fold = FoldKernelEngine(forest, device=dev)
     ft = fold.tables
@@ -358,11 +400,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return statistics.median(times)
 
-    def hold(tag, kernel_fns, plain_fn, costs, atol=KERNEL_ATOL):
+    def hold(tag, kernel_fns, plain_fn, costs, atol=KERNEL_ATOL,
+             timer=cuda_median_ms):
         """Kernels against their plain version on the same inputs, the plain
-        output computed once; each kernel's check (its error and median
-        time, the plain version's, and its bound from ``costs``) joins the
-        kernel's record. No library call computes these functions."""
+        output computed once; each kernel's check (its error and time by
+        ``timer``, the plain version's, and its bound from ``costs``) joins
+        the kernel's record. No library call computes these functions."""
         p_out = plain_fn()
         plain_ms = cuda_median_ms(plain_fn, warmup=1, iters=3)
         for name, fn in kernel_fns.items():
@@ -371,7 +414,7 @@ def main() -> int:
             if not (k_out.shape == p_out.shape and torch.isfinite(k_out).all()
                     and err <= atol):
                 fail(f"[{tag}] {name} differs from its plain version by {err}")
-            ms = cuda_median_ms(fn)
+            ms = timer(fn)
             b_ms, b_by = costs[name]
             record.setdefault(name, []).append(
                 (tag, err, ms, plain_ms, b_ms, b_by, None))
@@ -502,15 +545,16 @@ def main() -> int:
     hold("9", {"rank_transform": lambda: rank_planes_cuda(x, rt.thresholds,
                                                           rt.counts)},
          lambda: rank_planes_plain(x, rt.thresholds, rt.counts),
-         {"rank_transform": rank_a_cost(x, rt.thresholds, rt.counts)}, atol=0)
+         {"rank_transform": rank_a_cost(x, rt.thresholds, rt.counts)}, atol=0,
+         timer=cuda_device_ms)
     planes = rank_planes_plain(x, rt.thresholds, rt.counts)
     for e in eng.sub:
         bt = e.tables
         print(f"[9] bucket of {e.num_trees} trees at depth {bt.depth}")
         hold("9", {"rank_fold": lambda bt=bt: rank_margins_cuda(
-            planes, bt.mats, bt.leaf, bt.depth)},
+            planes, bt.records, bt.leaf, bt.depth)},
             lambda bt=bt: rank_margins_plain(planes, bt.mats, bt.leaf, bt.depth),
-            {"rank_fold": rank_b_cost(planes, bt.mats, bt.leaf, bt.depth)})
+            {"rank_fold": rank_b_cost(planes, bt.records, bt.leaf, bt.depth)})
     want = f.predict_oracle(mix_rows)
     run_path("9", f, Strategy.DEPTH_BUCKETED, mix_rows, want,
              {"rank_transform", "rank_fold"})
@@ -567,7 +611,8 @@ def main() -> int:
     hold("10", {"rank_transform": lambda: rank_planes_cuda(x, st.thresholds,
                                                            st.counts)},
          lambda: rank_planes_plain(x, st.thresholds, st.counts),
-         {"rank_transform": rank_a_cost(x, st.thresholds, st.counts)}, atol=0)
+         {"rank_transform": rank_a_cost(x, st.thresholds, st.counts)}, atol=0,
+         timer=cuda_device_ms)
     planes = rank_planes_plain(x, st.thresholds, st.counts)
     reads, lane_share = descent_reads(st, planes)
     # a visited record: its closed-form diff (two multiply-adds), the
@@ -621,9 +666,10 @@ def main() -> int:
     ft = fused.tables
     x = ft.rows(data, fused.raw_missing)
     steps = search_steps(ft.counts)
-    fused_bound = bound(nbytes(x, ft.thresholds, ft.counts, ft.mats, ft.leaf)
+    # the least work of the function: kernel B's records, not its columns
+    fused_bound = bound(nbytes(x, ft.thresholds, ft.counts, ft.records, ft.leaf)
                         + 4 * ROWS,
-                        (rank_b_ops(ROWS, ft.mats, ft.depth), INT8_OPS_PER_S),
+                        (descent_ops(ROWS, ft.records, ft.depth), SCALAR_OPS_PER_S),
                         (ROWS * steps, SCALAR_OPS_PER_S))
 
     def fused_kernel():
@@ -635,7 +681,7 @@ def main() -> int:
                                           ft.leaf, ft.depth),
          {"rank_fused": fused_bound})
     two = rank_margins_cuda(rank_planes_cuda(x, ft.thresholds, ft.counts),
-                            ft.mats, ft.leaf, ft.depth)
+                            ft.records, ft.leaf, ft.depth)
     if not torch.equal(fused_kernel(), two):
         fail("[12] the fused kernel is not bit-equal to kernels A then B")
     rows_d = torch.as_tensor(data, device=dev)
@@ -657,8 +703,8 @@ def main() -> int:
     us_fused = cuda_median_ms(lambda: fused.predict(rows_d)) * 1e3 / ROWS
     us_unfused = cuda_median_ms(lambda: unfused.predict(rows_d)) * 1e3 / ROWS
     planes = rank_planes_cuda(x, ft.thresholds, ft.counts)
-    a_ms = cuda_median_ms(lambda: rank_planes_cuda(x, ft.thresholds, ft.counts))
-    b_ms = cuda_median_ms(lambda: rank_margins_cuda(planes, ft.mats, ft.leaf,
+    a_ms = cuda_device_ms(lambda: rank_planes_cuda(x, ft.thresholds, ft.counts))
+    b_ms = cuda_median_ms(lambda: rank_margins_cuda(planes, ft.records, ft.leaf,
                                                     ft.depth))
     f_ms = cuda_median_ms(fused_kernel)
     print(f"[12] RANK_MXU fused: max |pred - oracle| {err} (tolerance "
@@ -711,7 +757,7 @@ def main() -> int:
         "13", max(parts[mo]["max_abs_err"] for mo in ("dot", "descent")),
         parts["dot"]["ms"], parts["dot"]["plain_ms"],
         *bound(ROWS * K + nbytes(rt.mats) + 4 * ROWS,
-               (rank_b_ops(ROWS, rt.mats, D), INT8_OPS_PER_S)),
+               (column_ops(ROWS, rt.mats, D), INT8_OPS_PER_S)),
         None)]
     rank_fold_ms = parts["rank_fold_ms"]
     print(f"[13] kernel B {rank_fold_ms:.4f} ms at {ROWS} rows: noop "

@@ -1,4 +1,6 @@
-// Probe kernels: they take kernel B (rank_fold.cu) apart on this card, and
+// Probe kernels: they take apart, on this card, the column walk that kernel B
+// (rank_fold.cu) ran before it read 4-byte node records (a warp a row, each
+// visited node's 128*G-byte column read whole, dp4a's and a warp sum), and
 // ask whether in-kernel int8 products are exact on the tensor cores.
 //
 // Replace the Pallas probes scripts/int8_cast_probe.py (:52, :75, :101),
@@ -21,17 +23,17 @@
 //   operations and ~0.3 MB at M = 256, both far below a microsecond; the
 //   probe asks for exactness, not speed.
 //
-// tahoe_probe_overhead: kernel B's launch geometry (a warp a row, 256
-// threads, lane k holding plane words k, k+32, ...) on its tables.
+// tahoe_probe_overhead: the column walk's launch geometry (a warp a row,
+// 256 threads, lane k holding plane words k, k+32, ...) on its columns.
 //   mode 0 noop    out[row] = sum of the row's plane bytes
 //   mode 1 stream  the same XOR every word lane k reads of every column
-//                  kernel B would read along the fixed path j = 0 (node
+//                  the walk would read along the fixed path j = 0 (node
 //                  2^d - 1 of each level of each tree): the loads without
 //                  the dp4a's and the per-node shuffles
 //   Bound: the planes' bytes (128*G a row) for noop; stream reads T*D
 //   columns more, the same for every row, so they stay in L1/L2.
 //
-// tahoe_probe_rank_parts: kernel B's geometry and its four trees in flight.
+// tahoe_probe_rank_parts: the column walk's geometry, four trees in flight.
 //   mode 0 dot      every visited column read whole, __dp4a and the warp
 //                   sum, along the path j_d = h & (2^d - 1) with h a hash
 //                   of (row, tree): a root-to-leaf path whose addresses do
@@ -42,7 +44,8 @@
 //                   no column read, then the leaf of the final j, its bits
 //                   added into the output (mod 2^32)
 //   Bound (dot): the int8 operations of the visited columns, 2*128*G per
-//   (row, tree, level), as kernel B's. Descent reads only planes and leaves.
+//   (row, tree, level), as the column walk's. Descent reads only planes and
+//   leaves.
 #include "common.cuh"
 
 namespace {
@@ -197,7 +200,7 @@ __global__ void probe_rank_parts_kernel(const int8_t* __restrict__ planes,
     const unsigned r32 = static_cast<unsigned>(row);
     unsigned acc = 0;
 
-    if (mode == 0) {  // dot: kernel B's loads, dp4a's and sums, no dependence
+    if (mode == 0) {  // dot: the walk's loads, dp4a's and sums, no dependence
         for (int t0 = 0; t0 < T; t0 += kTreesInFlight) {
             unsigned h[kTreesInFlight];
             const int* col[kTreesInFlight];

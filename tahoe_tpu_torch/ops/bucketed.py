@@ -189,9 +189,8 @@ class DepthBucketedRankEngine(_Bucketed):
 
     def margins(self, rows) -> torch.Tensor:
         planes = self.transform(rows)
-        return self._sum(planes.shape[0], (
-            rank_margins(planes, e.tables.mats, e.tables.leaf, e.tables.depth)
-            for e in self.sub))
+        return self._sum(planes.shape[0], (rank_margins(planes, e.tables)
+                                           for e in self.sub))
 
 
 def make_depth_bucketed_engine(spec: ForestSpec, *, device):

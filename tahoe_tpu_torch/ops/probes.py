@@ -1,6 +1,7 @@
 """Probe kernels (csrc/probes.cu) and their plain PyTorch versions.
 
-They measure kernel B (csrc/rank_fold.cu) in parts on the card, and whether
+They measure in parts, on the card, the column walk that kernel B
+(csrc/rank_fold.cu) ran before it read node records, and whether
 in-kernel int8 products are exact, for tahoe_tpu_torch/scripts/
 {int8_cast_probe,overhead_bench,unit_bench}.py. Each entry point has a plain
 version that computes the same integers, and the card's results are held to

@@ -12,7 +12,10 @@ R_d[:, node] with
     cond(node) = planes[row] . R_d[:, node] >= 0      (int32 sum)
 
 and in the levelize/rank_normalize layout node j of level d has its children
-at j (cond False) and j + 2^d (cond True) of level d + 1.
+at j (cond False) and j + 2^d (cond True) of level d + 1. A column has at
+most four nonzeros, so kernel B reads each node as one int32 record
+(``rank_records``) and computes the dot in closed form; its plain version,
+the fused kernel and the probes read the columns (``mats``).
 
 With ``fuse_transform=True`` a forest of one plane group (<= 30 virtual
 features) whose widest feature has more than 256 thresholds runs the fused
@@ -39,7 +42,14 @@ import torch.nn.functional as F
 
 from tahoe_tpu_torch.config import resolve_device
 from tahoe_tpu_torch.forest.compiler import (
+    RANK_BASE,
     RANK_GROUP_COLS,
+    RANK_LANE_C1,
+    RANK_LANE_C127,
+    RANK_LANE_NQH,
+    RANK_LANE_NQL,
+    RANK_LANE_QH,
+    RANK_LANE_QL,
     RANK_MAX,
     RANK_MAX_COLS,
     RANK_MAX_GROUPS,
@@ -75,6 +85,10 @@ RANK_FOLD = CudaKernel(
     source="tahoe_tpu_torch/csrc/rank_fold.cu",
     replaces="tahoe_tpu/ops/rank_kernel.py:231",
 )
+
+# kernel B's node record: (k << RECORD_LANE_BITS) | lane
+RECORD_LANE_BITS = 12
+RECORD_LANE_MASK = (1 << RECORD_LANE_BITS) - 1
 
 RANK_FUSED = CudaKernel(
     "tahoe_rank_fused",
@@ -187,12 +201,65 @@ class RankTables(RankInput):
 
     - ``mats`` [T, 2^D - 1, 128*G] int8: node n = 2^d - 1 + j of a tree is
       column j of level d's R_d;
+    - ``records`` [T, 2^D - 1] int32: the same nodes as kernel B's records
+      (``rank_records``);
     - ``leaf`` [T, 2^D] f32, in the mirror-composed rank_normalize order.
     """
 
     mats: torch.Tensor
+    records: torch.Tensor
     leaf: torch.Tensor
     depth: int
+
+
+def rank_records(mats: np.ndarray) -> np.ndarray:
+    """Node columns [T, N, 128*G] int8 -> kernel B's records [T, N] int32.
+
+    rank_normalize writes at most four nonzeros a column: 127 and 1 at the
+    lanes ``lane`` and ``lane + 30`` of the node's feature segment (QH in the
+    pos form, NQH in the neg form), and (c127, c1) at lanes 120 and 121 of
+    group 0, where the planes carry 127 and 1. So for every row
+
+        planes . column = 127 * p[lane] + p[lane + 30] + k,
+        k = 127 * c127 + c1   (k in [-RANK_MAX, RANK_MAX - 1])
+
+    and the record is ``(k << 12) | lane``. A pass-through node (c1 = -1
+    alone) gets k = -1 and lane = 128*G, which kernel B points at zeros
+    staged past the row. Raises if a column is not of that form."""
+    T, N, K = mats.shape
+    cols = mats.reshape(T * N, K)
+    k = (RANK_BASE * cols[:, RANK_LANE_C127].astype(np.int32)
+         + cols[:, RANK_LANE_C1])
+    hit = cols.reshape(T * N, K // LANE, LANE) == RANK_BASE
+    hit[:, :, RANK_LANE_QL:RANK_LANE_NQH] = False  # only QH and NQH lanes
+    hit[:, :, RANK_LANE_NQL:] = False
+    node, lane = np.nonzero(hit.reshape(T * N, K))
+    lanes = np.full(T * N, K, np.int32)  # pass-through: past the row
+    lanes[node] = lane
+    if (np.bincount(node, minlength=T * N) > 1).any():
+        raise ValueError("a rank column has two feature lanes")
+    feature = np.zeros(T * N, bool)
+    feature[node] = True
+    pair = np.zeros(T * N, bool)
+    pair[node] = cols[node, lane + (RANK_LANE_QL - RANK_LANE_QH)] == 1
+    nonzeros = np.count_nonzero(cols, axis=1)
+    want = (2 * feature + (cols[:, RANK_LANE_C127] != 0)
+            + (cols[:, RANK_LANE_C1] != 0))
+    if not ((pair == feature).all() and (nonzeros == want).all()
+            and (k[~feature] == -1).all()):
+        raise ValueError("a rank column is not of rank_normalize's form")
+    return pack_records(k, lanes).reshape(T, N)
+
+
+def pack_records(k: np.ndarray, lane: np.ndarray) -> np.ndarray:
+    """(k, lane) -> int32 records ``(k << 12) | lane``; kernel B decodes
+    ``lane = r & 0xFFF`` and ``k = r >> 12`` (arithmetic)."""
+    k = np.asarray(k, np.int64)
+    lane = np.asarray(lane, np.int64)
+    if ((lane < 0) | (lane > RECORD_LANE_MASK)).any() or (np.abs(k) > RANK_MAX).any():
+        raise ValueError(f"record fields out of range: |k| <= {RANK_MAX}, "
+                         f"0 <= lane <= {RECORD_LANE_MASK}")
+    return ((k << RECORD_LANE_BITS) | lane).astype(np.int32)
 
 
 def rank_tables(spec: ForestSpec, band: int | None = None, *,
@@ -213,9 +280,11 @@ def rank_tables(spec: ForestSpec, band: int | None = None, *,
     K = LANE * rank_groups(lev.num_cols)
     node_cols = (np.concatenate([m.transpose(1, 2, 0) for m in mats], axis=1)
                  if mats else np.zeros((lev.num_trees, 0, K), np.int8))
+    node_cols = np.ascontiguousarray(node_cols)
     return RankTables(
         **fields,
-        mats=torch.as_tensor(np.ascontiguousarray(node_cols), device=device),
+        mats=torch.as_tensor(node_cols, device=device),
+        records=torch.as_tensor(rank_records(node_cols), device=device),
         leaf=torch.as_tensor(leaf, device=device),
         depth=lev.depth,
     )
@@ -256,33 +325,34 @@ def rank_margins_plain(planes: torch.Tensor, mats: torch.Tensor,
     return torch.cat(out)
 
 
-def rank_margins_cuda(planes: torch.Tensor, mats: torch.Tensor,
+def rank_margins_cuda(planes: torch.Tensor, records: torch.Tensor,
                       leaf: torch.Tensor, depth: int) -> torch.Tensor:
-    """Kernel B on the card (csrc/rank_fold.cu)."""
+    """Kernel B on the card (csrc/rank_fold.cu): planes [R, 128*G] int8 and
+    the records ``rank_records`` built for planes of that width."""
     dev = planes.device
     check_operand(planes, "planes", torch.int8, dev, 2)
-    check_operand(mats, "mats", torch.int8, dev, 3)
+    check_operand(records, "records", torch.int32, dev, 2)
     check_operand(leaf, "leaf", torch.float32, dev, 2)
     R, K = planes.shape
     T = leaf.shape[0]
     if K % LANE or not 1 <= K // LANE <= RANK_MAX_GROUPS:
         raise ValueError(f"planes width {K} is not 128 x 1..16 groups")
-    if mats.shape != (T, (1 << depth) - 1, K) or leaf.shape[1] != 1 << depth:
+    if (T < 1 or records.shape != (T, (1 << depth) - 1)
+            or leaf.shape[1] != 1 << depth):
         raise ValueError(
-            f"tables {tuple(mats.shape)} / {tuple(leaf.shape)} do not match "
-            f"depth {depth} and planes width {K}")
+            f"tables {tuple(records.shape)} / {tuple(leaf.shape)} do not "
+            f"match depth {depth}")
     out = torch.empty(R, dtype=torch.float32, device=dev)
-    RANK_FOLD.launch(dev, ptr(planes), R, K // LANE, ptr(mats), T, depth,
+    RANK_FOLD.launch(dev, ptr(planes), R, K // LANE, ptr(records), T, depth,
                      ptr(leaf), ptr(out))
     return out
 
 
-def rank_margins(planes: torch.Tensor, mats: torch.Tensor, leaf: torch.Tensor,
-                 depth: int) -> torch.Tensor:
+def rank_margins(planes: torch.Tensor, t: RankTables) -> torch.Tensor:
     """Kernel B on a CUDA tensor, its plain version on a CPU tensor."""
     if planes.device.type == "cpu":
-        return rank_margins_plain(planes, mats, leaf, depth)
-    return rank_margins_cuda(planes, mats, leaf, depth)
+        return rank_margins_plain(planes, t.mats, t.leaf, t.depth)
+    return rank_margins_cuda(planes, t.records, t.leaf, t.depth)
 
 
 def rank_margins_fused_plain(x: torch.Tensor, thresholds: torch.Tensor,
@@ -375,8 +445,7 @@ class RankFoldEngine:
 
     def margins_planes(self, planes) -> torch.Tensor:
         planes = torch.as_tensor(planes, dtype=torch.int8, device=self.device)
-        t = self.tables
-        return rank_margins(planes.contiguous(), t.mats, t.leaf, t.depth)
+        return rank_margins(planes.contiguous(), self.tables)
 
     def margins(self, rows) -> torch.Tensor:
         if not self.fused:

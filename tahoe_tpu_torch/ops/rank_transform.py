@@ -11,7 +11,8 @@ writes the base-127 plane lanes of compiler.rank_normalize
 with qh = q // 127, ql = q - 127*qh, and -128 in all four segments for a
 missing (NaN) value. The TPU kernels found the rank with one-hot digit
 matmuls because Mosaic has no vector gather; here the CUDA kernel
-(csrc/rank_transform.cu) binary-searches each feature's table, and the plain
+(csrc/rank_transform.cu) searches a coarse index of each feature's table in
+shared memory, then counts within one 16-threshold window, and the plain
 version below uses ``torch.searchsorted``. Both give the same rank.
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ from tahoe_tpu_torch.forest.compiler import RANK_BASE, RANK_GROUP_COLS, rank_gro
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
 
 LANE = 128
+TABLE_ALIGN = 16  # csrc/rank_transform.cu kWindow
 
 RANK_PLANES = CudaKernel(
     "tahoe_rank_planes",
@@ -38,11 +40,14 @@ RANK_PLANES = CudaKernel(
 
 def threshold_table(tables, *, device: torch.device):
     """Per-feature sorted thresholds -> (thresholds [F, K] f32 padded with
-    +inf past each feature's count, counts [F] int32), K >= 1.
+    +inf past each feature's count, counts [F] int32), K a multiple of
+    TABLE_ALIGN.
 
     The counts bound every search, so a +inf pad never counts toward a rank
-    (an x of +inf included)."""
-    k = max(1, max((len(t) for t in tables), default=0))
+    (an x of +inf included). K rounds up to TABLE_ALIGN thresholds so that
+    each of kernel A's 16-threshold windows is an aligned 64 bytes."""
+    k = max((len(t) for t in tables), default=0)
+    k = max(1, -(-k // TABLE_ALIGN)) * TABLE_ALIGN
     thr = np.full((len(tables), k), np.inf, np.float32)
     for f, t in enumerate(tables):
         thr[f, : len(t)] = t
@@ -80,6 +85,20 @@ def rank_planes_plain(x: torch.Tensor, thresholds: torch.Tensor,
     return assemble_planes(q, torch.isnan(x))
 
 
+def aligned_table(thresholds: torch.Tensor) -> torch.Tensor:
+    """``thresholds`` as kernel A takes it: K a multiple of TABLE_ALIGN and
+    16-byte-aligned storage. A table from :func:`threshold_table` already is;
+    any other is copied with +inf appended, which the counts keep out of
+    every rank."""
+    nf, k = thresholds.shape
+    pad = -k % TABLE_ALIGN
+    if pad == 0 and thresholds.data_ptr() % 16 == 0:
+        return thresholds
+    out = thresholds.new_full((nf, k + pad), float("inf"))
+    out[:, :k] = thresholds
+    return out
+
+
 def rank_planes_cuda(x: torch.Tensor, thresholds: torch.Tensor,
                      counts: torch.Tensor) -> torch.Tensor:
     """Kernel A on the card (csrc/rank_transform.cu)."""
@@ -90,6 +109,7 @@ def rank_planes_cuda(x: torch.Tensor, thresholds: torch.Tensor,
     R, nf = x.shape
     if thresholds.shape[0] != nf or counts.shape[0] != nf:
         raise ValueError(f"tables cover {thresholds.shape[0]} features, x has {nf}")
+    thresholds = aligned_table(thresholds)
     G = rank_groups(nf)
     out = torch.empty(R, LANE * G, dtype=torch.int8, device=dev)
     RANK_PLANES.launch(dev, ptr(x), R, nf, G, ptr(thresholds),

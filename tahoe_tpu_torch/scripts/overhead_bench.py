@@ -1,21 +1,23 @@
-"""Probe: kernel B's launch geometry and table loads, without its work.
+"""Probe: the column walk's launch geometry and loads, without its work.
 
     python -m tahoe_tpu_torch.scripts.overhead_bench
 
 The H100 counterpart of scripts/overhead_bench.py's ``noop_margins(False)``
 and ``noop_margins(True)``. On the SUSY-class forest (500 trees, depth 8,
-18 features, 2% missing) at 16,384 and 65,536 rows, with kernel B's launch
-(a warp a row, 256 threads; csrc/probes.cu ``tahoe_probe_overhead``):
+18 features, 2% missing) at 16,384 and 65,536 rows, with the launch of
+the column walk kernel B ran before it read node records (a warp a row,
+256 threads; csrc/probes.cu ``tahoe_probe_overhead``):
 
 - ``noop``: each warp reads its row's planes and writes their sum: the
   launch, the rows and the write;
-- ``stream``: the same, plus one 4-byte word a lane of every column kernel
-  B reads along the fixed path j = 0 (node 2^d - 1 of each level of each
+- ``stream``: the same, plus one 4-byte word a lane of every column the
+  walk reads along the fixed path j = 0 (node 2^d - 1 of each level of each
   tree), with no __dp4a and no per-node shuffle: the loads' own cost,
   from L1/L2, as every row reads the same columns.
 
 Each is held to its plain version exactly and timed (median of 20 calls,
-CUDA events) beside kernel B at the same rows. Prints one JSON line.
+CUDA events) beside kernel B (over its records) at the same rows. Prints
+one JSON line.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ def run(device, rows=ROWS) -> dict:
     for n in rows:
         planes = eng.transform(susy_rows(n, seed=1))
         res = {"rank_fold_ms": cuda_median_ms(
-            lambda: rank_margins_cuda(planes, t.mats, t.leaf, t.depth))}
+            lambda: rank_margins_cuda(planes, t.records, t.leaf, t.depth))}
         for mode in OVERHEAD_MODES:
             got = overhead_probe_cuda(planes, t.mats, t.depth, mode)
             plain = overhead_probe_plain(planes, t.mats, t.depth, mode)

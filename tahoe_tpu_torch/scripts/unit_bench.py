@@ -1,25 +1,26 @@
-"""Probe: kernel B's dot and descent apart, and the int8 tensor-core rate.
+"""Probe: the column walk's dot and descent apart, and the int8 tensor-core
+rate.
 
     python -m tahoe_tpu_torch.scripts.unit_bench
 
 The H100 counterpart of scripts/unit_bench.py's ``variant_margins`` and its
-MXU-rate chains. On the SUSY-class forest at 65,536 rows, with kernel B's
-launch and four trees in flight (csrc/probes.cu ``tahoe_probe_rank_parts``):
+MXU-rate chains. On the SUSY-class forest at 65,536 rows, with the launch
+of the column walk kernel B ran before it read node records and four trees
+in flight (csrc/probes.cu ``tahoe_probe_rank_parts``):
 
 - ``dot``: every visited column read whole, __dp4a and the warp sum, along
   a root-to-leaf path hashed from (row, tree) that does not wait on the
-  conditions: kernel B without its dependence;
+  conditions: the walk without its dependence;
 - ``descent``: the dependent walk j += cond << d, cond a hash of the row's
   plane-word sum, the tree, the level and j, no column read, then the leaf:
-  kernel B without its loads and dots.
+  the walk without its loads and dots.
 
 Each is held to its plain version exactly and timed (median of 20 calls,
-CUDA events) beside kernel B and the fused kernel on the same rows. The
-yardstick for the int8 tensor-core rate is one library call,
-torch._int_mm, at M = 1024, K = 128, N = 32768 and at K = 2048, N = 8192
-(scripts/unit_bench.py:89-119), with B row-major and column-major; no
-engine of the port calls it. Prints one JSON
-line.
+CUDA events) beside kernel B (over its records) and the fused kernel on
+the same rows. The yardstick for the int8 tensor-core rate is one library
+call, torch._int_mm, at M = 1024, K = 128, N = 32768 and at K = 2048,
+N = 8192 (scripts/unit_bench.py:89-119), with B row-major and
+column-major; no engine of the port calls it. Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ def run(device, rows=ROWS) -> dict:
     planes = eng.transform(data)
     out = {"card": torch.cuda.get_device_name(device), "rows": rows,
            "rank_fold_ms": cuda_median_ms(
-               lambda: rank_margins_cuda(planes, t.mats, t.leaf, t.depth)),
+               lambda: rank_margins_cuda(planes, t.records, t.leaf, t.depth)),
            "rank_fused_ms": cuda_median_ms(lambda: rank_margins_fused_cuda(
                x, t.thresholds, t.counts, t.mats, t.leaf, t.depth))}
     for mode in RANK_PARTS_MODES:

@@ -31,3 +31,29 @@ def cuda_median_ms(fn: Callable[[], object], *, warmup: int = 3,
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def cuda_device_ms(fn: Callable[[], object], *, warmup: int = 3,
+                   calls: int = 20) -> float:
+    """Device milliseconds of one ``fn()``: ``calls`` calls captured in one
+    CUDA graph after ``warmup``, its replay timed between two events. Unlike
+    an event pair around a call, it excludes the host's time to issue the
+    call, which exceeds the device time of a kernel of a few tens of
+    microseconds. ``fn`` must be capturable: no host synchronisation."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_device_ms needs a CUDA device")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()  # the first replay uploads the graph
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls

@@ -13,6 +13,7 @@ import torch
 from tahoe_tpu_torch import ORACLE_ATOL, Forest, GpuLimits, Output, Strategy
 from tahoe_tpu_torch.forest import compiler, quantize, synthetic, train
 from tahoe_tpu_torch.forest.sparse import SparseGatherEngine
+from tahoe_tpu_torch.ops._build import ptr
 from tahoe_tpu_torch.ops.bucketed import (
     DepthBucketedFoldEngine,
     DepthBucketedRankEngine,
@@ -49,6 +50,7 @@ from tahoe_tpu_torch.ops.probes import (
 from tahoe_tpu_torch.ops.rank_kernel import (
     RANK_FOLD,
     RANK_FUSED,
+    RECORD_LANE_MASK,
     RankFoldEngine,
     rank_margins_cuda,
     rank_margins_fused_cuda,
@@ -115,13 +117,43 @@ def test_rank_fold_kernel(dev, cols, band):
     eng = RankFoldEngine(forest, device=dev, band=band)
     t = eng.tables
     planes = eng.transform(data)
-    got = rank_margins_cuda(planes, t.mats, t.leaf, t.depth)
+    got = rank_margins_cuda(planes, t.records, t.leaf, t.depth)
     torch.cuda.synchronize()
     want = rank_margins_plain(planes, t.mats, t.leaf, t.depth)
     assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
     np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
                                Forest(forest, device="cpu").predict_oracle(data),
                                atol=ORACLE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("cols,depth", [(18, 1), (18, 8), (45, 8), (480, 8),
+                                        (18, 12), (45, 12), (480, 12), (18, 14)])
+def test_rank_fold_kernel_records(dev, cols, depth):
+    """Kernel B over its records at 1, 2 and 16 plane groups and depth 1 to
+    14, on forests where a third of the nodes end early (pass-through
+    records past the row) and the missing routes mix def_left and
+    exchange."""
+    trees = {1: 40, 8: 60, 12: 12, 14: 4}[depth]
+    # enough internal nodes at 480 columns that every feature stays live
+    forest = compiler.hot_child_swap(synthetic.generate_forest(
+        trees, depth, cols, leaf_prob=0.15 if cols == 480 else 0.3,
+        seed=cols + depth))
+    data = _data(1500, cols, cols + depth)
+    eng = RankFoldEngine(forest, device=dev)
+    t = eng.tables
+    assert eng.groups == {18: 1, 45: 2, 480: 16}[cols]
+    if depth > 1:  # pass-through records below the early leaves
+        assert bool(((t.records & RECORD_LANE_MASK) == 128 * eng.groups).any())
+    planes = eng.transform(data)
+    before = RANK_FOLD.launches
+    got = rank_margins_cuda(planes, t.records, t.leaf, t.depth)
+    torch.cuda.synchronize()
+    assert RANK_FOLD.launches == before + 1
+    want = rank_margins_plain(planes, t.mats, t.leaf, t.depth)
+    assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+    if depth == 8 and cols == 18:  # one group, a partial last block
+        assert torch.equal(rank_margins_cuda(planes[:77].contiguous(), t.records,
+                                             t.leaf, t.depth), got[:77])
 
 
 @pytest.mark.parametrize("depth,trees", [(0, 3), (8, 64), (12, 9)])
@@ -168,6 +200,83 @@ def test_kernels_reject_bad_operands(dev):
     with pytest.raises(ValueError):
         rank_planes_cuda(torch.zeros(4, 8, device=dev).t(), t.thresholds,
                          t.counts)
+    # the launcher itself takes only aligned 16-threshold windows
+    out = torch.empty(8, 128, dtype=torch.int8, device=dev)
+    for thr in (t.thresholds[:, :7].contiguous(),
+                torch.empty(4 * 16 + 1, device=dev)[1:].view(4, 16)):
+        with pytest.raises(RuntimeError):
+            RANK_PLANES.launch(dev, ptr(x), 8, 4, 1, ptr(thr), thr.shape[1],
+                               ptr(t.counts), ptr(out))
+    planes = eng.transform(torch.zeros(8, 4, device=dev))
+    with pytest.raises(TypeError):  # kernel B takes records, not columns
+        rank_margins_cuda(planes, t.mats, t.leaf, t.depth)
+    with pytest.raises(TypeError):
+        rank_margins_cuda(planes, t.records.long(), t.leaf, t.depth)
+    with pytest.raises(ValueError):
+        rank_margins_cuda(planes, t.records[:, :3].contiguous(), t.leaf, t.depth)
+    with pytest.raises(ValueError):
+        rank_margins_cuda(planes[:, :100].contiguous(), t.records, t.leaf,
+                          t.depth)
+    with pytest.raises(ValueError):
+        rank_margins_cuda(planes.cpu(), t.records, t.leaf, t.depth)
+
+
+def _table(rng, F, K, counts, dev, misaligned=False):
+    """A sorted [F, K] threshold table, +inf past each count; with
+    ``misaligned`` its storage starts 4 bytes past a 16-byte boundary."""
+    thr = np.full((F, K), np.inf, np.float32)
+    for f, c in enumerate(counts):
+        v = np.unique(rng.uniform(-1.0, 1.0, 2 * c + 8).astype(np.float32))[:c]
+        if c > 3:
+            v[:3] = np.sort(np.array([-0.0, 1e-40, 1e-38], np.float32))[:3]
+            v = np.unique(v)
+            v = np.concatenate([v, np.full(c - v.size, 2.0, np.float32)])
+        thr[f, :c] = np.sort(v)
+    t = torch.as_tensor(thr, device=dev)
+    if misaligned:
+        flat = torch.empty(F * K + 1, device=dev)
+        flat[1:] = t.reshape(-1)
+        t = flat[1:].view(F, K)
+    return t, torch.as_tensor(np.asarray(counts, np.int32), device=dev)
+
+
+def _edge_rows(rng, rows, F, thr):
+    """Rows at the table's thresholds and around them, with +-inf, +-0.0,
+    denormals and NaN."""
+    t = thr.cpu().numpy()
+    x = rng.uniform(-1.1, 1.1, (rows, F)).astype(np.float32)
+    for f in range(F):
+        finite = t[f][np.isfinite(t[f])]
+        if finite.size:
+            pick = rng.integers(0, finite.size, rows // 4)
+            x[: rows // 4, f] = finite[pick]
+    edges = np.array([np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-40, 1e-45,
+                      np.nan, 2.0, 1e-38], np.float32)
+    x[-len(edges):, :] = edges[:, None]
+    x[rng.random(x.shape) < 0.05] = np.nan
+    return torch.as_tensor(x, device=thr.device)
+
+
+@pytest.mark.parametrize("F,K,misaligned", [
+    (18, 1, False), (18, 7, False), (18, 31, False), (18, 32, False),
+    (30, 1101, False), (30, 1104, False), (31, 96, True), (45, 600, False),
+    (480, 40, False), (30, 70000, False)])
+def test_rank_transform_kernel_edges(dev, F, K, misaligned):
+    """Kernel A on hand-built tables: K = 1, below and above its 16-wide
+    window, past 32 x 32, not a multiple of 16 or misaligned (the wrapper
+    pads them), counts below K, up to 16 groups, and a table too long for a
+    16-threshold coarse index (K = 70,000): bit-equal to its plain version."""
+    rng = np.random.default_rng(F * 7 + K)
+    counts = [int(c) for c in rng.integers(0, K + 1, F)]
+    counts[0], counts[-1] = K, 0
+    thr, cnt = _table(rng, F, K, counts, dev, misaligned)
+    x = _edge_rows(rng, 700, F, thr)
+    before = RANK_PLANES.launches
+    got = rank_planes_cuda(x, thr, cnt)
+    torch.cuda.synchronize()
+    assert RANK_PLANES.launches == before + 1
+    assert got.shape == (700, 128 * max(1, -(-F // 30)))
+    assert torch.equal(got, rank_planes_plain(x, thr, cnt))
 
 
 def _wide_forest(trees, depth, num_cols, active, seed, **kw):
@@ -374,7 +483,7 @@ def test_rank_fused_kernel(dev, case):
     torch.cuda.synchronize()
     assert RANK_FUSED.launches == before + 1
     two = rank_margins_cuda(rank_planes_cuda(x, t.thresholds, t.counts),
-                            t.mats, t.leaf, t.depth)
+                            t.records, t.leaf, t.depth)
     assert torch.equal(got, two)
     want = rank_margins_fused_plain(x, t.thresholds, t.counts, t.mats, t.leaf,
                                     t.depth)

@@ -134,3 +134,33 @@ def test_probe_script_exits_2_without_a_card(name):
         env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2, proc.stderr
     assert proc.stdout == ""
+
+
+@pytest.mark.parametrize("mode", ["a", "b"])
+def test_kernel_ab_exits_2_without_a_card(tmp_path, mode):
+    """The kernel A/B probe builds nothing and prints nothing without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    other = tmp_path / "rank_transform.cu"
+    other.write_text("")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-m", "tahoe_tpu_torch.scripts.kernel_ab", mode,
+         *([str(other)] if mode == "a" else [])],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2 and "no CUDA device" in proc.stderr, proc.stderr
+    assert proc.stdout == ""
+
+
+@pytest.mark.parametrize("timer", ["cuda_median_ms", "cuda_device_ms"])
+def test_timers_refuse_without_a_card(timer):
+    """A device time is never taken on the CPU: both timers raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from tahoe_tpu_torch.utils import profiling
+
+    calls = []
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        getattr(profiling, timer)(lambda: calls.append(1))
+    assert calls == []

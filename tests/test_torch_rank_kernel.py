@@ -15,11 +15,17 @@ from tahoe_tpu.config import ORACLE_ATOL
 from tahoe_tpu.forest import compiler, quantize, synthetic
 from tahoe_tpu.ops import oracle
 from tahoe_tpu.ops.rank_kernel import RankFoldEngine as JaxRankFoldEngine
+from tahoe_tpu_torch.forest import compiler as port_compiler
 from tahoe_tpu_torch.forest.spec import from_arrays
 from tahoe_tpu_torch.ops.rank_kernel import (
+    RECORD_LANE_BITS,
+    RECORD_LANE_MASK,
     RankFoldEngine,
     _int32_matmul,
+    pack_records,
     rank_margins_fused_plain,
+    rank_margins_plain,
+    rank_records,
     rank_tables,
 )
 
@@ -186,3 +192,139 @@ def test_fused_gate_follows_jax(shape):
     np.testing.assert_allclose(eng.predict(data).numpy(),
                                oracle.predict(forest, data),
                                atol=ORACLE_ATOL, rtol=0)
+
+
+def _record_columns(records, groups):
+    """Kernel B's records [T, N] -> the rank columns [T, N, 128*G] they stand
+    for: 127 and 1 at ``lane`` and ``lane + 30``, and (c127, c1) at lanes
+    120 and 121 from k = 127*c127 + c1 (rank = -k in the pos form, k + 1 in
+    the neg form); a pass-through (lane 128*G) holds c1 = -1 alone."""
+    r = records.reshape(-1).astype(np.int64)
+    lane, k = r & RECORD_LANE_MASK, r >> RECORD_LANE_BITS
+    K = 128 * groups
+    cols = np.zeros((r.size, K), np.int8)
+    feat = lane < K
+    neg = feat & (lane % 128 >= port_compiler.RANK_LANE_NQH)
+    rank = np.where(neg, k + 1, -k)
+    rh, rl = rank // 127, rank % 127
+    j = np.flatnonzero(feat)
+    cols[j, lane[j]] = 127
+    cols[j, lane[j] + 30] = 1
+    cols[j, 120] = np.where(neg, rh, -rh)[j]
+    cols[j, 121] = np.where(neg, rl - 1, -rl)[j]
+    cols[~feat, 121] = -1
+    assert (k[~feat] == -1).all() and (lane[~feat] == K).all()
+    return cols.reshape(*records.shape, K)
+
+
+def _record_walk(planes, records, leaf, depth):
+    """A torch twin of kernel B's walk: the same decode and arithmetic, a
+    pass-through record reading the zeros past the row; leaves summed in
+    f64 as the plain version sums them."""
+    R = planes.shape[0]
+    T = records.shape[0]
+    p = torch.nn.functional.pad(planes.to(torch.int32), (0, 32))
+    tree = torch.arange(T)
+    n = torch.zeros(R, T, dtype=torch.int64)
+    for d in range(depth):
+        r = records[tree, n].to(torch.int64)
+        lane = r & RECORD_LANE_MASK
+        diff = (127 * torch.gather(p, 1, lane) + torch.gather(p, 1, lane + 30)
+                + (r >> RECORD_LANE_BITS))
+        n += (1 + (diff >= 0).long()) << d
+    return leaf[tree, n - ((1 << depth) - 1)].double().sum(dim=1).float()
+
+
+# (trees, depth, cols, leaf_prob, hot_swap, band): SUSY-class at small size;
+# early leaves (pass-through nodes); def_left mixed with exchange (neg form);
+# banded features; two plane groups
+RECORD_CASES = {
+    "susy_small": (40, 8, 18, 0.0, False, None),
+    "early_leaves": (30, 7, 12, 0.35, False, None),
+    "neg_form": (30, 6, 18, 0.1, True, None),
+    "banded": (30, 6, 9, 0.1, True, 50),
+    "two_groups": (20, 6, 45, 0.2, True, None),
+}
+
+
+def _record_case(name):
+    trees, depth, cols, leaf_prob, swap, band = RECORD_CASES[name]
+    forest = synthetic.generate_forest(trees, depth, cols, leaf_prob=leaf_prob,
+                                       seed=trees + depth + cols)
+    if swap:
+        forest = compiler.hot_child_swap(forest)
+    return forest, band
+
+
+@pytest.mark.parametrize("name", sorted(RECORD_CASES))
+def test_rank_records_rebuild_mats(name):
+    """Every record gives back its node's column byte for byte."""
+    forest, band = _record_case(name)
+    t = rank_tables(_port(forest), band, device=CPU)
+    G = t.groups
+    assert t.records.dtype == torch.int32
+    assert t.records.shape == t.mats.shape[:2]
+    assert np.array_equal(_record_columns(t.records.numpy(), G), t.mats.numpy())
+    lanes = t.records.numpy() & RECORD_LANE_MASK
+    if name == "early_leaves":
+        assert (lanes == 128 * G).any()
+    if name in ("neg_form", "two_groups"):
+        assert (lanes % 128 >= port_compiler.RANK_LANE_NQH).any()
+    if name == "two_groups":
+        assert G == 2 and (lanes // 128 == 1).any()
+
+
+def test_record_packing_edges():
+    """k = -RANK_MAX and RANK_MAX - 1 (the ends of the ranks' range), the
+    top lanes of 16 plane groups and the pass-through lane 128*16, packed
+    and decoded as kernel B decodes them; out-of-range fields refused."""
+    rmax = port_compiler.RANK_MAX
+    k = np.array([-rmax, rmax - 1, rmax, -1, 0, -1])
+    lane = np.array([2009, 1949, 2047, 2048, 0, 128])
+    r = pack_records(k, lane)
+    assert r.dtype == np.int32
+    assert np.array_equal(r & RECORD_LANE_MASK, lane)
+    assert np.array_equal(r >> RECORD_LANE_BITS, k)
+    rt = torch.as_tensor(r)
+    assert torch.equal(rt & RECORD_LANE_MASK, torch.as_tensor(lane, dtype=torch.int32))
+    assert torch.equal(rt >> RECORD_LANE_BITS, torch.as_tensor(k, dtype=torch.int32))
+    for bad_k, bad_lane in ((rmax + 1, 0), (0, 4096), (0, -1)):
+        with pytest.raises(ValueError):
+            pack_records(np.array([bad_k]), np.array([bad_lane]))
+    # columns at both ends of the rank range in group 15 (pos form at rank
+    # RANK_MAX, neg form at RANK_MAX), and a pass-through
+    cols = np.zeros((1, 3, 128 * 16), np.int8)
+    rh, rl = divmod(rmax, 127)
+    cols[0, 0, [1920 + 29, 1920 + 59, 120, 121]] = [127, 1, -rh, -rl]
+    cols[0, 1, [1920 + 89, 1920 + 119, 120, 121]] = [127, 1, rh, rl - 1]
+    cols[0, 2, 121] = -1
+    rec = rank_records(cols)
+    assert np.array_equal(rec & RECORD_LANE_MASK, [[1949, 2009, 2048]])
+    assert np.array_equal(rec >> RECORD_LANE_BITS, [[-rmax, rmax - 1, -1]])
+    assert np.array_equal(_record_columns(rec, 16), cols)
+    cols[0, 1, 1920 + 100] = 3  # a fifth nonzero: not rank_normalize's form
+    with pytest.raises(ValueError):
+        rank_records(cols)
+
+
+@pytest.mark.parametrize("name", ["early_leaves", "neg_form", "banded",
+                                  "two_groups"])
+def test_record_walk_matches_plain_and_jax(name):
+    """The record walk (kernel B's arithmetic in torch) is bit for bit the
+    plain version's margins, and within JAX_ATOL of the JAX engine in
+    interpret mode."""
+    forest, band = _record_case(name)
+    data = synthetic.generate_data(64, forest.num_cols, missing_prob=0.1,
+                                   seed=forest.num_trees + 5)
+    k = min(forest.num_cols, forest.nodes_per_tree)
+    data[0, :k] = forest.values[0, :k]  # exact threshold hits
+    eng = RankFoldEngine(_port(forest), device=CPU, band=band)
+    t = eng.tables
+    planes = eng.transform(data)
+    walked = _record_walk(planes, t.records, t.leaf, t.depth)
+    assert torch.equal(walked, rank_margins_plain(planes, t.mats, t.leaf, t.depth))
+    jeng = JaxRankFoldEngine(forest, band=band, interpret=True, row_tile=16,
+                             tree_tile=16)
+    np.testing.assert_allclose(eng._finish(walked).numpy(),
+                               np.asarray(jeng.predict(data)),
+                               atol=JAX_ATOL, rtol=0)

@@ -24,6 +24,8 @@ from tahoe_tpu.ops.rank_transform import (
 from tahoe_tpu_torch.forest.spec import from_arrays
 from tahoe_tpu_torch.ops.rank_kernel import RankFoldEngine
 from tahoe_tpu_torch.ops.rank_transform import (
+    TABLE_ALIGN,
+    aligned_table,
     assemble_planes,
     rank_planes,
     rank_planes_plain,
@@ -181,3 +183,27 @@ def test_plus_inf_row_is_bounded_by_counts():
     p = rank_planes_plain(x, thr, counts).numpy()
     assert p[0, 30] == 1 and p[0, 31] == 0
 
+
+
+@pytest.mark.parametrize("k,offset", [(1, 0), (7, 0), (31, 0), (32, 0), (96, 1)])
+def test_aligned_table_keeps_the_planes(k, offset):
+    """Kernel A takes K a multiple of TABLE_ALIGN on 16-byte storage; the
+    wrapper copies any other table with +inf appended, and the counts keep
+    the pad out of every rank: the planes are unchanged, +inf rows too."""
+    rng = np.random.default_rng(k)
+    counts = rng.integers(0, k + 1, 5).astype(np.int32)
+    counts[0] = k
+    thr = np.full((5, k), np.inf, np.float32)
+    for f, c in enumerate(counts):
+        thr[f, :c] = np.sort(rng.uniform(-1, 1, c).astype(np.float32))
+    flat = torch.empty(5 * k + offset)
+    flat[offset:] = torch.as_tensor(thr).reshape(-1)
+    t = flat[offset:].view(5, k)
+    got = aligned_table(t)
+    assert got.shape[1] % TABLE_ALIGN == 0 and got.data_ptr() % 16 == 0
+    assert (got is t) == (k % TABLE_ALIGN == 0 and offset == 0)
+    assert torch.equal(got[:, :k], t) and torch.isinf(got[:, k:]).all()
+    x = torch.as_tensor(rng.uniform(-1.2, 1.2, (40, 5)).astype(np.float32))
+    x[0], x[1], x[2, 1] = np.inf, -np.inf, np.nan
+    c = torch.as_tensor(counts)
+    assert torch.equal(rank_planes_plain(x, got, c), rank_planes_plain(x, t, c))
