@@ -16,27 +16,34 @@ Phases, each of which exits non-zero when it fails:
    on every path, against torch.searchsorted on the same table in
    alternating rounds;
 4. the main path through the user's entry points: Forest.from_files on the
-   reference text formats, then SPLIT_FOREST and RANK_MXU (full predict and
-   plane-resident) on 65,536 rows, each held to the numpy oracle at
+   reference text formats, then SPLIT_FOREST (the deep kernel's dual form,
+   as fold_plan routes depth 8 in 256-row blocks) and RANK_MXU (full predict
+   and plane-resident) on 65,536 rows, each held to the numpy oracle at
    ORACLE_ATOL; every kernel's launch count over that run must be > 0;
 5. the same at 4,096 rows on a forest with a finite missing sentinel, early
    leaves and AVG|SIGMOID|THRESHOLD output;
 6. wide, the sign form: cup98-class (150 trees, depth 8, 479 columns, 300
    live) through SPLIT_FOREST from Forest.from_files, on the deep kernel's
-   sign form; svhn-class (200 trees, depth 6, 100 features) on kernel C's
-   sign form; on each, both sign-form kernels held to the plain version;
+   sign form (16-byte blocks of two levels, ops/fold_kernel.py deep_blocks;
+   two threads a row in 192-row blocks);
+   svhn-class (200 trees, depth 6, 100 features) on kernel C's sign form; on
+   each, both sign-form kernels held to the plain version;
 7. deep: deep15-class (30 trees, depth 15, 16 features) through
    SPLIT_FOREST on the deep kernel; then kernel C and the deep kernel at
    deep12-class (100, 12, 28), where both run;
 8. VMEM_FOREST: stumps-class (800 trees, depth 3, 10 features), the whole
-   forest in one shared-memory tile of kernel C;
+   forest in one shared-memory tile of kernel C, and SPLIT_FOREST, which
+   routes it to kernel C's dual form too;
 9. DEPTH_BUCKETED: its rank variant on trained_mix-class (300 trees, depths
    6-12, 26 features; kernel A once, kernel B per bucket) and its fold
    variant on a mixed-depth forest of 90 columns (kernel C's non-ge form);
 10. SPARSE: rf_deep18-class (200 trained trees, depth 18, 24 features),
-   which no dense strategy takes, through kernel A and the sparse kernel;
-   then a forest of 1,440 live features, past the rank planes, through the
-   plain torch gather tier, which launches no kernel;
+   which no dense strategy takes, through kernel A and the sparse kernel
+   (over its 16-byte slots, ops/sparse_kernel.py sparse_blocks), with the
+   records and the slots (each within one 32-byte sector) a descent reads
+   per (row, tree); then a
+   forest of 1,440 live features, past the rank planes, through the plain
+   torch gather tier, which launches no kernel;
 11. HBM_DIRECT, ROW_TILED and TENSOR, plain torch and launching no kernel,
    on the SUSY-class forest and on phase 5's forest;
 12. the fused rank transform + traversal: RankFoldEngine(fuse_transform=
@@ -133,7 +140,7 @@ def main() -> int:
         DepthBucketedFoldEngine, DepthBucketedRankEngine)
     from tahoe_tpu_torch.ops.fold_kernel import (
         FOLD, FOLD_DEEP, FOLD_DEEP_SIGN, FOLD_NONGE, FOLD_SIGN,
-        FoldKernelEngine, deep_launch, deep_nodes, fold_deep_cuda, fold_launch,
+        FoldKernelEngine, deep_blocks, deep_launch, fold_deep_cuda, fold_launch,
         fold_margins_cuda, fold_margins_plain)
     from tahoe_tpu_torch.ops.probes import (
         PROBE_INT8, PROBE_OVERHEAD, PROBE_RANK_PARTS)
@@ -144,16 +151,18 @@ def main() -> int:
         RANK_PLANES, rank_planes_cuda, rank_planes_plain)
     from tahoe_tpu_torch.ops.rows import canonicalize_rows
     from tahoe_tpu_torch.ops.sparse_kernel import (
-        SPARSE_RANK, SparseRankEngine, sparse_leaves_plain, sparse_margins_cuda,
-        sparse_margins_plain)
+        SPARSE_RANK, SparseRankEngine, record_depths, sparse_block_walk,
+        sparse_leaves_plain, sparse_margins_cuda, sparse_margins_plain)
     from tahoe_tpu_torch.scripts import int8_cast_probe, overhead_bench, unit_bench
     from tahoe_tpu_torch.utils.profiling import cuda_device_ms, cuda_median_ms
 
     dev = torch.device("cuda", 0)
+    # the main path's kernels: SPLIT_FOREST on the SUSY-class forest takes
+    # the deep kernel's dual form (fold_plan), RANK_MXU kernels A and B
     kernels = {"rank_transform": RANK_PLANES, "rank_fold": RANK_FOLD,
-               "fold": FOLD}
-    all_kernels = {**kernels, "fold_sign": FOLD_SIGN, "fold_nonge": FOLD_NONGE,
-                   "fold_deep": FOLD_DEEP, "fold_deep_sign": FOLD_DEEP_SIGN,
+               "fold_deep": FOLD_DEEP}
+    all_kernels = {**kernels, "fold": FOLD, "fold_sign": FOLD_SIGN,
+                   "fold_nonge": FOLD_NONGE, "fold_deep_sign": FOLD_DEEP_SIGN,
                    "sparse_rank": SPARSE_RANK, "rank_fused": RANK_FUSED,
                    "probe_int8": PROBE_INT8, "probe_overhead": PROBE_OVERHEAD,
                    "probe_rank_parts": PROBE_RANK_PARTS}
@@ -274,21 +283,31 @@ def main() -> int:
                        warmup=1, iters=5),
         *rank_b_cost(a_p, rt.records, rt.leaf, rt.depth), None)]
 
+    # SPLIT_FOREST's route takes the deep kernel here; kernel C, the faster
+    # before the deep kernel read blocks, is held on the same tables
     fold = FoldKernelEngine(forest, device=dev)
+    if fold.kernel is not FOLD_DEEP:
+        fail(f"[3] SUSY-class SPLIT_FOREST runs {fold.kernel.symbol}, not the "
+             f"deep kernel")
     ft = fold.tables
     x2 = fold.canonicalize(data)
-    c_k = fold_margins_cuda(x2, ft, fold.launch)
+    c_launch = fold_launch(ft.width, ft.depth, fold.num_trees,
+                           GpuLimits.for_device(dev))
     c_p = fold_margins_plain(x2, ft)
-    c_err = float((c_k - c_p).abs().max())
-    if not (torch.isfinite(c_k).all() and c_err <= KERNEL_ATOL):
-        fail(f"fold kernel differs from its plain version by {c_err}")
-    record["fold"] = [(
-        "3", c_err,
-        cuda_median_ms(lambda: fold_margins_cuda(x2, ft, fold.launch)),
-        cuda_median_ms(lambda: fold_margins_plain(x2, ft), warmup=1, iters=5),
-        *fold_cost(x2, ft), None)]
-    print(f"[3] fold launch {fold.launch}")
-    tolerance = {"rank_transform": 0, "rank_fold": KERNEL_ATOL, "fold": KERNEL_ATOL}
+    p_ms = cuda_median_ms(lambda: fold_margins_plain(x2, ft), warmup=1, iters=5)
+    for name, fn, tables in (
+            ("fold_deep", lambda: fold_deep_cuda(x2, ft, fold.blocks, fold.launch),
+             (fold.blocks,)),
+            ("fold", lambda: fold_margins_cuda(x2, ft, c_launch), ())):
+        c_k = fn()
+        c_err = float((c_k - c_p).abs().max())
+        if not (torch.isfinite(c_k).all() and c_err <= KERNEL_ATOL):
+            fail(f"{name} kernel differs from its plain version by {c_err}")
+        record[name] = [("3", c_err, cuda_median_ms(fn), p_ms,
+                         *fold_cost(x2, ft, *tables), None)]
+    print(f"[3] deep kernel {fold.launch}, kernel C {c_launch}")
+    tolerance = {"rank_transform": 0, "rank_fold": KERNEL_ATOL, "fold": KERNEL_ATOL,
+                 "fold_deep": KERNEL_ATOL}
     for name, [(_, err, ms, plain_ms, b_ms, b_by, lib_ms)] in record.items():
         print(f"[3] {name}: max |kernel - plain| {err} (tolerance "
               f"{tolerance[name]}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -423,22 +442,21 @@ def main() -> int:
                   f"bound {b_ms:.4f} ms ({b_by}) ({card})")
 
     def descent_reads(st, planes):
-        """Records the sparse kernel reads per (row, tree), [R, T], and the
-        share of its lane-steps that read one: a warp (32 rows) steps over
-        each group of 4 trees as long as the deepest of its 128 descents."""
-        rec = st.records.to(torch.int64)
-        internal = rec[:, 2] >= 0
-        depth = torch.zeros(rec.shape[0], dtype=torch.int64, device=dev)
-        for _ in range(st.max_depth):
-            d = depth[internal] + 1
-            depth[rec[internal, 2]] = d
-            depth[rec[internal, 2] + 1] = d
-        reads = depth[sparse_leaves_plain(planes, st.records, st.roots,
-                                          st.max_depth)] + 1
+        """What a descent reads per (row, tree), [R, T] each: the records of
+        a walk one node a step (the plain version's), and
+        the sparse kernel's slots, each within one 32-byte sector."""
+        leaves = sparse_leaves_plain(planes, st.records, st.roots, st.max_depth)
+        records = record_depths(st.records, st.max_depth)[leaves] + 1
+        slots = sparse_block_walk(planes, st.slots, st.roots.shape[0], st.steps)[1]
+        return records, slots
+
+    def lane_share(reads, trees):
+        """The share of a warp's lane-steps that read: a warp (32 rows) steps
+        over each group of ``trees`` trees as long as its longest descent."""
         R, T = reads.shape
-        padded = torch.nn.functional.pad(reads, (0, -T % 4, 0, -R % 32))
-        steps = padded.view(-1, 32, padded.shape[1] // 4, 4).amax(dim=(1, 3))
-        return reads, float(reads.sum()) / float(steps.sum() * 128)
+        padded = torch.nn.functional.pad(reads, (0, -T % trees, 0, -R % 32))
+        steps = padded.view(-1, 32, padded.shape[1] // trees, trees).amax(dim=(1, 3))
+        return float(reads.sum()) / float(steps.sum() * 32 * trees)
 
     limits = GpuLimits.for_device(dev)
 
@@ -469,21 +487,21 @@ def main() -> int:
         t, x = eng.tables, eng.canonicalize(torch.as_tensor(rows_np, device=dev))
         c_launch = fold_launch(t.width, t.depth, f.spec.num_trees, limits)
         d_launch = deep_launch(t.width, limits)
-        nodes = deep_nodes(t)
+        blocks = deep_blocks(t)
         print(f"[6] {f.spec.num_trees} trees, depth {t.depth}, {t.num_cols} live "
               f"features: kernel C {c_launch}, deep kernel {d_launch}")
         hold("6", {
             "fold_sign": lambda: fold_margins_cuda(x, t, c_launch),
-            "fold_deep_sign": lambda: fold_deep_cuda(x, t, nodes, d_launch),
+            "fold_deep_sign": lambda: fold_deep_cuda(x, t, blocks, d_launch),
         }, lambda: fold_margins_plain(x, t),
-            {"fold_sign": fold_cost(x, t), "fold_deep_sign": fold_cost(x, t, nodes)})
+            {"fold_sign": fold_cost(x, t), "fold_deep_sign": fold_cost(x, t, blocks)})
         own = next(n for n, k in all_kernels.items() if k is kernel)
         counts = run_path("6", f, Strategy.SPLIT_FOREST, rows_np,
                           f.predict_oracle(rows_np), {own})
         launches[own] = counts[own]
         # the path's own kernel first in its record: its time is the path's
         record[own].insert(0, record[own].pop())
-        del f, eng, x, nodes
+        del f, eng, x, blocks
 
     # 7. deep15-class on the deep kernel; kernel C against it at depth 12
     deep = synthetic.generate_forest(30, 15, 16, seed=1)
@@ -494,11 +512,11 @@ def main() -> int:
         fail(f"[7] deep15-class runs {eng.kernel.symbol}, not the deep kernel")
     t, x = eng.tables, eng.canonicalize(torch.as_tensor(deep_rows, device=dev))
     print(f"[7] {eng.launch}")
-    hold("7", {"fold_deep": lambda: fold_deep_cuda(x, t, eng.nodes, eng.launch)},
-         lambda: fold_margins_plain(x, t), {"fold_deep": fold_cost(x, t, eng.nodes)})
-    counts = run_path("7", f, Strategy.SPLIT_FOREST, deep_rows,
-                      f.predict_oracle(deep_rows), {"fold_deep"})
-    launches["fold_deep"] = counts["fold_deep"]
+    hold("7", {"fold_deep": lambda: fold_deep_cuda(x, t, eng.blocks, eng.launch)},
+         lambda: fold_margins_plain(x, t), {"fold_deep": fold_cost(x, t, eng.blocks)})
+    # the deep kernel's launches and time stay the main path's (phases 3-4)
+    run_path("7", f, Strategy.SPLIT_FOREST, deep_rows, f.predict_oracle(deep_rows),
+             {"fold_deep"})
     del f, eng, x
 
     d12 = FoldKernelEngine(synthetic.generate_forest(100, 12, 28, seed=1),
@@ -507,12 +525,15 @@ def main() -> int:
     x = d12.canonicalize(torch.as_tensor(
         synthetic.generate_data(ROWS, 28, missing_prob=0.01, seed=6), device=dev))
     c_launch = fold_launch(t.width, t.depth, d12.num_trees, limits)
-    print(f"[7] deep12-class: kernel C {c_launch}, deep kernel {d12.launch}")
+    print(f"[7] deep12-class: kernel C {c_launch}, deep kernel "
+          f"{deep_launch(t.width, limits)}; the route takes {d12.launch}")
+    d_launch = deep_launch(t.width, limits)
+    blocks = deep_blocks(t)
     hold("7", {"fold": lambda: fold_margins_cuda(x, t, c_launch),
-               "fold_deep": lambda: fold_deep_cuda(x, t, d12.nodes, d12.launch)},
+               "fold_deep": lambda: fold_deep_cuda(x, t, blocks, d_launch)},
          lambda: fold_margins_plain(x, t),
-         {"fold": fold_cost(x, t), "fold_deep": fold_cost(x, t, d12.nodes)})
-    del d12, x
+         {"fold": fold_cost(x, t), "fold_deep": fold_cost(x, t, blocks)})
+    del d12, x, blocks
 
     # 8. VMEM_FOREST, stumps-class: the whole forest in one tile
     stumps = synthetic.generate_forest(800, 3, 10, seed=1)
@@ -527,7 +548,11 @@ def main() -> int:
          lambda: fold_margins_plain(x, t), {"fold": fold_cost(x, t)})
     want = f.predict_oracle(stump_rows)
     run_path("8", f, Strategy.VMEM_FOREST, stump_rows, want, {"fold"})
-    run_path("8", f, Strategy.SPLIT_FOREST, stump_rows, want, {"fold"})
+    counts = run_path("8", f, Strategy.SPLIT_FOREST, stump_rows, want, {"fold"})
+    launches["fold"] = counts["fold"]
+    # kernel C's own path since SUSY-class moved to the deep kernel: its
+    # time and bound are this check's
+    record["fold"].insert(0, record["fold"].pop())
     del f, eng, x
 
     # 9. DEPTH_BUCKETED: rank variant, then the fold variant in non-ge form
@@ -614,22 +639,28 @@ def main() -> int:
          {"rank_transform": rank_a_cost(x, st.thresholds, st.counts)}, atol=0,
          timer=cuda_device_ms)
     planes = rank_planes_plain(x, st.thresholds, st.counts)
-    reads, lane_share = descent_reads(st, planes)
-    # a visited record: its closed-form diff (two multiply-adds), the
-    # compare and the child step; an add per leaf
-    sparse_bound = bound(nbytes(planes, st.records, st.roots) + 4 * ROWS,
+    reads, slot_reads = descent_reads(st, planes)
+    # a visited node: its closed-form diff (two multiply-adds), the compare
+    # and the child step; an add per leaf. The bytes: the planes, the slots
+    # and the margins
+    sparse_bound = bound(nbytes(planes, st.slots) + 4 * ROWS,
                          (4 * int(reads.sum()) + reads.numel(), SCALAR_OPS_PER_S))
-    hold("10", {"sparse_rank": lambda: sparse_margins_cuda(
-        planes, st.records, st.roots, st.max_depth)},
+    T = st.roots.shape[0]
+    hold("10", {"sparse_rank": lambda: sparse_margins_cuda(planes, st.slots, T,
+                                                           st.steps)},
         lambda: sparse_margins_plain(planes, st.records, st.roots, st.max_depth),
         {"sparse_rank": sparse_bound})
     sparse_ms = record["sparse_rank"][0][2]
-    print(f"[10] the descent reads {float(reads.double().mean()):.3f} records per "
-          f"(row, tree), {int(reads.max())} at most, {int(reads.sum())} in all "
-          f"({int(reads.sum()) * 16 / 1e9:.3f} GB; "
-          f"{int(reads.sum()) / sparse_ms / 1e6:.3f} G records/s over the "
-          f"kernel's {sparse_ms:.4f} ms); {lane_share:.4f} of a warp's "
-          f"lane-steps read a record")
+    sectors = int(slot_reads.sum())  # a slot of 32 bytes or less: one sector
+    print(f"[10] {st.slots.shape[0]} slots of {st.slots.shape[1]} words, "
+          f"{st.steps} at most a descent. Per (row, tree) a node-a-step descent "
+          f"reads {float(reads.double().mean()):.3f} records ({int(reads.max())} "
+          f"at most), the sparse kernel {float(slot_reads.double().mean()):.3f} "
+          f"32-byte sectors ({int(slot_reads.max())} at most; {sectors * 32 / 1e9:.3f} "
+          f"GB of sectors, {sectors * 32 / sparse_ms / 1e9:.3f} TB/s over the "
+          f"kernel's {sparse_ms:.4f} ms); {lane_share(slot_reads, 8):.4f} of a "
+          f"warp's lane-steps read a slot (8 trees in flight; records, 4 trees: "
+          f"{lane_share(reads, 4):.4f})")
     t0 = time.perf_counter()
     want = f.predict_oracle(deep_rows)
     print(f"[10] numpy oracle in {time.perf_counter() - t0:.1f} s (host)")
@@ -785,8 +816,9 @@ def main() -> int:
                     or m.startswith(("jax.", "jaxlib.", "tahoe_tpu.")))
     if leaked:
         fail(f"modules of jax or of the JAX package were loaded: {leaked}")
-    # each kernel's time and bound are those of its first check (its own
-    # path's shapes); its error is the largest over every check
+    # each kernel's time and bound are those of its first check, on the
+    # path its launches were counted on; its error is the largest over every
+    # check
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[name],

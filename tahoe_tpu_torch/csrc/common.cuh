@@ -4,20 +4,50 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 #define TAHOE_EXPORT extern "C" __attribute__((visibility("default")))
 
-// Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.
-template <typename Kernel>
-static inline cudaError_t tahoe_set_smem(Kernel kernel, size_t bytes) {
+// Opt a kernel into more than 48 KB of dynamic shared memory, once per
+// (kernel, device) and size: a launch whose size was granted before makes no
+// attribute call, so the launchers can be captured in a CUDA graph. The table
+// is keyed by the kernel's address, never by its type, since one launcher
+// may serve several kernels of one signature (fold.cu's three forms). A
+// larger grant covers every smaller size.
+static inline cudaError_t tahoe_grant_smem_fn(const void* kernel, size_t bytes) {
     if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(bytes));
+    struct Grant { const void* kernel; int device; size_t bytes; };
+    constexpr int kMaxGrants = 64;
+    static Grant grants[kMaxGrants];
+    static int used = 0;
+    static std::mutex lock;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> hold(lock);
+    Grant* g = nullptr;
+    for (int i = 0; i < used && g == nullptr; ++i)
+        if (grants[i].kernel == kernel && grants[i].device == dev) g = &grants[i];
+    if (g != nullptr && g->bytes >= bytes) return cudaSuccess;
+    if (g == nullptr) {
+        if (used == kMaxGrants) return cudaErrorInvalidValue;
+        g = &grants[used++];
+        *g = Grant{kernel, dev, 0};
+    }
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err == cudaSuccess) g->bytes = bytes;
+    return err;
 }
 
-// The f32 folds (fold.cu, fold_deep.cu) descend this many trees together to
-// overlap their load chains (ops/fold_kernel.py TREES_IN_FLIGHT).
+template <typename Kernel>
+static inline cudaError_t tahoe_grant_smem(Kernel* kernel, size_t bytes) {
+    return tahoe_grant_smem_fn(reinterpret_cast<const void*>(kernel), bytes);
+}
+
+// Kernel C (fold.cu) descends this many trees together to overlap its load
+// chains (ops/fold_kernel.py TREES_IN_FLIGHT).
 constexpr int kTreesInFlight = 4;
 
 // The fold's node forms (ops/fold_kernel.py module docstring).

@@ -167,7 +167,7 @@ int launch_fold(FoldFn kernel, const float* x, int rows, int W, const float* thr
                 int rows_per_block, int tile_trees, int smem_bytes, float* out,
                 cudaStream_t stream) {
     if (rows == 0) return 0;
-    cudaError_t err = tahoe_set_smem(kernel, static_cast<size_t>(smem_bytes));
+    cudaError_t err = tahoe_grant_smem(kernel, static_cast<size_t>(smem_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     const int grid = (rows + rows_per_block - 1) / rows_per_block;
     kernel<<<grid, rows_per_block, smem_bytes, stream>>>(

@@ -152,7 +152,7 @@ cudaError_t launch(const int8_t* planes, int rows, int G, const int* records,
     const int row_bytes = 4 * row_words(G, kPairs);
     const int block = max(32, min(kMaxRows, (kSmemTarget / row_bytes) & ~31));
     const size_t smem = static_cast<size_t>(block) * row_bytes;
-    cudaError_t err = tahoe_set_smem(rank_fold_kernel<kPairs>, smem);
+    cudaError_t err = tahoe_grant_smem(rank_fold_kernel<kPairs>, smem);
     if (err != cudaSuccess) return err;
     const long long grid = (static_cast<long long>(rows) + block - 1) / block;
     rank_fold_kernel<kPairs><<<static_cast<unsigned>(grid), block, smem, stream>>>(

@@ -228,18 +228,14 @@ cudaError_t launch(const float* x, int rows, int F, int G, const float* thr,
     }
     const size_t smem = (kTileRows * kSlotWords + static_cast<size_t>(Fg) * kXStride +
                          static_cast<size_t>(Fg) * Mp) * 4;
-    // the shared-memory grant and the SM count, once a device and a size:
+    // the shared-memory grant (common.cuh) and the SM count, once a device:
     // no attribute call inside a CUDA graph capture
-    static size_t granted[kMaxDevices];
     static int sm_count[kMaxDevices];
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-    if (smem > granted[dev]) {
-        if ((err = tahoe_set_smem(rank_planes_kernel, smem)) != cudaSuccess) return err;
-        granted[dev] = smem;
-    }
+    if ((err = tahoe_grant_smem(rank_planes_kernel, smem)) != cudaSuccess) return err;
     if (sm_count[dev] == 0 &&
         (err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess)

@@ -25,6 +25,7 @@ back to another engine when a build or a launch fails.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -62,13 +63,15 @@ class Forest:
     def from_files(cls, model_path: str, data_path: Optional[str] = None, *,
                    device, output: int = int(Output.RAW),
                    global_bias: float = 0.0, threshold: float = 0.5) -> "Forest":
-        """Load the reference text model format. With a data file, its
-        num_cols and missing sentinel are adopted (the reference reads the
-        sentinel from the data file header). The model format carries no
-        output transform, so it is given here, as io.load_model takes it."""
+        """Load the reference text model format. With an existing data file,
+        its num_cols and missing sentinel are adopted (the reference reads
+        the sentinel from the data file header); without one, the model's
+        own num_cols and NaN missing, as the JAX package does. The model
+        format carries no output transform, so it is given here, as
+        io.load_model takes it."""
         num_cols = None
         missing = float("nan")
-        if data_path is not None:
+        if data_path is not None and os.path.exists(data_path):
             with open(data_path) as f:
                 f.readline()
                 num_cols = int(f.readline())

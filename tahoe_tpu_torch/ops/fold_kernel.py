@@ -26,11 +26,12 @@ Two kernels run these tables, each with one entry point and one launch
 counter per form. Kernel C (csrc/fold.cu) stages tiles of whole trees in
 shared memory and restages them for every block of rows; the deep kernel
 (csrc/fold_deep.cu, dual and sign forms, the counterpart of the subtree-
-split fold) stages only the rows and reads each visited node through the
-read-only cache. ``fold_plan`` picks the one measured faster: kernel C while
-its block restages at most 1.5 bytes of tables per node visit and holds a
-tile of 16 trees (shallow forests in 128-256-row blocks), the deep kernel
-otherwise (depth >= 9, wide rows, depth 13-15). The non-ge form has only
+split fold) stages only the rows and reads the nodes through the read-only
+cache as 16-byte blocks of two levels (``deep_blocks``), one load a block.
+``fold_plan`` picks the one measured faster: kernel C while its block
+restages at most 0.9 bytes of tables per node visit and holds a tile of 16
+trees (depth <= 7 in 256-row blocks), the deep kernel otherwise (SUSY-class
+depth 8, deeper forests, wide rows, depth 13-15). The non-ge form has only
 kernel C. The TPU tiling, VMEM estimates, split grid and compile walls have
 no counterpart here.
 """
@@ -59,14 +60,21 @@ MAX_SIGN_COLS = 512
 MAX_NONGE_COLS = 128
 # deeper forests are the SPARSE strategy's (ops/sparse_kernel.py)
 MAX_DENSE_DEPTH = 15
-# both kernels descend this many trees together (kTreesInFlight,
+# kernel C descends this many trees together (kTreesInFlight,
 # csrc/common.cuh)
 TREES_IN_FLIGHT = 4
-# fold_plan's route, from kernel C against the deep kernel on 24 shapes
-# (65,536 rows on an H100; PERF.md section 6): kernel C wins while its block
-# restages at most this many bytes of node tables per node visit, per_tree /
-# (rows x depth), and holds a tile of this many trees
-C_MAX_STAGED_PER_VISIT = 1.5
+# bits of one node code in a deep-kernel block (csrc/fold_deep.cu
+# kCodeBits): the sign form's codes lie in [-512, 511], the dual form's in
+# [0, 128)
+DEEP_CODE_BITS = 10
+# fold_plan's route, fit to scripts/kernel_ab.py route (kernel C against
+# the deep kernel on the same tables, 17 shapes, 65,536 rows on an H100;
+# PERF.md section 6): kernel C was the faster on every shape whose block
+# restages at most 0.853 bytes of node tables per node visit, per_tree /
+# (rows x depth), the deep kernel on every one at 1.496 or more, and on
+# mnist-class at 0.99 (128-row blocks) already before its redesign; kernel C
+# also needs a tile of this many trees
+C_MAX_STAGED_PER_VISIT = 0.9
 C_MIN_TILE = 16
 # non-ge node code bits (csrc/fold.cu kNonGe*)
 NONGE_SEL_LT = 1 << 29
@@ -87,7 +95,7 @@ FOLD_NONGE = CudaKernel("tahoe_fold_nonge", _FOLD_ARGS,
                         replaces="tahoe_tpu/ops/fold_kernel.py:562")
 _DEEP_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_void_p]
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 FOLD_DEEP = CudaKernel("tahoe_fold_deep", _DEEP_ARGS,
                        source="tahoe_tpu_torch/csrc/fold_deep.cu",
                        replaces="tahoe_tpu/ops/fold_kernel.py:688")
@@ -198,10 +206,13 @@ class FoldLaunch(NamedTuple):
 
 
 class DeepLaunch(NamedTuple):
-    """The deep kernel's block: rows and dynamic shared bytes (rows only)."""
+    """The deep kernel's block: rows, dynamic shared bytes (the rows only),
+    and the threads that share a row (``lanes``, 1 or 2), each descending
+    half of every group of trees."""
 
     rows_per_block: int
     smem_bytes: int
+    lanes: int = 1
 
 
 def fold_launch(width: int, depth: int, num_trees: int, limits: GpuLimits, *,
@@ -226,14 +237,18 @@ def fold_launch(width: int, depth: int, num_trees: int, limits: GpuLimits, *,
 
 
 def deep_launch(width: int, limits: GpuLimits) -> DeepLaunch | None:
-    """The deep kernel's block: the most rows (256 down to 32) whose staged
-    rows fit half an SM, else the whole opt-in budget."""
-    for b in (limits.smem_half_sm, limits.smem_per_block):
-        for rows in (256, 128, 64, 32):
-            xs = rows * (width | 1) * 4
-            if xs <= b:
-                return DeepLaunch(rows, xs)
-    return None
+    """The deep kernel's block: 256 rows in half an SM (two blocks an SM),
+    else the most rows, a multiple of 32, in the whole opt-in budget. Where
+    fewer than 256 rows fit, two threads share a row, doubling the descents
+    in flight that the rows' shared memory leaves. Both were measured
+    (scripts/kernel_ab.py deep, PERF.md): on cup98-class, one block of 192
+    rows beat two of 64, and two threads a row beat one; on 256-row blocks
+    one thread a row was the faster."""
+    row_bytes = (width | 1) * 4
+    budget = (limits.smem_half_sm if 256 * row_bytes <= limits.smem_half_sm
+              else limits.smem_per_block)
+    rows = min(256, budget // row_bytes // 32 * 32)
+    return DeepLaunch(rows, rows * row_bytes, 2 if rows < 256 else 1) if rows else None
 
 
 def tree_bytes(depth: int) -> int:
@@ -249,19 +264,23 @@ def fold_plan(form: str, width: int, depth: int, num_trees: int,
 
     - ``whole_forest`` (VMEM_FOREST): kernel C with every tree in one tile;
     - non-ge: kernel C, the only kernel of that form;
-    - otherwise kernel C when, in half an SM, a block holds a tile of
-      min(T, C_MIN_TILE) trees and restages at most C_MAX_STAGED_PER_VISIT
-      bytes of tables per node visit; else the deep kernel. On the sweep's
-      shapes that keeps kernel C up to depth 8 at 256-row blocks of narrow
-      rows (SUSY-class), up to depth 7 at 256 rows and depth 6 at 128.
+    - otherwise kernel C when a block (half an SM, else the whole opt-in
+      budget) holds a tile of min(T, C_MIN_TILE) trees and restages at most
+      C_MAX_STAGED_PER_VISIT bytes of tables per node visit; else the deep
+      kernel. That keeps kernel C up to depth 7 in 256-row blocks (svhn-,
+      gisette-, cifar- and stumps-class); SUSY-class (depth 8) and
+      everything deeper, or too wide for 256 rows, take the deep kernel.
+      Where 256 rows do not fit half an SM, one 256-row block of the whole
+      budget beat two 128-row blocks an SM on every shape timed
+      (scripts/kernel_ab.py route ``c_half``: gisette-class 1.20x, cifar-
+      class 1.35x).
     None when nothing fits."""
     T = max(num_trees, 1)
     if whole_forest:
         return fold_launch(width, depth, T, limits, min_tile=T)
     if form == "nonge":
         return fold_launch(width, depth, T, limits)
-    launch = fold_launch(width, depth, T, limits, min_tile=min(T, C_MIN_TILE),
-                         budget=limits.smem_half_sm)
+    launch = fold_launch(width, depth, T, limits, min_tile=min(T, C_MIN_TILE))
     if launch is not None and (tree_bytes(depth) <= C_MAX_STAGED_PER_VISIT
                                * launch.rows_per_block * max(depth, 1)):
         return launch
@@ -349,31 +368,105 @@ def fold_margins_cuda(x: torch.Tensor, t: FoldTables,
     return out
 
 
-def deep_nodes(t: FoldTables) -> torch.Tensor:
-    """[T, N, 2] int32: each node's (threshold bits, code), the deep
-    kernel's one 8-byte load per visited node."""
-    return torch.stack([t.thresholds.view(torch.int32), t.fids],
-                       dim=-1).contiguous()
+def deep_groups(depth: int) -> list[int]:
+    """The level groups of the deep kernel's blocks, root first: two levels
+    each, the root group one at an odd depth."""
+    return [1] * (depth % 2) + [2] * (depth // 2)
 
 
-def fold_deep_cuda(x: torch.Tensor, t: FoldTables, nodes: torch.Tensor,
+def deep_block_count(depth: int) -> int:
+    """Blocks of one tree: 2^d of them for a group that starts at level d."""
+    total, d = 0, 0
+    for size in deep_groups(depth):
+        total += 1 << d
+        d += size
+    return total
+
+
+def deep_blocks(t: FoldTables) -> torch.Tensor:
+    """[T, B, 4] int32: the deep kernel's node blocks, 16 bytes each.
+
+    The levels of a tree split into groups (``deep_groups``); a group that
+    starts at level d has 2^d blocks, one per path q to level d, laid out
+    after the groups above it. Block q holds node q of level d and nodes q
+    and q + 2^d of level d + 1 (its cond-False and cond-True children):
+    their three threshold bits, then their three codes as 10-bit fields of
+    one word (``DEEP_CODE_BITS``), the top node's lowest. A walk that leaves
+    it with the branch bits u goes on to block q + (u << d) of the next
+    group, and the last one's path is the leaf index: no pointer is stored.
+    A root group of one level leaves its block's two child slots 0."""
+    T, D = t.leaf.shape[0], t.depth
+    lo, hi = -(1 << (DEEP_CODE_BITS - 1)), (1 << (DEEP_CODE_BITS - 1)) - 1
+    if t.fids.numel() and not (lo <= int(t.fids.min()) and int(t.fids.max()) <= hi):
+        raise ValueError(f"node codes outside the deep kernel's {DEEP_CODE_BITS} bits")
+    thr = t.thresholds.view(torch.int32)
+    codes = t.fids & ((1 << DEEP_CODE_BITS) - 1)
+    out = torch.zeros(T, deep_block_count(D), 4, dtype=torch.int32,
+                      device=t.leaf.device)
+    off, d = 0, 0
+    for size in deep_groups(D):
+        q = torch.arange(1 << d, device=out.device)
+        slots = [(1 << d) - 1 + q]  # node q of level d, then its children
+        if size == 2:
+            slots += [(2 << d) - 1 + q, (2 << d) - 1 + q + (1 << d)]
+        blk = out[:, off:off + (1 << d)]
+        for n, node in enumerate(slots):
+            blk[..., n] = thr[:, node]
+            blk[..., 3] |= codes[:, node] << (DEEP_CODE_BITS * n)
+        off += 1 << d
+        d += size
+    return out
+
+
+def deep_block_walk(x: torch.Tensor, t: FoldTables,
+                    blocks: torch.Tensor) -> torch.Tensor:
+    """The deep kernel's walk over ``deep_blocks`` in torch, the same decode,
+    arithmetic and compare; leaves summed in f64 in tree order, as the plain
+    version sums them."""
+    T = blocks.shape[0]
+    tree = torch.arange(T, device=x.device)
+    j = torch.zeros(x.shape[0], T, dtype=torch.int64, device=x.device)
+    shift = 32 - DEEP_CODE_BITS
+
+    def cond(thr_bits, word, n):
+        # in int32, as the kernel shifts: the field's top bit is bit 31
+        left = torch.as_tensor(shift - DEEP_CODE_BITS * n, dtype=torch.int32,
+                               device=word.device)
+        codes = (word << left) >> shift
+        xv = torch.gather(x, 1, _node_features(codes, t.form))
+        return _node_cond(xv, thr_bits.view(torch.float32), codes, t.form).long()
+
+    off, d = 0, 0
+    for size in deep_groups(t.depth):
+        b = blocks[tree, off + j]
+        u = cond(b[..., 0].contiguous(), b[..., 3], 0)
+        if size == 2:
+            thr = torch.where(u == 1, b[..., 2], b[..., 1]).contiguous()
+            u = u | cond(thr, b[..., 3], 1 + u) << 1
+        j = j + (u << d)
+        off += 1 << d
+        d += size
+    return t.leaf[tree, j].double().sum(dim=1).float()
+
+
+def fold_deep_cuda(x: torch.Tensor, t: FoldTables, blocks: torch.Tensor,
                    launch: DeepLaunch) -> torch.Tensor:
     """The deep kernel on the card (csrc/fold_deep.cu) in the tables' form,
-    dual or sign; ``nodes`` is ``deep_nodes(t)``."""
+    dual or sign; ``blocks`` is ``deep_blocks(t)``."""
     if t.form not in DEEP_KERNELS:
         raise ValueError(f"the deep kernel takes the dual and sign forms, "
                          f"not {t.form}")
     _check(x, t)
     dev = x.device
-    check_operand(nodes, "nodes", torch.int32, dev, 3)
+    check_operand(blocks, "blocks", torch.int32, dev, 3)
     R, W = x.shape
     T = t.leaf.shape[0]
-    if nodes.shape != (T, (1 << t.depth) - 1, 2):
-        raise ValueError(f"nodes {tuple(nodes.shape)} do not match the "
+    if blocks.shape != (T, deep_block_count(t.depth), 4):
+        raise ValueError(f"blocks {tuple(blocks.shape)} do not match the "
                          f"tables' {T} trees of depth {t.depth}")
     out = torch.empty(R, dtype=torch.float32, device=dev)
-    DEEP_KERNELS[t.form].launch(dev, ptr(x), R, W, ptr(nodes), ptr(t.leaf), T,
-                                t.depth, launch.rows_per_block,
+    DEEP_KERNELS[t.form].launch(dev, ptr(x), R, W, ptr(blocks), ptr(t.leaf), T,
+                                t.depth, launch.rows_per_block, launch.lanes,
                                 launch.smem_bytes, ptr(out))
     return out
 
@@ -408,7 +501,7 @@ class FoldKernelEngine:
                 f"shared memory")
         deep = isinstance(self.launch, DeepLaunch)
         self.kernel = (DEEP_KERNELS if deep else FOLD_KERNELS)[t.form]
-        self.nodes = deep_nodes(t) if deep else None
+        self.blocks = deep_blocks(t) if deep else None
 
     def canonicalize(self, rows) -> torch.Tensor:
         """Raw rows [R, C] -> [R, width] f32 (``[x, -x]`` lanes in the dual
@@ -422,8 +515,8 @@ class FoldKernelEngine:
         the engine's kernel on a CUDA one."""
         if x.device.type == "cpu":
             return fold_margins_plain(x, self.tables)
-        if self.nodes is not None:
-            return fold_deep_cuda(x, self.tables, self.nodes, self.launch)
+        if self.blocks is not None:
+            return fold_deep_cuda(x, self.tables, self.blocks, self.launch)
         return fold_margins_cuda(x, self.tables, self.launch)
 
     def margins(self, rows) -> torch.Tensor:

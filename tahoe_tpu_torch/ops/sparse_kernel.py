@@ -24,6 +24,30 @@ is the JAX engine's: ``rank_quantize`` (shared with the dense rank engine)
 - a leaf has ``child = -1`` and its f32 value in the fourth word;
 - one root index per tree.
 
+The records are what the plain version (and ``node_columns``) reads. The
+sparse kernel reads them repacked into **slots** of 2^b int32 words, one
+16-byte load at b = 2 (``SPARSE_LEVELS``, ``sparse_blocks``): a slot is a
+block of the b levels below one node, or a leaf.
+
+- A block holds 2^b - 1 node words in heap order (position i has its
+  cond-False child at 2i + 1, its cond-True child at 2i + 2), each kernel B's
+  record ``(k << 12) | lane`` (rank_kernel.pack_records), then one base word.
+  A walk of b steps leaves it by one of 2^b exits.
+- A leaf that ends inside a block is padded down with pass-through words,
+  ``PASS_WORD`` (k = -2^19, lane 0): its diff is below any planes' sum, so
+  the walk goes to the cond-False slot, where a missing value walks too, and
+  leaves by the leftmost exit under the leaf. Exits under a pass-through's
+  other side are never reached.
+- The base word is ``(base << 2^b) | mask``, ``mask`` the reached exits.
+  Exit e leads to slot ``base + popcount(mask & (2^e - 1))``: the children of
+  a block are consecutive slots, in exit order.
+- A leaf slot holds its f32 value in word 0 and -1 in the base word.
+- Slot t is tree t's root (a block, or a leaf for a one-leaf tree).
+
+So a descent reads one slot per b levels and one for the leaf, where it
+read one 16-byte record per level; the swapped pairs and the neg form are the
+records', so missing values route exactly as before.
+
 Not ported, because they are TPU workarounds with no counterpart here: the
 chunk-packed per-level slot layout, the 128-tree lane tiles and their f32
 partials, the macro blocks (plan_macro, _pad_macros, vmem_bytes) and the dead
@@ -59,6 +83,7 @@ from tahoe_tpu_torch.ops.rank_kernel import (
     PLAIN_CHUNK_BYTES,
     RankInput,
     _int32_matmul,
+    pack_records,
     rank_input,
     rank_quantize,
     rank_virtual_cols,
@@ -69,7 +94,7 @@ from tahoe_tpu_torch.ops.transform import apply_output_transform
 SPARSE_RANK = CudaKernel(
     "tahoe_sparse_rank",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     source="tahoe_tpu_torch/csrc/sparse_rank.cu",
     replaces="tahoe_tpu/ops/sparse_kernel.py:251",
 )
@@ -77,6 +102,15 @@ SPARSE_RANK = CudaKernel(
 # int32 words of one node record: lane, k, child, value bits
 RECORD_WORDS = 4
 RECORD_BYTES = 4 * RECORD_WORDS
+# levels of one slot (csrc/sparse_rank.cu TAHOE_SPARSE_LEVELS): 2^2 words,
+# one 16-byte load; the kernel refuses slots of another width. Slots of 3
+# levels (32 bytes, two loads) ran slower (PERF.md)
+SPARSE_LEVELS = 2
+# a pass-through node word: k = -2^19 puts its diff below -16,384, the least
+# 127 * p[lane] + p[lane + 30] of any planes
+PASS_WORD = -(1 << 31)
+# a leaf slot's base word
+LEAF_BASE = -1
 
 
 def sparse_records(sf: SparseForest) -> tuple[np.ndarray, np.ndarray]:
@@ -111,6 +145,113 @@ def sparse_records(sf: SparseForest) -> tuple[np.ndarray, np.ndarray]:
     records[at, 2] = -1
     records[at, 3] = sf.values[sf.is_leaf].astype(np.float32).view(np.int32)
     return records, pos
+
+
+def sparse_blocks(records: np.ndarray, roots: np.ndarray,
+                  levels: int = SPARSE_LEVELS
+                  ) -> tuple[np.ndarray, np.ndarray, int]:
+    """Records [N, 4] -> (slots [S, 2^levels] int32, the record each slot
+    starts at [S]: a block's top node or a leaf, steps): the sparse kernel's
+    layout (module docstring), ``steps`` the slots the longest walk reads.
+
+    Slots are laid out in waves: wave 0 holds the roots, slot t tree t's;
+    wave w + 1 the entries that wave w's blocks exit to, block by block and
+    in exit order, so that a block's children are consecutive."""
+    if levels not in (2, 3):
+        raise ValueError(f"slots of {levels} levels: the kernel takes 2 or 3")
+    W = 1 << levels
+    records = np.asarray(records, np.int32)
+    child = records[:, 2].astype(np.int64)
+    internal = child >= 0
+    words = np.full(records.shape[0], PASS_WORD, np.int64)
+    words[internal] = pack_records(records[internal, 1], records[internal, 0])
+    entries = np.asarray(roots, np.int64)
+    waves, starts, start = [], [], 0
+    while entries.size:
+        n = entries.size
+        out = np.zeros((n, W), np.int64)
+        block = internal[entries]
+        out[~block, 0] = records[entries[~block], 3]
+        out[~block, W - 1] = LEAF_BASE
+        # the node each position holds (-1: none), positions 0..W-2 the
+        # block's, W-1..2W-2 its exits; a leaf walks on to its left child
+        pos = np.full((int(block.sum()), 2 * W - 1), -1, np.int64)
+        pos[:, 0] = entries[block]
+        bw = np.full((pos.shape[0], W), PASS_WORD, np.int64)
+        for i in range(W - 1):
+            r = pos[:, i]
+            inner = (r >= 0) & internal[np.maximum(r, 0)]
+            c = child[np.maximum(r, 0)]
+            bw[inner, i] = words[r[inner]]
+            pos[:, 2 * i + 1] = np.where(inner, c, r)
+            pos[:, 2 * i + 2] = np.where(inner, c + 1, -1)
+        exits = pos[:, W - 1:]
+        reached = exits >= 0
+        first = start + n + np.cumsum(reached.sum(axis=1)) - reached.sum(axis=1)
+        if first.size and first.max() >= 1 << (31 - W):
+            raise ValueError(f"{first.max()} slots: past the base word's "
+                             f"{31 - W} bits")
+        bw[:, W - 1] = (first << W) | (reached.astype(np.int64)
+                                       << np.arange(W)).sum(axis=1)
+        out[block] = bw
+        waves.append(out.astype(np.int32))
+        starts.append(entries)
+        start += n
+        entries = exits[reached]
+    return np.concatenate(waves), np.concatenate(starts), len(waves)
+
+
+def sparse_block_walk(planes: torch.Tensor, slots: torch.Tensor, trees: int,
+                      steps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sparse kernel's walk in torch, the same decode and arithmetic:
+    (the leaf slot each row reaches in each tree [R, T], the slots it reads
+    [R, T]). The twin the CPU tests hold to the plain version, and the count
+    of slots (each one 32-byte sector or less) a run reads."""
+    W = slots.shape[1]
+    levels = W.bit_length() - 1
+    s64 = slots.to(torch.int64)
+    out_leaf, out_reads = [], []
+    chunk = max(1, PLAIN_CHUNK_BYTES // (trees * (8 * W + 64)))
+    for r0 in range(0, planes.shape[0], chunk):
+        p = planes[r0:r0 + chunk].to(torch.int32)
+        R = p.shape[0]
+        slot = torch.arange(trees, device=p.device).expand(R, trees).clone()
+        reads = torch.zeros(R, trees, dtype=torch.int64, device=p.device)
+        done = torch.zeros(R, trees, dtype=torch.bool, device=p.device)
+        for _ in range(steps):
+            w = s64[slot]
+            base = w[..., W - 1]
+            leaf = base < 0
+            reads += ~done
+            done |= leaf
+            w = torch.where(leaf[..., None], PASS_WORD, w)
+            i = torch.zeros_like(slot)
+            for _ in range(levels):
+                word = torch.gather(w, 2, i[..., None])[..., 0]
+                lane = (word & 0xFFF).view(R, -1)
+                diff = (127 * torch.gather(p, 1, lane) + torch.gather(p, 1, lane + 30)
+                        ).view(R, trees) + (word >> 12)
+                i = 2 * i + 1 + (diff >= 0).long()
+            below = base & (torch.bitwise_left_shift(torch.ones_like(i),
+                                                     i - (W - 1)) - 1)
+            before = sum((below >> b) & 1 for b in range(W))
+            slot = torch.where(leaf, slot, (base >> W) + before)
+        out_leaf.append(slot)
+        out_reads.append(reads)
+    return torch.cat(out_leaf), torch.cat(out_reads)
+
+
+def record_depths(records: torch.Tensor, max_depth: int) -> torch.Tensor:
+    """The depth of every record in its tree, roots at 0: a descent to a
+    leaf at depth d reads d + 1 records, and ceil(d / SPARSE_LEVELS) + 1
+    slots."""
+    rec = records.to(torch.int64)
+    internal = rec[:, 2] >= 0
+    kids = rec[internal, 2]
+    depth = torch.zeros(rec.shape[0], dtype=torch.int64, device=records.device)
+    for _ in range(max_depth):
+        depth[kids] = depth[kids + 1] = depth[internal] + 1
+    return depth
 
 
 def node_columns(records: torch.Tensor, groups: int) -> torch.Tensor:
@@ -169,34 +310,34 @@ def sparse_margins_plain(planes: torch.Tensor, records: torch.Tensor,
     return value[leaves].double().sum(dim=1).float()
 
 
-def sparse_margins_cuda(planes: torch.Tensor, records: torch.Tensor,
-                        roots: torch.Tensor, max_depth: int) -> torch.Tensor:
-    """The sparse kernel on the card (csrc/sparse_rank.cu)."""
+def sparse_margins_cuda(planes: torch.Tensor, slots: torch.Tensor, trees: int,
+                        steps: int) -> torch.Tensor:
+    """The sparse kernel on the card (csrc/sparse_rank.cu), over
+    ``sparse_blocks``' slots: tree t starts at slot t, and no walk reads more
+    than ``steps`` slots."""
     dev = planes.device
     check_operand(planes, "planes", torch.int8, dev, 2)
-    check_operand(records, "records", torch.int32, dev, 2)
-    check_operand(roots, "roots", torch.int32, dev, 1)
+    check_operand(slots, "slots", torch.int32, dev, 2)
     R, K = planes.shape
     if K % LANE or not 1 <= K // LANE <= RANK_MAX_GROUPS:
         raise ValueError(f"planes width {K} is not 128 x 1..16 groups")
-    if records.shape[1] != RECORD_WORDS or records.data_ptr() % 16:
-        raise ValueError(f"records {tuple(records.shape)} are not 16-byte "
-                         f"aligned [N, {RECORD_WORDS}] int32 records")
-    if roots.shape[0] < 1:
-        raise ValueError("a forest has at least one tree")
+    if slots.shape[1] % 4 or slots.data_ptr() % 16:
+        raise ValueError(f"slots {tuple(slots.shape)} are not 16-byte aligned "
+                         f"rows of int32 words")
+    if not 1 <= trees <= slots.shape[0]:
+        raise ValueError(f"{trees} trees over {slots.shape[0]} slots")
     out = torch.empty(R, dtype=torch.float32, device=dev)
-    SPARSE_RANK.launch(dev, ptr(planes), R, K // LANE, ptr(records),
-                       ptr(roots), roots.shape[0], max_depth, ptr(out))
+    SPARSE_RANK.launch(dev, ptr(planes), R, K // LANE, ptr(slots),
+                       slots.shape[1], trees, steps, ptr(out))
     return out
 
 
-def sparse_margins(planes: torch.Tensor, records: torch.Tensor,
-                   roots: torch.Tensor, max_depth: int) -> torch.Tensor:
-    """The sparse kernel on a CUDA tensor, its plain version on a CPU
-    tensor."""
+def sparse_margins(planes: torch.Tensor, t: "SparseTables") -> torch.Tensor:
+    """The sparse kernel on a CUDA tensor (over ``t.slots``), its plain
+    version on a CPU tensor (over ``t.records``)."""
     if planes.device.type == "cpu":
-        return sparse_margins_plain(planes, records, roots, max_depth)
-    return sparse_margins_cuda(planes, records, roots, max_depth)
+        return sparse_margins_plain(planes, t.records, t.roots, t.max_depth)
+    return sparse_margins_cuda(planes, t.slots, t.roots.shape[0], t.steps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,12 +346,17 @@ class SparseTables(RankInput):
 
     - ``records`` [N, 4] int32: the pruned pool's node records;
     - ``roots`` [T] int32: each tree's root record;
-    - ``max_depth``: the deepest leaf's depth (the plain descent's steps).
+    - ``max_depth``: the deepest leaf's depth (the plain descent's steps);
+    - ``slots`` [S, 2^SPARSE_LEVELS] int32: the kernel's layout of the same
+      pool (``sparse_blocks``), slot t tree t's root;
+    - ``steps``: the slots the longest walk reads.
     """
 
     records: torch.Tensor
     roots: torch.Tensor
     max_depth: int
+    slots: torch.Tensor
+    steps: int
 
 
 def sparse_tables(spec: ForestSpec, band: int | None = None, *,
@@ -220,11 +366,14 @@ def sparse_tables(spec: ForestSpec, band: int | None = None, *,
     fields = rank_input(q, gather, device=device)
     sf = from_dense(quantized_spec_for_engines(q))
     records, _ = sparse_records(sf)
+    slots, _, steps = sparse_blocks(records, sf.tree_roots)
     return SparseTables(
         **fields,
         records=torch.as_tensor(records, device=device),
         roots=torch.as_tensor(sf.tree_roots, dtype=torch.int32, device=device),
         max_depth=sf.max_depth,
+        slots=torch.as_tensor(slots, device=device),
+        steps=steps,
     )
 
 
@@ -259,9 +408,7 @@ class SparseRankEngine:
 
     def margins_planes(self, planes) -> torch.Tensor:
         planes = torch.as_tensor(planes, dtype=torch.int8, device=self.device)
-        t = self.tables
-        return sparse_margins(planes.contiguous(), t.records, t.roots,
-                              t.max_depth)
+        return sparse_margins(planes.contiguous(), self.tables)
 
     def margins(self, rows) -> torch.Tensor:
         return self.margins_planes(self.transform(rows))

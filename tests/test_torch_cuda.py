@@ -26,8 +26,8 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     FOLD_NONGE,
     FOLD_SIGN,
     FoldKernelEngine,
+    deep_blocks,
     deep_launch,
-    deep_nodes,
     fold_deep_cuda,
     fold_launch,
     fold_margins_cuda,
@@ -84,12 +84,12 @@ def dev():
 
 
 def _data(rows, cols, seed, missing=float("nan")):
-    data = synthetic.generate_data(rows, cols, missing=missing,
+    data = synthetic.generate_data(max(rows, 3), cols, missing=missing,
                                    missing_prob=0.05, seed=seed)
     data[0, 0] = -0.0
     data[1, 1] = np.inf
     data[2, 2] = 1e-40
-    return data
+    return data[:rows]
 
 
 @pytest.mark.parametrize("cols", [18, 150])
@@ -341,7 +341,7 @@ def test_fold_deep_kernel(dev, depth, cols, active):
     assert eng.kernel is kernel and DEEP_KERNELS[t.form] is kernel
     x = eng.canonicalize(data)
     before = kernel.launches
-    got = fold_deep_cuda(x, t, eng.nodes, eng.launch)
+    got = fold_deep_cuda(x, t, eng.blocks, eng.launch)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     want = fold_margins_plain(x, t)
@@ -361,7 +361,7 @@ def test_kernel_c_and_deep_kernel_agree_at_depth_12(dev):
     x = eng.canonicalize(data)
     limits = GpuLimits.for_device(dev)
     c = fold_margins_cuda(x, t, fold_launch(t.width, t.depth, 10, limits))
-    deep = fold_deep_cuda(x, t, deep_nodes(t), deep_launch(t.width, limits))
+    deep = fold_deep_cuda(x, t, deep_blocks(t), deep_launch(t.width, limits))
     assert torch.allclose(c, deep, atol=KERNEL_ATOL, rtol=0)
 
 
@@ -410,7 +410,7 @@ def test_sparse_rank_kernel(dev, case):
     t = eng.tables
     planes = eng.transform(data)
     before = SPARSE_RANK.launches
-    got = sparse_margins_cuda(planes, t.records, t.roots, t.max_depth)
+    got = sparse_margins_cuda(planes, t.slots, t.roots.shape[0], t.steps)
     torch.cuda.synchronize()
     assert SPARSE_RANK.launches == before + 1
     want = sparse_margins_plain(planes, t.records, t.roots, t.max_depth)
@@ -426,14 +426,19 @@ def test_sparse_rank_kernel_rejects_bad_operands(dev):
     eng = SparseRankEngine(synthetic.generate_forest(5, 4, 6, seed=36), device=dev)
     t = eng.tables
     planes = eng.transform(_data(64, 6, 37))
+    T = t.roots.shape[0]
     with pytest.raises(ValueError):
-        sparse_margins_cuda(planes, t.records[:, :3].contiguous(), t.roots,
-                            t.max_depth)
+        sparse_margins_cuda(planes, t.slots[:, :3].contiguous(), T, t.steps)
     with pytest.raises(ValueError):
-        sparse_margins_cuda(planes[:, :100].contiguous(), t.records, t.roots,
-                            t.max_depth)
+        sparse_margins_cuda(planes[:, :100].contiguous(), t.slots, T, t.steps)
     with pytest.raises(TypeError):
-        sparse_margins_cuda(planes, t.records.long(), t.roots, t.max_depth)
+        sparse_margins_cuda(planes, t.slots.long(), T, t.steps)
+    with pytest.raises(ValueError):
+        sparse_margins_cuda(planes, t.slots, t.slots.shape[0] + 1, t.steps)
+    # the launcher refuses slots of another width than it was built for
+    with pytest.raises(RuntimeError):
+        sparse_margins_cuda(planes, torch.cat([t.slots, t.slots], dim=1), T,
+                            t.steps)
 
 
 def test_facade_sparse_and_plain_strategies(dev):
@@ -555,3 +560,86 @@ def test_probe_rank_parts_kernel(dev, mode, cols):
     assert PROBE_RANK_PARTS.launches == before + 1
     assert torch.equal(got, rank_parts_probe_plain(planes, t.mats, t.leaf,
                                                    t.depth, mode))
+
+
+@pytest.mark.parametrize("rows", [1, 31, 65537])
+def test_redesigned_kernels_at_row_counts(dev, rows):
+    """The sparse kernel and both deep-kernel forms (one and two threads a
+    row) against their plain versions at one row, a partial warp, and one
+    row past 65,536."""
+    sparse = SparseRankEngine(train.train_forest(20, 14, 12, rows=512, seed=71),
+                              device=dev)
+    st = sparse.tables
+    planes = sparse.transform(_data(rows, 12, 72))
+    got = sparse_margins_cuda(planes, st.slots, st.roots.shape[0], st.steps)
+    want = sparse_margins_plain(planes, st.records, st.roots, st.max_depth)
+    assert got.shape == (rows,)
+    assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+    for forest, kernel in (
+            (synthetic.generate_forest(6, 13, 16, leaf_prob=0.05, seed=73),
+             FOLD_DEEP),
+            (_wide_forest(8, 9, 300, 120, seed=74, missing=-999.0),
+             FOLD_DEEP_SIGN)):
+        eng = FoldKernelEngine(forest, device=dev)
+        assert eng.kernel is kernel
+        x = eng.canonicalize(_data(rows, forest.num_cols, 75,
+                                   missing=forest.missing))
+        want = fold_margins_plain(x, eng.tables)
+        # one thread a row and two, each in a partial last block
+        for lanes in (1, 2):
+            launch = eng.launch._replace(rows_per_block=48, lanes=lanes)
+            got = fold_deep_cuda(x, eng.tables, eng.blocks, launch)
+            torch.cuda.synchronize()
+            assert got.shape == (rows,)
+            assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+
+
+def test_launchers_capture_in_a_cuda_graph(dev):
+    """The five launchers that grant shared memory (kernels A and B, kernel
+    C in its dual then its sign form, the deep and the sparse kernel) give
+    inside a CUDA graph what they give outside it: no attribute call falls
+    in the capture. The two kernel-C forms take the whole opt-in budget back
+    to back, the sign form the smaller, so that a grant keyed by anything
+    less than the kernel leaves the sign form's launch refused."""
+    limits = GpuLimits.for_device(dev)
+    rank = RankFoldEngine(synthetic.generate_forest(60, 8, 18, seed=61), device=dev)
+    rt = rank.tables
+    x = rt.rows(_data(4096, 18, 62), rank.raw_missing)
+    planes = rank_planes_cuda(x, rt.thresholds, rt.counts)
+    dual = FoldKernelEngine(synthetic.generate_forest(200, 8, 18, seed=63),
+                            device=dev)
+    sign = FoldKernelEngine(_wide_forest(200, 7, 300, 120, seed=64), device=dev)
+    xd = dual.canonicalize(_data(4096, 18, 65))
+    xs = sign.canonicalize(_data(4096, 300, 66))
+    dl = fold_launch(dual.tables.width, 8, 200, limits, budget=limits.smem_per_block)
+    sl = fold_launch(sign.tables.width, 7, 200, limits,
+                     budget=limits.smem_per_block - 4096)
+    assert 48 * 1024 < sl.smem_bytes < dl.smem_bytes
+    deep = FoldKernelEngine(_wide_forest(30, 10, 479, 300, seed=67), device=dev)
+    assert deep.kernel is FOLD_DEEP_SIGN and deep.launch.smem_bytes > 48 * 1024
+    xw = deep.canonicalize(_data(4096, 479, 68))
+    sparse = SparseRankEngine(synthetic.generate_forest(40, 6, 480, seed=69),
+                              device=dev)
+    st = sparse.tables
+    assert st.groups >= 12  # 32-row blocks of staged bytes, past 48 KB
+    sp = sparse.transform(_data(4096, 480, 70))
+    calls = {
+        "rank_transform": lambda: rank_planes_cuda(x, rt.thresholds, rt.counts),
+        "rank_fold": lambda: rank_margins_cuda(planes, rt.records, rt.leaf, rt.depth),
+        "fold dual, fold sign": lambda: torch.stack([
+            fold_margins_cuda(xd, dual.tables, dl),
+            fold_margins_cuda(xs, sign.tables, sl)]),
+        "fold_deep_sign": lambda: fold_deep_cuda(xw, deep.tables, deep.blocks,
+                                                 deep.launch),
+        "sparse_rank": lambda: sparse_margins_cuda(sp, st.slots, st.roots.shape[0],
+                                                   st.steps),
+    }
+    for name, fn in calls.items():
+        want = fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name

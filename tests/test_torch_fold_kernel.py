@@ -30,7 +30,13 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     DeepLaunch,
     FoldKernelEngine,
     FoldLaunch,
+    FoldTables,
+    deep_block_count,
+    deep_block_walk,
+    deep_blocks,
+    deep_groups,
     fold_launch,
+    fold_margins_plain,
     fold_plan,
     fold_tables,
 )
@@ -240,9 +246,14 @@ def test_depth15_matches_oracle_on_the_deep_route():
     data = synthetic.generate_data(50, 6, missing_prob=0.1, seed=96)
     eng = FoldKernelEngine(_port(forest), device=CPU)
     assert eng.kernel is FOLD_DEEP and isinstance(eng.launch, DeepLaunch)
-    assert eng.nodes.shape == (3, (1 << 15) - 1, 2)
-    assert np.array_equal(eng.nodes[..., 0].numpy().view(np.float32),
-                          eng.tables.thresholds.numpy(), equal_nan=True)
+    blocks = eng.blocks.numpy()
+    assert blocks.shape == (3, deep_block_count(15), 4)
+    # the root group is level 0 alone; every other block holds 3 nodes
+    thr = eng.tables.thresholds.numpy()
+    assert np.array_equal(blocks[:, 0, 0].view(np.float32), thr[:, 0],
+                          equal_nan=True)
+    assert np.array_equal(np.sort(blocks[:, 1:, :3].reshape(3, -1).view(np.float32)),
+                          np.sort(thr[:, 1:]), equal_nan=True)
     np.testing.assert_allclose(eng.predict(data).numpy(),
                                oracle.predict(forest, data),
                                atol=ORACLE_ATOL, rtol=0)
@@ -315,32 +326,44 @@ def test_fold_caps_hold(what):
         FoldKernelEngine(_port(forest), device=CPU, **kw)
 
 
-# (form, width, depth, trees, whole_forest) -> kernel C block or deep kernel;
-# the ge routes are the faster kernel as measured on the sweep's shapes
+# (form, width, depth, trees, whole_forest) -> kernel C block or deep kernel,
+# and the kernel that `scripts/kernel_ab.py route` measured the faster on the
+# shape (65,536 rows on an H100, PERF.md section 6; None where only one
+# kernel serves it)
 PLANS = {
-    "susy_dual": ("dual", 36, 8, 500, False, FoldLaunch(256, 25, 114488)),
-    "cup98_sign": ("sign", 300, 8, 150, False, DeepLaunch(64, 77056)),
-    "svhn_sign": ("sign", 100, 6, 200, False, FoldLaunch(256, 16, 115584)),
-    "gisette_sign": ("sign", 120, 6, 100, False, FoldLaunch(128, 70, 115152)),
-    "cifar_sign": ("sign", 120, 7, 150, False, DeepLaunch(128, 61952)),
-    "covtype_dual": ("dual", 108, 9, 250, False, DeepLaunch(256, 111616)),
-    "narrow_depth9_dual": ("dual", 32, 9, 300, False, DeepLaunch(256, 33792)),
-    "deep12_dual": ("dual", 56, 12, 100, False, DeepLaunch(256, 58368)),
-    "deep15_dual": ("dual", 32, 15, 30, False, DeepLaunch(256, 33792)),
-    "wide_deep_sign": ("sign", 512, 12, 60, False, DeepLaunch(32, 65664)),
-    "nonge_depth14": ("nonge", 90, 14, 40, False, FoldLaunch(64, 1, 219896)),
-    "nonge_depth15": ("nonge", 90, 15, 40, False, None),
-    "stumps_whole": ("dual", 20, 3, 800, True, FoldLaunch(256, 800, 91904)),
-    "susy_whole": ("dual", 36, 8, 500, True, None),
+    "susy_dual": ("dual", 36, 8, 500, False, DeepLaunch(256, 37888), "deep"),
+    "cup98_sign": ("sign", 300, 8, 150, False, DeepLaunch(192, 231168, 2), "deep"),
+    "svhn_sign": ("sign", 100, 6, 200, False, FoldLaunch(256, 16, 115584), "c"),
+    "gisette_sign": ("sign", 120, 6, 100, False, FoldLaunch(256, 100, 199904), "c"),
+    "cifar_sign": ("sign", 120, 7, 150, False, FoldLaunch(256, 71, 232392), "c"),
+    "covtype_dual": ("dual", 108, 9, 250, False, DeepLaunch(256, 111616), "deep"),
+    "narrow_depth9_dual": ("dual", 32, 9, 300, False, DeepLaunch(256, 33792), "deep"),
+    "deep12_dual": ("dual", 56, 12, 100, False, DeepLaunch(256, 58368), "deep"),
+    "deep15_dual": ("dual", 32, 15, 30, False, DeepLaunch(256, 33792), "deep"),
+    "wide_deep_sign": ("sign", 512, 12, 60, False, DeepLaunch(96, 196992, 2),
+                       "deep"),
+    "stumps_dual": ("dual", 20, 3, 800, False, FoldLaunch(256, 800, 91904), "c"),
+    "depth6_dual": ("dual", 36, 6, 500, False, FoldLaunch(256, 102, 115408), "c"),
+    "depth7_dual": ("dual", 36, 7, 500, False, FoldLaunch(256, 50, 114288), "c"),
+    "covtype_d8_dual": ("dual", 108, 8, 250, False, DeepLaunch(256, 111616), "deep"),
+    "sign_d8": ("sign", 100, 8, 200, False, DeepLaunch(256, 103424), "deep"),
+    "dual_d10": ("dual", 56, 10, 100, False, DeepLaunch(256, 58368), "deep"),
+    "sign_d9": ("sign", 120, 9, 100, False, DeepLaunch(256, 123904), "deep"),
+    "nonge_depth14": ("nonge", 90, 14, 40, False, FoldLaunch(64, 1, 219896), None),
+    "nonge_depth15": ("nonge", 90, 15, 40, False, None, None),
+    "stumps_whole": ("dual", 20, 3, 800, True, FoldLaunch(256, 800, 91904), None),
+    "susy_whole": ("dual", 36, 8, 500, True, None, None),
 }
 
 
 @pytest.mark.parametrize("name", sorted(PLANS))
 def test_fold_plan_routes(name):
-    form, width, depth, trees, whole, want = PLANS[name]
+    form, width, depth, trees, whole, want, measured = PLANS[name]
     limits = GpuLimits()
-    assert fold_plan(form, width, depth, trees, limits,
-                     whole_forest=whole) == want
+    got = fold_plan(form, width, depth, trees, limits, whole_forest=whole)
+    assert got == want
+    if measured is not None:
+        assert isinstance(got, DeepLaunch if measured == "deep" else FoldLaunch)
     if want is not None and want.smem_bytes <= limits.smem_half_sm:
         # two such blocks and the runtime's reserve fit one SM
         assert 2 * (want.smem_bytes + limits.SMEM_RESERVED_PER_BLOCK) \
@@ -362,3 +385,97 @@ def test_fold_launch_fits_shared_memory(depth, rows, fits):
     per_tree = ((1 << depth) - 1) * 8 + (1 << depth) * 4
     assert launch.smem_bytes == rows * 37 * 4 + launch.tile_trees * per_tree
 
+
+
+# (depth, trees, num_cols, live, leaf_prob, missing): the deep kernel's
+# dual (<= 64 live) and sign forms at depth 9, 12 and 15, and at 10 and 11;
+# at an odd depth the root group of its blocks is one level
+DEEP_CASES = {
+    "dual_d9": (9, 6, 12, 12, 0.1, float("nan")),
+    "dual_d12": (12, 3, 20, 20, 0.05, -999.0),
+    "dual_d15": (15, 2, 8, 8, 0.02, float("nan")),
+    "sign_d9": (9, 5, 200, 90, 0.1, -999.0),
+    "sign_d12": (12, 3, 300, 100, 0.05, float("nan")),
+    "sign_d15": (15, 2, 150, 80, 0.02, float("nan")),
+    "dual_d10": (10, 4, 16, 16, 0.1, float("nan")),
+    "sign_d11": (11, 3, 120, 70, 0.1, -999.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEEP_CASES))
+def test_deep_block_walk_matches_plain_and_jax(name):
+    """The deep kernel's walk over its blocks (its arithmetic in torch) is
+    the plain version's margins bit for bit; the predictions are within
+    JAX_ATOL of the JAX engine in interpret mode."""
+    depth, trees, num_cols, live, leaf_prob, missing = DEEP_CASES[name]
+    forest = compiler.hot_child_swap(_sparse_wide_forest(
+        trees, depth, num_cols, live, seed=depth + live, leaf_prob=leaf_prob,
+        missing=missing))
+    data = synthetic.generate_data(24, num_cols, missing=missing,
+                                   missing_prob=0.1, seed=depth)
+    eng = FoldKernelEngine(_port(forest), device=CPU)
+    t = eng.tables
+    assert t.depth == depth and t.form == name[:4]
+    assert eng.kernel is (FOLD_DEEP_SIGN if t.form == "sign" else FOLD_DEEP)
+    x = eng.canonicalize(data)
+    blocks = deep_blocks(t)
+    assert blocks.shape == (trees, deep_block_count(depth), 4)
+    assert sum(deep_groups(depth)) == depth and set(deep_groups(depth)) <= {1, 2}
+    assert torch.equal(eng.blocks, blocks)
+    assert torch.equal(deep_block_walk(x, t, blocks), fold_margins_plain(x, t))
+    jeng = JaxFoldKernelEngine(compiler.levelize(forest), row_tile=8,
+                               tree_tile=16, interpret=True)
+    np.testing.assert_allclose(eng.predict(data).numpy(),
+                               np.asarray(jeng.predict(data)),
+                               atol=JAX_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("form", ["dual", "sign"])
+def test_deep_block_walk_zero_and_denormal_thresholds(form):
+    """Thresholds at +-0 and denormals on the deep route (depth 10): the
+    walk equals the plain version bit for bit and routes as numpy does (the
+    JAX CPU interpret path flushes denormals)."""
+    cols = 80 if form == "sign" else 6
+    forest = _forest(10, 6, cols, 0.05, "mixed", True, float("nan"), seed=19)
+    internal = ~forest.is_leaf
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-40], np.float32)
+    rng = np.random.default_rng(20)
+    forest.values[internal] = rng.choice(special, internal.sum())
+    vals = np.array([0.0, -0.0, 1e-45, -1e-45, 2e-45, 1e-40, -1e-40, 3e-40,
+                     -3e-40, np.nan, 1.0, -1.0], np.float32)
+    data = rng.choice(vals, (200, cols)).astype(np.float32)
+    eng = FoldKernelEngine(_port(forest), device=CPU)
+    assert eng.form == form and isinstance(eng.launch, DeepLaunch)
+    x = eng.canonicalize(data)
+    walked = deep_block_walk(x, eng.tables, deep_blocks(eng.tables))
+    assert torch.equal(walked, fold_margins_plain(x, eng.tables))
+    np.testing.assert_allclose(walked.numpy(), oracle.predict_margins(forest, data),
+                               atol=JAX_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 5])
+def test_deep_blocks_pack_the_code_range(depth):
+    """Sign-form codes at both ends of the 10-bit field (~511 = -512 and
+    511) and thresholds at +-0 and denormals pack and unpack exactly; a code
+    past the field is refused."""
+    rng = np.random.default_rng(depth)
+    T, F = 7, 512
+    n = (1 << depth) - 1
+    codes = rng.integers(-512, 512, (T, n)).astype(np.int32)
+    codes[0, :] = -512
+    codes[1, :] = 511
+    thr = rng.choice(np.array([0.0, -0.0, 1e-45, -1e-40, 0.5, -0.5, np.nan],
+                              np.float32), (T, n))
+    t = FoldTables(form="sign", col_index=None, num_cols=F,
+                   thresholds=torch.as_tensor(thr), fids=torch.as_tensor(codes),
+                   leaf=torch.as_tensor(rng.normal(size=(T, 1 << depth)),
+                                        dtype=torch.float32),
+                   depth=depth)
+    x = torch.as_tensor(rng.choice(np.array([0.0, -0.0, 1e-45, 2e-40, -1.0, 1.0,
+                                             np.nan], np.float32), (64, F)))
+    blocks = deep_blocks(t)
+    assert blocks.shape == (T, deep_block_count(depth), 4)
+    assert torch.equal(deep_block_walk(x, t, blocks), fold_margins_plain(x, t))
+    bad = dataclasses.replace(t, fids=t.fids.clone().fill_(512))
+    with pytest.raises(ValueError):
+        deep_blocks(bad)

@@ -50,6 +50,24 @@ def _files(tmp_path, forest, data, missing):
     return str(model), str(rows)
 
 
+@pytest.mark.parametrize("data_path", [None, "missing.txt"])
+def test_from_files_without_a_data_file_matches_jax(tmp_path, data_path):
+    """No data file, or a path to none: the model's own num_cols and NaN
+    missing, the spec the JAX Forest.from_files loads."""
+    from tahoe_tpu.engine.forest import Forest as JaxForest
+
+    forest = synthetic.generate_forest(9, 4, 13, leaf_prob=0.1, seed=63)
+    model = tmp_path / "model.txt"
+    io.save_model(str(model), forest)
+    rows = None if data_path is None else str(tmp_path / data_path)
+    f = Forest.from_files(str(model), rows, device="cpu")
+    want = JaxForest.from_files(str(model), rows).spec
+    got = to_arrays(f.spec)
+    for key, value in dataclasses.asdict(want).items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)
+    assert np.isnan(f.spec.missing)
+
+
 @pytest.mark.parametrize("missing", [float("nan"), -999.0])
 def test_from_files_round_trip(tmp_path, missing):
     forest = synthetic.generate_forest(23, 5, 11, leaf_prob=0.15,
@@ -194,7 +212,7 @@ def test_depth_bucketed_through_the_facade(tmp_path, cols, variant):
 # sweep families (scripts/run_sweep.py SHAPES): (trees, depth, cols, active,
 # the kernel measured faster on the H100)
 SWEEP_SHAPES = {
-    "susy_like": (500, 8, 18, None, FOLD),
+    "susy_like": (500, 8, 18, None, FOLD_DEEP),
     "allstate_like": (250, 8, 130, None, FOLD_DEEP_SIGN),
     "cup98_like": (150, 8, 479, 300, FOLD_DEEP_SIGN),
     "gisette_like": (100, 6, 5000, 120, FOLD_SIGN),

@@ -28,14 +28,23 @@ from tahoe_tpu_torch import Forest, Strategy
 from tahoe_tpu_torch.forest import sparse
 from tahoe_tpu_torch.forest.quantize import quantized_spec_for_engines
 from tahoe_tpu_torch.forest.spec import from_arrays, to_arrays
-from tahoe_tpu_torch.ops.rank_kernel import rank_quantize
+from tahoe_tpu_torch.ops.rank_kernel import pack_records, rank_quantize
 from tahoe_tpu_torch.ops.sparse_kernel import (
+    LEAF_BASE,
+    PASS_WORD,
+    SPARSE_LEVELS,
     SparseRankEngine,
     node_columns,
+    record_depths,
+    sparse_block_walk,
+    sparse_blocks,
+    sparse_leaves_plain,
     sparse_margins,
+    sparse_margins_plain,
     sparse_records,
     sparse_tables,
 )
+from tahoe_tpu_torch.ops.transform import apply_output_transform
 
 CPU = torch.device("cpu")
 JAX_ATOL = 1e-5
@@ -153,10 +162,13 @@ def test_plain_margins_chunk_rows(monkeypatch):
     eng = SparseRankEngine(_port(forest), device=CPU)
     t = eng.tables
     planes = eng.transform(data)
-    whole = sparse_margins(planes, t.records, t.roots, t.max_depth)
+    whole = sparse_margins(planes, t)
+    leaves, reads = sparse_block_walk(planes, t.slots, t.roots.shape[0], t.steps)
     monkeypatch.setattr(sparse_kernel, "PLAIN_CHUNK_BYTES", 1)
-    chunked = sparse_margins(planes, t.records, t.roots, t.max_depth)
+    chunked = sparse_margins(planes, t)
     assert torch.equal(whole, chunked)
+    walked = sparse_block_walk(planes, t.slots, t.roots.shape[0], t.steps)
+    assert torch.equal(walked[0], leaves) and torch.equal(walked[1], reads)
 
 
 def test_all_leaf_forest():
@@ -231,3 +243,107 @@ def test_deep_trained_forest_through_the_facade():
         assert "leveled form of depth" in f.feasible(s)
         with pytest.raises(ValueError, match="infeasible"):
             f.engine(s)
+
+
+def _leaves_at(forest, leaf):
+    """``forest`` with ``leaf`` (a [T, nodes] mask) made leaves."""
+    forest.is_leaf[leaf] = True
+    return forest
+
+
+# the sparse kernel's layout cases beside CASES: (forest, rows, band)
+BLOCK_CASES = {
+    **CASES,
+    "all_leaf": lambda: (
+        _leaves_at(synthetic.generate_forest(6, 3, 5, seed=35), slice(None)),
+        synthetic.generate_data(10, 5, seed=36), None),
+    "single_node_tree": lambda: (
+        _leaves_at(synthetic.generate_forest(4, 5, 7, leaf_prob=0.1, seed=41),
+                   (1, 0)),
+        synthetic.generate_data(40, 7, missing_prob=0.1, seed=42), None),
+    "leaves_every_depth": lambda: (
+        synthetic.generate_forest(30, 9, 8, leaf_prob=0.3, seed=43),
+        synthetic.generate_data(48, 8, missing_prob=0.1, seed=44), None),
+    "swapped_sentinel": lambda: (
+        _hot(synthetic.generate_forest(20, 7, 10, leaf_prob=0.2,
+                                       missing=-999.0, seed=45)),
+        synthetic.generate_data(48, 10, missing=-999.0, missing_prob=0.2,
+                                seed=46), None),
+    "depth18_few_trees": lambda: (
+        train_forest(3, 18, 10, rows=2048, seed=47),
+        synthetic.generate_data(40, 10, missing_prob=0.05, seed=48), None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BLOCK_CASES))
+def test_block_walk_matches_plain_and_jax(name):
+    """The slot walk (the sparse kernel's arithmetic in torch) reaches the
+    plain descent's leaf in every (row, tree), reading ceil(depth / b) + 1
+    slots (b = SPARSE_LEVELS), so its margins are the plain version's bit for
+    bit; the predictions are within JAX_ATOL of the JAX engine in interpret
+    mode."""
+    forest, data, band = BLOCK_CASES[name]()
+    eng = SparseRankEngine(_port(forest), device=CPU, band=band)
+    t = eng.tables
+    T = t.roots.shape[0]
+    planes = eng.transform(data)
+    slots, start, steps = sparse_blocks(t.records.numpy(), t.roots.numpy())
+    assert torch.equal(torch.as_tensor(slots), t.slots) and steps == t.steps
+    leaves, reads = sparse_block_walk(planes, t.slots, T, t.steps)
+    want = sparse_leaves_plain(planes, t.records, t.roots, t.max_depth)
+    assert torch.equal(torch.as_tensor(start)[leaves], want)
+    depth = record_depths(t.records, t.max_depth)
+    assert torch.equal(reads, -(-depth[want] // SPARSE_LEVELS) + 1)
+    value = t.slots[:, 0].contiguous().view(torch.float32)
+    walked = value[leaves].double().sum(dim=1).float()
+    assert torch.equal(walked, sparse_margins_plain(planes, t.records, t.roots,
+                                                    t.max_depth))
+    got = apply_output_transform(walked, eng.num_trees, eng.output,
+                                 eng.global_bias, eng.threshold).numpy()
+    np.testing.assert_allclose(got, oracle.predict(forest, data),
+                               atol=ORACLE_ATOL, rtol=0)
+    if name == "all_leaf":  # no internal node: the JAX pool is empty
+        assert t.steps == 1 and (t.slots[:, -1] == LEAF_BASE).all()
+        return
+    jeng = JaxSparseRankEngine(forest, interpret=True, row_tile=8, band=band)
+    np.testing.assert_allclose(got, np.asarray(jeng.predict(data)),
+                               atol=JAX_ATOL, rtol=0)
+    leaf_depths = depth[t.records[:, 2] < 0]
+    if name == "leaves_every_depth":
+        assert set((leaf_depths % 3).tolist()) == {0, 1, 2}
+        assert set((leaf_depths % 2).tolist()) == {0, 1}
+        assert bool((t.slots == PASS_WORD).any())
+    if name == "single_node_tree":
+        assert int(t.slots[1, -1]) == LEAF_BASE
+    if name == "depth18_few_trees":
+        assert t.max_depth >= 16
+        assert t.steps == -(-t.max_depth // SPARSE_LEVELS) + 1
+
+
+@pytest.mark.parametrize("levels", [2, 3])
+def test_sparse_blocks_layout(levels):
+    """Slot t is tree t's root; a leaf slot holds its value and LEAF_BASE; a
+    block's first word is its node's record; the blocks' children tile the
+    slots after the roots in order, each block's in its exits' order."""
+    forest = _hot(synthetic.generate_forest(15, 7, 9, leaf_prob=0.25, seed=49))
+    t = sparse_tables(_port(forest), device=CPU)
+    records, roots = t.records.numpy(), t.roots.numpy()
+    slots, start, steps = sparse_blocks(records, roots, levels)
+    W = 1 << levels
+    assert slots.shape == (start.size, W) and slots.dtype == np.int32
+    np.testing.assert_array_equal(start[:roots.size], roots)
+    leaf = slots[:, W - 1] == LEAF_BASE
+    np.testing.assert_array_equal(leaf, records[start, 2] < 0)
+    np.testing.assert_array_equal(slots[leaf, 0], records[start[leaf], 3])
+    blocks = np.flatnonzero(~leaf)
+    top = records[start[blocks]]
+    np.testing.assert_array_equal(slots[blocks, 0], pack_records(top[:, 1], top[:, 0]))
+    base = slots[blocks, W - 1] >> W
+    count = np.array([bin(m).count("1") for m in slots[blocks, W - 1] & ((1 << W) - 1)])
+    assert base[0] == roots.size and (base[1:] == base[:-1] + count[:-1]).all()
+    assert base[-1] + count[-1] == slots.shape[0]
+    # the pass-through word decodes to lane 0 and a k below any planes' sum
+    assert PASS_WORD & 0xFFF == 0 and (PASS_WORD >> 12) < -(127 * 128 + 128)
+    assert bool((slots[blocks, :W - 1] == PASS_WORD).any())
+    with pytest.raises(ValueError):
+        sparse_blocks(records, roots, 4)
