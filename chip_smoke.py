@@ -14,29 +14,33 @@ Phases, each of which exits non-zero when it fails:
    whose call is shorter than the host's time to issue it, by its device
    time (20 calls in a CUDA graph, utils/profiling.cuda_device_ms) here and
    on every path, against torch.searchsorted on the same table in
-   alternating rounds;
+   alternating rounds; kernel C and the deep kernel both on the SUSY-class
+   tables;
 4. the main path through the user's entry points: Forest.from_files on the
-   reference text formats, then SPLIT_FOREST (the deep kernel's dual form,
-   as fold_plan routes depth 8 in 256-row blocks) and RANK_MXU (full predict
-   and plane-resident) on 65,536 rows, each held to the numpy oracle at
-   ORACLE_ATOL; every kernel's launch count over that run must be > 0;
+   reference text formats, then SPLIT_FOREST (on the fold kernel fold_plan
+   picks: kernel C's dual form since its redesign) and RANK_MXU (full
+   predict and plane-resident) on 65,536 rows, each held to the numpy
+   oracle at ORACLE_ATOL; every kernel's launch count over that run must
+   be > 0;
 5. the same at 4,096 rows on a forest with a finite missing sentinel, early
    leaves and AVG|SIGMOID|THRESHOLD output;
 6. wide, the sign form: cup98-class (150 trees, depth 8, 479 columns, 300
-   live) through SPLIT_FOREST from Forest.from_files, on the deep kernel's
-   sign form (16-byte blocks of two levels, ops/fold_kernel.py deep_blocks;
-   two threads a row in 192-row blocks);
-   svhn-class (200 trees, depth 6, 100 features) on kernel C's sign form; on
-   each, both sign-form kernels held to the plain version;
-7. deep: deep15-class (30 trees, depth 15, 16 features) through
-   SPLIT_FOREST on the deep kernel; then kernel C and the deep kernel at
-   deep12-class (100, 12, 28), where both run;
+   live) through SPLIT_FOREST from Forest.from_files, and svhn-class (200
+   trees, depth 6, 100 features), each on fold_plan's kernel (kernel C's
+   sign form), both sign-form kernels held to the plain version on each;
+7. deep: deep15-class (30 trees, depth 15) in the dual (16 features) and
+   the sign form (100 features) through SPLIT_FOREST on the deep kernel,
+   which no tile of kernel C holds; then kernel C and the deep kernel at
+   deep12-class (100, 12, 28), where fold_plan takes the deep kernel;
 8. VMEM_FOREST: stumps-class (800 trees, depth 3, 10 features), the whole
    forest in one shared-memory tile of kernel C, and SPLIT_FOREST, which
    routes it to kernel C's dual form too;
 9. DEPTH_BUCKETED: its rank variant on trained_mix-class (300 trees, depths
    6-12, 26 features; kernel A once, kernel B per bucket) and its fold
-   variant on a mixed-depth forest of 90 columns (kernel C's non-ge form);
+   variant on two mixed-depth forests of 90 columns (the non-ge form; depths
+   5-10 and 9-13), each bucket on the kernel fold_plan picks (kernel C to
+   depth 11, the deep kernel's non-ge instance deeper) and both held to the
+   plain version per bucket;
 10. SPARSE: rf_deep18-class (200 trained trees, depth 18, 24 features),
    which no dense strategy takes, through kernel A and the sparse kernel
    (over its 16-byte slots, ops/sparse_kernel.py sparse_blocks), with the
@@ -58,10 +62,13 @@ Phases, each of which exits non-zero when it fails:
 Phases 6-12 run 65,536 rows each (phase 11's second forest 4,096) against
 the numpy oracle at ORACLE_ATOL,
 with every kernel count set to 0 just before the path and read just after:
-the path must launch exactly its own kernels. Every kernel a path runs is
-held to its plain version on that path's tables and 65,536 rows, and every
-path is timed in us/sample with CUDA events, beside the host's wall time to
-issue one call on an idle card.
+the path must launch exactly the kernels fold_plan (or the strategy) picks.
+Every kernel a path runs is held to its plain version on that path's tables
+and 65,536 rows, and every path is timed in us/sample with CUDA events,
+beside the host's wall time to issue one call on an idle card. Beside
+kernel C's time it prints the shared-memory wavefronts per (warp, tree)
+reckoned from the walks of 2,048 rows (ops/fold_kernel.py fold_wavefronts)
+in its layout and in the two-word layout it replaced.
 
 The line before the last is the kernels' JSON record: each kernel's
 launches on its path, its largest error against its plain version, its
@@ -139,9 +146,10 @@ def main() -> int:
     from tahoe_tpu_torch.ops.bucketed import (
         DepthBucketedFoldEngine, DepthBucketedRankEngine)
     from tahoe_tpu_torch.ops.fold_kernel import (
-        FOLD, FOLD_DEEP, FOLD_DEEP_SIGN, FOLD_NONGE, FOLD_SIGN,
-        FoldKernelEngine, deep_blocks, deep_launch, fold_deep_cuda, fold_launch,
-        fold_margins_cuda, fold_margins_plain)
+        DEEP_KERNELS, FOLD, FOLD_DEEP, FOLD_DEEP_NONGE, FOLD_DEEP_SIGN,
+        FOLD_KERNELS, FOLD_NONGE, FOLD_SIGN, FoldKernelEngine, deep_blocks,
+        deep_launch, fold_c_table, fold_deep_cuda, fold_launch, fold_margins_cuda,
+        fold_margins_plain, fold_wavefronts)
     from tahoe_tpu_torch.ops.probes import (
         PROBE_INT8, PROBE_OVERHEAD, PROBE_RANK_PARTS)
     from tahoe_tpu_torch.ops.rank_kernel import (
@@ -157,12 +165,14 @@ def main() -> int:
     from tahoe_tpu_torch.utils.profiling import cuda_device_ms, cuda_median_ms
 
     dev = torch.device("cuda", 0)
-    # the main path's kernels: SPLIT_FOREST on the SUSY-class forest takes
-    # the deep kernel's dual form (fold_plan), RANK_MXU kernels A and B
-    kernels = {"rank_transform": RANK_PLANES, "rank_fold": RANK_FOLD,
-               "fold_deep": FOLD_DEEP}
-    all_kernels = {**kernels, "fold": FOLD, "fold_sign": FOLD_SIGN,
-                   "fold_nonge": FOLD_NONGE, "fold_deep_sign": FOLD_DEEP_SIGN,
+    # the main path's kernels: RANK_MXU's kernels A and B, and the fold
+    # kernel fold_plan picks for SPLIT_FOREST on the SUSY-class forest
+    # (phase 3 adds it)
+    kernels = {"rank_transform": RANK_PLANES, "rank_fold": RANK_FOLD}
+    all_kernels = {**kernels, "fold_deep": FOLD_DEEP, "fold": FOLD,
+                   "fold_sign": FOLD_SIGN, "fold_nonge": FOLD_NONGE,
+                   "fold_deep_sign": FOLD_DEEP_SIGN,
+                   "fold_deep_nonge": FOLD_DEEP_NONGE,
                    "sparse_rank": SPARSE_RANK, "rank_fused": RANK_FUSED,
                    "probe_int8": PROBE_INT8, "probe_overhead": PROBE_OVERHEAD,
                    "probe_rank_parts": PROBE_RANK_PARTS}
@@ -234,11 +244,22 @@ def main() -> int:
 
     def fold_cost(x, t, *tables):
         """A compare per visited node (D a (row, tree) on the leveled
-        forest) and an add per leaf."""
+        forest) and an add per leaf; the bytes of the rows, the tables the
+        kernel reads (the deep kernel's blocks and leaves, kernel C's
+        table) and the margins."""
         rows, trees = x.shape[0], t.leaf.shape[0]
-        return bound(nbytes(x, *(tables or (t.thresholds, t.fids)), t.leaf)
+        return bound(nbytes(x, *(tables or (t.thresholds, t.fids, t.leaf)))
                      + 4 * rows,
                      (rows * trees * (t.depth + 1), SCALAR_OPS_PER_S))
+
+    def wavefronts(x, t, launch):
+        """Kernel C's shared-memory wavefronts per (warp, tree), reckoned
+        from the walks of the first 2,048 rows: this layout (16-byte node
+        blocks) and the two-word layout it replaced (a threshold and a code
+        load a level), both with rows at an odd stride."""
+        w = fold_wavefronts(x[:2048], t, launch.rows_per_block)["total_per_warp_tree"]
+        return (f"{w['row_major_blocks']:.3f} wavefronts per (warp, tree) "
+                f"(two words a node: {w['row_major_words']:.3f})")
 
     rank = RankFoldEngine(forest, device=dev)
     rt = rank.tables
@@ -283,36 +304,45 @@ def main() -> int:
                        warmup=1, iters=5),
         *rank_b_cost(a_p, rt.records, rt.leaf, rt.depth), None)]
 
-    # SPLIT_FOREST's route takes the deep kernel here; kernel C, the faster
-    # before the deep kernel read blocks, is held on the same tables
+    # SPLIT_FOREST on the main path takes the fold kernel fold_plan picks;
+    # the other one is held on the same tables
     fold = FoldKernelEngine(forest, device=dev)
-    if fold.kernel is not FOLD_DEEP:
-        fail(f"[3] SUSY-class SPLIT_FOREST runs {fold.kernel.symbol}, not the "
-             f"deep kernel")
+    fold_name = next(n for n, k in all_kernels.items() if k is fold.kernel)
+    if fold_name not in ("fold", "fold_deep"):
+        fail(f"[3] SUSY-class SPLIT_FOREST runs {fold.kernel.symbol}, not a "
+             f"dual-form fold kernel")
+    kernels[fold_name] = fold.kernel
     ft = fold.tables
     x2 = fold.canonicalize(data)
-    c_launch = fold_launch(ft.width, ft.depth, fold.num_trees,
-                           GpuLimits.for_device(dev))
+    limits = GpuLimits.for_device(dev)
+    c_launch = (fold.launch if fold.c_table is not None
+                else fold_launch(ft.width, ft.depth, fold.num_trees, limits))
+    c_table = fold.c_table if fold.c_table is not None else fold_c_table(ft)
+    d_launch = (fold.launch if fold.blocks is not None
+                else deep_launch(ft.width, limits))
+    blocks = fold.blocks if fold.blocks is not None else deep_blocks(ft)
     c_p = fold_margins_plain(x2, ft)
     p_ms = cuda_median_ms(lambda: fold_margins_plain(x2, ft), warmup=1, iters=5)
     for name, fn, tables in (
-            ("fold_deep", lambda: fold_deep_cuda(x2, ft, fold.blocks, fold.launch),
-             (fold.blocks,)),
-            ("fold", lambda: fold_margins_cuda(x2, ft, c_launch), ())):
+            ("fold_deep", lambda: fold_deep_cuda(x2, ft, blocks, d_launch),
+             (blocks, ft.leaf)),
+            ("fold", lambda: fold_margins_cuda(x2, ft, c_table, c_launch),
+             (c_table,))):
         c_k = fn()
         c_err = float((c_k - c_p).abs().max())
         if not (torch.isfinite(c_k).all() and c_err <= KERNEL_ATOL):
             fail(f"{name} kernel differs from its plain version by {c_err}")
         record[name] = [("3", c_err, cuda_median_ms(fn), p_ms,
                          *fold_cost(x2, ft, *tables), None)]
-    print(f"[3] deep kernel {fold.launch}, kernel C {c_launch}")
+    print(f"[3] SPLIT_FOREST takes {fold.kernel.symbol}; deep kernel {d_launch}, "
+          f"kernel C {c_launch}")
     tolerance = {"rank_transform": 0, "rank_fold": KERNEL_ATOL, "fold": KERNEL_ATOL,
                  "fold_deep": KERNEL_ATOL}
     for name, [(_, err, ms, plain_ms, b_ms, b_by, lib_ms)] in record.items():
         print(f"[3] {name}: max |kernel - plain| {err} (tolerance "
               f"{tolerance[name]}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), library {lib_ms} ms ({card})")
-    del a_k, a_p, b_k, b_p, c_k, c_p, x, xt, x2, rank, fold
+    del a_k, a_p, b_k, b_p, c_k, c_p, x, xt, x2, rank, fold, c_table, blocks
 
     # -- 4. main path through the facade ------------------------------------
     def drive(spec, rows_np, missing, tag, timed, **out_kw):
@@ -420,11 +450,12 @@ def main() -> int:
         return statistics.median(times)
 
     def hold(tag, kernel_fns, plain_fn, costs, atol=KERNEL_ATOL,
-             timer=cuda_median_ms):
+             timer=cuda_median_ms, notes=None):
         """Kernels against their plain version on the same inputs, the plain
         output computed once; each kernel's check (its error and time by
         ``timer``, the plain version's, and its bound from ``costs``) joins
-        the kernel's record. No library call computes these functions."""
+        the kernel's record, printed with its ``notes``. No library call
+        computes these functions."""
         p_out = plain_fn()
         plain_ms = cuda_median_ms(plain_fn, warmup=1, iters=3)
         for name, fn in kernel_fns.items():
@@ -437,9 +468,10 @@ def main() -> int:
             b_ms, b_by = costs[name]
             record.setdefault(name, []).append(
                 (tag, err, ms, plain_ms, b_ms, b_by, None))
+            note = f"; {notes[name]}" if notes and name in notes else ""
             print(f"[{tag}] {name}: max |kernel - plain| {err} (tolerance "
                   f"{atol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by}) ({card})")
+                  f"bound {b_ms:.4f} ms ({b_by}){note} ({card})")
 
     def descent_reads(st, planes):
         """What a descent reads per (row, tree), [R, T] each: the records of
@@ -458,9 +490,44 @@ def main() -> int:
         steps = padded.view(-1, 32, padded.shape[1] // trees, trees).amax(dim=(1, 3))
         return float(reads.sum()) / float(steps.sum() * 32 * trees)
 
-    limits = GpuLimits.for_device(dev)
+    def claim(names, counts):
+        """The first path that launches a kernel gives its launches, and its
+        check on that path (the kernel's last) goes first in its record."""
+        for n in names:
+            if n not in launches:
+                launches[n] = counts[n]
+                record[n].insert(0, record[n].pop())
 
-    # 6. the sign form: cup98-class on the deep kernel, svhn-class on kernel C
+    def name_of(kernel):
+        return next(n for n, k in all_kernels.items() if k is kernel)
+
+    def both_folds(tag, eng, x, note=True):
+        """Kernel C and the deep kernel in the tables' form, each in the block
+        fold_plan gives it where it takes the forest, else in its own, held
+        to the plain version; their names, C's first."""
+        t = eng.tables
+        c_launch = (eng.launch if eng.c_table is not None else fold_launch(
+            t.width, t.depth, eng.num_trees, limits))
+        d_launch = (eng.launch if eng.blocks is not None
+                    else deep_launch(t.width, limits))
+        blocks = eng.blocks if eng.blocks is not None else deep_blocks(t)
+        c_name, d_name = name_of(FOLD_KERNELS[t.form]), name_of(DEEP_KERNELS[t.form])
+        fns = {d_name: lambda: fold_deep_cuda(x, t, blocks, d_launch)}
+        costs = {d_name: fold_cost(x, t, blocks, t.leaf)}
+        notes = {}
+        print(f"[{tag}] {eng.num_trees} trees, depth {t.depth}, {t.num_cols} live "
+              f"features ({t.form}): kernel C {c_launch}, deep kernel {d_launch}; "
+              f"the route takes {eng.kernel.symbol}")
+        if c_launch is not None:
+            table = eng.c_table if eng.c_table is not None else fold_c_table(t)
+            fns = {c_name: lambda: fold_margins_cuda(x, t, table, c_launch), **fns}
+            costs[c_name] = fold_cost(x, t, table)
+            if note:
+                notes[c_name] = wavefronts(x, t, c_launch)
+        hold(tag, fns, lambda: fold_margins_plain(x, t), costs, notes=notes)
+
+    # 6. the sign form: cup98-class and svhn-class, each on fold_plan's
+    # kernel, both kernels held to the plain version
     wide = synthetic.generate_forest(150, 8, 479, active_cols=300, seed=1)
     wide_rows = synthetic.generate_data(ROWS, 479, missing_prob=0.02, seed=4)
     with tempfile.TemporaryDirectory() as tmp:
@@ -476,64 +543,40 @@ def main() -> int:
         fail("[6] the data file does not round-trip")
     shallow = synthetic.generate_forest(200, 6, 100, seed=1)
     shallow_rows = synthetic.generate_data(ROWS, 100, missing_prob=0.02, seed=10)
-    for f, rows_np, kernel, other in (
-            (f, wide_rows, FOLD_DEEP_SIGN, "fold_sign"),
-            (Forest(shallow, device="cuda"), shallow_rows, FOLD_SIGN,
-             "fold_deep_sign")):
+    for f, rows_np in ((f, wide_rows),
+                       (Forest(shallow, device="cuda"), shallow_rows)):
         eng = f.engine(Strategy.SPLIT_FOREST)
-        if eng.kernel is not kernel:
-            fail(f"[6] {f.spec.num_trees} trees of depth {f.spec.depth} run "
-                 f"{eng.kernel.symbol}, not {kernel.symbol}")
-        t, x = eng.tables, eng.canonicalize(torch.as_tensor(rows_np, device=dev))
-        c_launch = fold_launch(t.width, t.depth, f.spec.num_trees, limits)
-        d_launch = deep_launch(t.width, limits)
-        blocks = deep_blocks(t)
-        print(f"[6] {f.spec.num_trees} trees, depth {t.depth}, {t.num_cols} live "
-              f"features: kernel C {c_launch}, deep kernel {d_launch}")
-        hold("6", {
-            "fold_sign": lambda: fold_margins_cuda(x, t, c_launch),
-            "fold_deep_sign": lambda: fold_deep_cuda(x, t, blocks, d_launch),
-        }, lambda: fold_margins_plain(x, t),
-            {"fold_sign": fold_cost(x, t), "fold_deep_sign": fold_cost(x, t, blocks)})
-        own = next(n for n, k in all_kernels.items() if k is kernel)
-        counts = run_path("6", f, Strategy.SPLIT_FOREST, rows_np,
-                          f.predict_oracle(rows_np), {own})
-        launches[own] = counts[own]
-        # the path's own kernel first in its record: its time is the path's
-        record[own].insert(0, record[own].pop())
-        del f, eng, x, blocks
+        if eng.form != "sign":
+            fail(f"[6] {f.spec.num_trees} trees take the {eng.form} form, not sign")
+        x = eng.canonicalize(torch.as_tensor(rows_np, device=dev))
+        both_folds("6", eng, x)
+        own = name_of(eng.kernel)
+        claim([own], run_path("6", f, Strategy.SPLIT_FOREST, rows_np,
+                              f.predict_oracle(rows_np), {own}))
+        del f, eng, x
 
-    # 7. deep15-class on the deep kernel; kernel C against it at depth 12
-    deep = synthetic.generate_forest(30, 15, 16, seed=1)
-    deep_rows = synthetic.generate_data(ROWS, 16, missing_prob=0.02, seed=5)
-    f = Forest(deep, device="cuda")
-    eng = f.engine(Strategy.SPLIT_FOREST)
-    if eng.kernel is not FOLD_DEEP:
-        fail(f"[7] deep15-class runs {eng.kernel.symbol}, not the deep kernel")
-    t, x = eng.tables, eng.canonicalize(torch.as_tensor(deep_rows, device=dev))
-    print(f"[7] {eng.launch}")
-    hold("7", {"fold_deep": lambda: fold_deep_cuda(x, t, eng.blocks, eng.launch)},
-         lambda: fold_margins_plain(x, t), {"fold_deep": fold_cost(x, t, eng.blocks)})
-    # the deep kernel's launches and time stay the main path's (phases 3-4)
-    run_path("7", f, Strategy.SPLIT_FOREST, deep_rows, f.predict_oracle(deep_rows),
-             {"fold_deep"})
-    del f, eng, x
+    # 7. deep15-class in the dual and the sign form, which no tile of kernel
+    # C holds, on the deep kernel; both kernels at deep12-class
+    for cols, seed in ((16, 5), (100, 14)):
+        deep = synthetic.generate_forest(30, 15, cols, seed=1)
+        deep_rows = synthetic.generate_data(ROWS, cols, missing_prob=0.02, seed=seed)
+        f = Forest(deep, device="cuda")
+        eng = f.engine(Strategy.SPLIT_FOREST)
+        if eng.blocks is None:
+            fail(f"[7] deep15-class runs {eng.kernel.symbol}, not the deep kernel")
+        x = eng.canonicalize(torch.as_tensor(deep_rows, device=dev))
+        both_folds("7", eng, x)
+        own = name_of(eng.kernel)
+        claim([own], run_path("7", f, Strategy.SPLIT_FOREST, deep_rows,
+                              f.predict_oracle(deep_rows), {own}))
+        del f, eng, x
 
     d12 = FoldKernelEngine(synthetic.generate_forest(100, 12, 28, seed=1),
                            device=dev)
-    t = d12.tables
     x = d12.canonicalize(torch.as_tensor(
         synthetic.generate_data(ROWS, 28, missing_prob=0.01, seed=6), device=dev))
-    c_launch = fold_launch(t.width, t.depth, d12.num_trees, limits)
-    print(f"[7] deep12-class: kernel C {c_launch}, deep kernel "
-          f"{deep_launch(t.width, limits)}; the route takes {d12.launch}")
-    d_launch = deep_launch(t.width, limits)
-    blocks = deep_blocks(t)
-    hold("7", {"fold": lambda: fold_margins_cuda(x, t, c_launch),
-               "fold_deep": lambda: fold_deep_cuda(x, t, blocks, d_launch)},
-         lambda: fold_margins_plain(x, t),
-         {"fold": fold_cost(x, t), "fold_deep": fold_cost(x, t, blocks)})
-    del d12, x, blocks
+    both_folds("7", d12, x, note=False)
+    del d12, x
 
     # 8. VMEM_FOREST, stumps-class: the whole forest in one tile
     stumps = synthetic.generate_forest(800, 3, 10, seed=1)
@@ -543,16 +586,13 @@ def main() -> int:
     if eng.kernel is not FOLD or eng.launch.tile_trees != 800:
         fail(f"[8] VMEM_FOREST runs {eng.kernel.symbol} with {eng.launch}")
     print(f"[8] {eng.launch}; SPLIT_FOREST {f.engine(Strategy.SPLIT_FOREST).launch}")
-    t, x = eng.tables, eng.canonicalize(torch.as_tensor(stump_rows, device=dev))
-    hold("8", {"fold": lambda: fold_margins_cuda(x, t, eng.launch)},
-         lambda: fold_margins_plain(x, t), {"fold": fold_cost(x, t)})
+    x = eng.canonicalize(torch.as_tensor(stump_rows, device=dev))
+    both_folds("8", eng, x)
     want = f.predict_oracle(stump_rows)
     run_path("8", f, Strategy.VMEM_FOREST, stump_rows, want, {"fold"})
-    counts = run_path("8", f, Strategy.SPLIT_FOREST, stump_rows, want, {"fold"})
-    launches["fold"] = counts["fold"]
-    # kernel C's own path since SUSY-class moved to the deep kernel: its
-    # time and bound are this check's
-    record["fold"].insert(0, record["fold"].pop())
+    split = name_of(f.engine(Strategy.SPLIT_FOREST).kernel)
+    claim(["fold"], run_path("8", f, Strategy.SPLIT_FOREST, stump_rows, want,
+                             {split}))
     del f, eng, x
 
     # 9. DEPTH_BUCKETED: rank variant, then the fold variant in non-ge form
@@ -587,26 +627,47 @@ def main() -> int:
              {"rank_transform", "rank_fold"})
     del f, eng, x, planes
 
-    mix90 = synthetic.generate_mixed_depth_forest(120, 10, 90, seed=1)
-    mix90_rows = synthetic.generate_data(ROWS, 90, missing_prob=0.02, seed=9)
-    f = Forest(mix90, device="cuda")
-    eng = f.engine(Strategy.DEPTH_BUCKETED)
-    if not (isinstance(eng, DepthBucketedFoldEngine)
-            and all(e.kernel is FOLD_NONGE for e in eng.sub)):
-        fail(f"[9] the 90-column forest takes {type(eng).__name__}, not the "
-             f"non-ge fold variant")
-    print(f"[9] fold variant buckets (trees, depth): {eng.bucket_plan}, "
-          f"launches {[e.launch for e in eng.sub]}")
-    x = eng.sub[0].canonicalize(torch.as_tensor(mix90_rows, device=dev))
-    for e in eng.sub:
-        hold("9", {"fold_nonge": lambda e=e: fold_margins_cuda(x, e.tables,
-                                                               e.launch)},
-             lambda e=e: fold_margins_plain(x, e.tables),
-             {"fold_nonge": fold_cost(x, e.tables)})
-    counts = run_path("9", f, Strategy.DEPTH_BUCKETED, mix90_rows,
-                      f.predict_oracle(mix90_rows), {"fold_nonge"})
-    launches["fold_nonge"] = counts["fold_nonge"]
-    del f, eng, x
+    # the fold variant on mixed-depth forests of 90 columns (the non-ge
+    # form), each bucket on the kernel fold_plan picks; the deeper forest's
+    # deepest buckets take the deep kernel
+    def nonge_path(forest, rows_np):
+        f = Forest(forest, device="cuda")
+        eng = f.engine(Strategy.DEPTH_BUCKETED)
+        if not (isinstance(eng, DepthBucketedFoldEngine)
+                and all(e.form == "nonge" for e in eng.sub)):
+            fail(f"[9] the 90-column forest takes {type(eng).__name__}, not the "
+                 f"non-ge fold variant")
+        picked = {n for n, k in all_kernels.items()
+                  if any(e.kernel is k for e in eng.sub)}
+        print(f"[9] fold variant buckets (trees, depth): {eng.bucket_plan}, "
+              f"kernels {[e.kernel.symbol for e in eng.sub]}, launches "
+              f"{[e.launch for e in eng.sub]}")
+        x = eng.sub[0].canonicalize(torch.as_tensor(rows_np, device=dev))
+        held = {n: len(record.get(n, [])) for n in ("fold_nonge", "fold_deep_nonge")}
+        own = {n: [] for n in held}
+        for e in eng.sub:
+            both_folds("9", e, x)
+            for n in held:
+                own[n].append(e.kernel is all_kernels[n])
+        # the buckets are timed one at a time: one check sums those the
+        # kernel takes on this path (every one it was held on, if none)
+        for n, before in held.items():
+            checks = record[n][before:]
+            if not checks:  # no tile of kernel C holds a bucket's tree
+                continue
+            del record[n][before:]
+            if len(checks) == len(own[n]) and any(own[n]):
+                checks = [c for c, o in zip(checks, own[n]) if o]
+            record[n].append(("9", max(c[1] for c in checks), sum(c[2] for c in checks),
+                              sum(c[3] for c in checks), sum(c[4] for c in checks),
+                              max(checks, key=lambda c: c[4])[5], None))
+        claim(picked, run_path("9", f, Strategy.DEPTH_BUCKETED, rows_np,
+                               f.predict_oracle(rows_np), picked))
+
+    nonge_path(synthetic.generate_mixed_depth_forest(120, 10, 90, seed=1),
+               synthetic.generate_data(ROWS, 90, missing_prob=0.02, seed=9))
+    nonge_path(synthetic.generate_mixed_depth_forest(60, 13, 90, seed=2),
+               synthetic.generate_data(ROWS, 90, missing_prob=0.02, seed=13))
 
     # 10. SPARSE: rf_deep18-class (scripts/run_sweep.py rf_deep18_like),
     # then the gather tier past the rank planes
@@ -800,12 +861,6 @@ def main() -> int:
           f"{parts['rank_fused_ms']:.4f} ms ({card})")
     del rt, unfused
 
-    # the non-ge buckets are timed one at a time: the record sums them
-    nonge = record.pop("fold_nonge")
-    widest = max(nonge, key=lambda c: c[4])
-    record["fold_nonge"] = [("9", max(c[1] for c in nonge),
-                             sum(c[2] for c in nonge), sum(c[3] for c in nonge),
-                             sum(c[4] for c in nonge), widest[5], None)]
     for name, checks in record.items():
         print(f"[record] {name}: " + "; ".join(
             f"phase {tag} |err| {err} kernel {ms:.4f} ms plain {p:.4f} ms "

@@ -46,33 +46,125 @@ static inline cudaError_t tahoe_grant_smem(Kernel* kernel, size_t bytes) {
     return tahoe_grant_smem_fn(reinterpret_cast<const void*>(kernel), bytes);
 }
 
-// Kernel C (fold.cu) descends this many trees together to overlap its load
-// chains (ops/fold_kernel.py TREES_IN_FLIGHT).
+// The fused kernel (rank_fused.cu) and the probes (probes.cu) descend this
+// many trees together to overlap their load chains.
 constexpr int kTreesInFlight = 4;
 
-// The fold's node forms (ops/fold_kernel.py module docstring).
+// The fold's node forms (ops/fold_kernel.py module docstring), as the
+// kernels read them from a block's 10-bit code field (ops/fold_kernel.py
+// block_codes): the dual and sign forms' codes as they are, the non-ge
+// form's feature in bits 0-6, sel_lt in bit 7 and flip in bit 8.
 enum NodeForm { kDual, kSign, kNonGe };
-constexpr int kNonGeSelLt = 1 << 29;  // ops/fold_kernel.py NONGE_SEL_LT
-constexpr int kNonGeFlip = 1 << 30;   // NONGE_FLIP
-constexpr int kNonGeFid = kNonGeSelLt - 1;
+constexpr int kCodeBits = 10;                 // ops/fold_kernel.py DEEP_CODE_BITS
+constexpr int kBlockNonGeSelLt = 1 << 7;      // BLOCK_NONGE_SEL_LT
+constexpr int kBlockNonGeFlip = 1 << 8;       // BLOCK_NONGE_FLIP
+constexpr int kBlockNonGeFid = kBlockNonGeSelLt - 1;
 
-// The branch condition of one node of a row ``xr`` in the form's encoding:
-//   dual   x2[code] >= t                            (rows as [x, -x] lanes)
-//   sign   (code < 0 ? -x[~code] : x[code]) >= t    (rows at width F)
-//   non-ge (sel_lt ? x[f] < t : x[f] >= t) XOR flip
+// Node n (0: the block's top, 1 and 2: its cond-False and cond-True
+// children) of a block's code word, sign-extended.
+static __device__ __forceinline__ int tahoe_block_code(int word, int n) {
+    return (word << (32 - kCodeBits * (n + 1))) >> (32 - kCodeBits);
+}
+
+// Blocks of one tree of depth D (ops/fold_kernel.py deep_block_count): a
+// group of two levels from level d has 2^d of them; at odd D the root group
+// is one level.
+static __host__ __device__ __forceinline__ int tahoe_block_count(int D) {
+    int total = 0;
+    for (int d = D & 1 ? -1 : 0; d < D; d += 2) total += 1 << (d < 0 ? 0 : d);
+    return total;
+}
+
+// The row feature (or [x, -x] lane) a node code reads.
+template <int Form>
+static __device__ __forceinline__ int tahoe_node_feature(int code) {
+    if constexpr (Form == kDual) return code;
+    else if constexpr (Form == kSign) return code < 0 ? ~code : code;
+    else return code & kBlockNonGeFid;
+}
+
+// The branch condition of a node on the value ``v`` of its feature:
+//   dual   v >= t                                   (rows as [x, -x] lanes)
+//   sign   (code < 0 ? -v : v) >= t                 (rows at width F)
+//   non-ge (sel_lt ? v < t : v >= t) XOR flip
 // A NaN on either side compares False, and -NaN stays NaN.
+template <int Form>
+static __device__ __forceinline__ bool tahoe_node_test(float v, int code, float t) {
+    if constexpr (Form == kDual) {
+        return v >= t;
+    } else if constexpr (Form == kSign) {
+        return (code < 0 ? -v : v) >= t;
+    } else {
+        const bool c = (code & kBlockNonGeSelLt) ? (v < t) : (v >= t);
+        return c != ((code & kBlockNonGeFlip) != 0);
+    }
+}
+
+// The branch condition of one node of a row ``xr`` staged row-major.
 template <int Form>
 static __device__ __forceinline__ bool tahoe_node_cond(const float* xr, int code,
                                                        float t) {
-    if constexpr (Form == kDual) {
-        return xr[code] >= t;
-    } else if constexpr (Form == kSign) {
-        const float v = xr[code < 0 ? ~code : code];
-        return (code < 0 ? -v : v) >= t;
-    } else {
-        const float v = xr[code & kNonGeFid];
-        const bool c = (code & kNonGeSelLt) ? (v < t) : (v >= t);
-        return c != ((code & kNonGeFlip) != 0);
+    return tahoe_node_test<Form>(xr[tahoe_node_feature<Form>(code)], code, t);
+}
+
+// Hopper's bulk copies (TMA without a tensor map) into shared memory, their
+// completion counted on an mbarrier; every address and size a multiple of
+// 16 bytes.
+static __device__ __forceinline__ uint32_t tahoe_smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+static __device__ __forceinline__ void tahoe_mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(tahoe_smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Makes the initialised mbarriers visible to the async proxy; a
+// __syncthreads() then makes them visible to the block.
+static __device__ __forceinline__ void tahoe_mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One arrival that also expects ``bytes`` of bulk copies in this phase.
+static __device__ __forceinline__ void tahoe_mbar_expect_tx(uint64_t* bar,
+                                                            uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(tahoe_smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+static __device__ __forceinline__ void tahoe_bulk_copy(void* dst, const void* src,
+                                                       uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"(tahoe_smem_addr(dst)), "l"(src), "r"(bytes),
+           "r"(tahoe_smem_addr(bar)) : "memory");
+}
+
+// A 4-byte copy from global to shared memory that no register waits on
+// (Ampere's cp.async): a thread issues all of its copies, then waits once.
+static __device__ __forceinline__ void tahoe_cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(tahoe_smem_addr(dst)), "l"(src) : "memory");
+}
+
+// Waits for all of this thread's cp.async copies.
+static __device__ __forceinline__ void tahoe_cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Waits until the phase of ``bar`` with this parity has completed. A copy
+// that never lands traps after ~2^26 tries (seconds), so that a fault ends
+// the launch with an error instead of hanging the card.
+static __device__ __forceinline__ void tahoe_mbar_wait(uint64_t* bar, int parity) {
+    uint32_t done = 0;
+    for (uint32_t tries = 0; !done; ++tries) {
+        if (tries == (1u << 26)) __trap();
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(tahoe_smem_addr(bar)), "r"(parity) : "memory");
     }
 }
 

@@ -16,187 +16,307 @@
 // so this file is never built with fast-math or flush-to-zero.
 //
 // The TPU kernel folds every node bottom-up (no per-lane gather); this one
-// descends: node j of level d has its children at j and j + 2^d of level
-// d+1, so the walk is j += cond << d and the final j indexes the leaf table.
+// descends, one thread a row, each thread kTrees trees together. What bounds
+// it on the H100 (PERF.md section 6, scripts/kernel_ab.py c): the issue of
+// its per-level instructions and the latency of its dependent shared loads,
+// and, where one block fills an SM, the staging of its rows; not the bank
+// conflicts of its gathers (ops/fold_kernel.py fold_wavefronts counts them).
+// So:
+// - a tree's nodes are the deep kernel's 16-byte blocks of two levels (three
+//   thresholds and one word of three 10-bit codes, ops/fold_kernel.py
+//   deep_blocks): one ld.shared.v4 per two levels, where two 4-byte loads a
+//   level were; the next block follows by arithmetic, the last path is the
+//   leaf index. A one-level root group is peeled off, so that no branch
+//   separates the trees' steps; where one block fills an SM, a __syncwarp()
+//   after each group's block loads keeps ptxas from sinking them one by one
+//   to their first use;
+// - the block's rows are staged at an odd stride (conflict-free while a
+//   warp reads one feature) by cp.async, every copy of a thread issued
+//   before it waits: the whole block's rows are in flight at once;
+// - tiles of whole trees (ops/fold_kernel.py fold_c_table: each tree's
+//   blocks, then its leaves, so a tile is one contiguous span) arrive by one
+//   bulk copy (TMA, counted on an mbarrier) each, into a ring of two buffers:
+//   tile t + 1 arrives while tile t descends. A forest that fits one tile
+//   takes one buffer and one copy, issued before the rows are staged;
+// - a tile with fewer trees than the slots in flight descends only its own
+//   trees (groups of kTrees / 2, ..., 1 after the full ones).
+// Leaf values are summed in double in tree order, one pass, no atomics: the
+// margins are the same on every run, round once to f32, and equal those of
+// the earlier kernel C, which read two words a node, bit for bit.
 //
-// What bounds it on the H100: the dependent shared-memory loads of the
-// descent (code, then x[f] and t', per level), ~D of them per (row, tree).
-// One thread owns one row; the block stages its rows (odd row stride, so
-// threads reading the same lane hit distinct banks) and then, tile by tile,
-// as many trees' node tables as fit its shared-memory budget, which every
-// row of the block reuses. The sign form stages rows at width F, not 2F, so
-// its blocks hold fewer rows (fold_launch sizes them). Four trees descend
-// together to overlap their load chains. Leaf values are summed in double in
-// tree order, one pass, no atomics: the margins are the same on every run
-// and round once to f32.
-//
-// The dual form keeps its own kernel body, the sign and non-ge forms share a
-// template: compiled from the shared template, the dual form got another
-// instruction schedule and ran 1.4% slower at SUSY shapes (0.3862 -> 0.3915
-// ms on one H100), while this body compiles to the same SASS as before.
+// The build macros below change the trees in flight and the load batching
+// for scripts/kernel_ab.py c, which times such builds beside the shipped one
+// and an earlier source. The layouts that lost to these (feature-major rows,
+// (threshold, code) words a node, a staging loop in place of the ring) are
+// measured in PERF.md section 6.
+#include <climits>
+
 #include "common.cuh"
+
+// trees in flight per thread
+#ifndef TAHOE_FOLD_TREES
+#define TAHOE_FOLD_TREES 8
+#endif
+// A __syncwarp() after each group's block loads makes ptxas issue the
+// kTrees loads together instead of each beside its first use: faster where
+// one block fills an SM (8 warps to hide the loads' latency), slower where
+// two share it (PERF.md section 6). 1: so, by the launch's shared memory;
+// 0: never; 2: always
+#ifndef TAHOE_FOLD_BATCH
+#define TAHOE_FOLD_BATCH 1
+#endif
 
 namespace {
 
-// The dual form (tahoe_fold).
-__global__ void fold_kernel(const float* __restrict__ x2, int rows, int W,
-                            const float* __restrict__ thr,
-                            const int* __restrict__ fid,
-                            const float* __restrict__ leaf, int T, int D,
-                            int tile_trees, float* __restrict__ out) {
-    extern __shared__ float smem[];
+constexpr int kTrees = TAHOE_FOLD_TREES;
+constexpr int kBatchMode = TAHOE_FOLD_BATCH;
+constexpr int kBarrierBytes = 16;  // two mbarriers (C_BARRIER_BYTES)
+// the runtime's shared memory per resident block (config.GpuLimits
+// SMEM_RESERVED_PER_BLOCK)
+constexpr int kReservedSmemPerBlock = 1024;
+
+// One tree's 4-byte words in the table (ops/fold_kernel.py fold_c_table):
+// its blocks, then its leaves padded to a multiple of 4.
+__host__ __device__ __forceinline__ int node_words(int D) {
+    return 4 * tahoe_block_count(D);
+}
+
+__host__ __device__ __forceinline__ int tree_words(int D) {
+    return node_words(D) + ((1 << D) > 4 ? 1 << D : 4);
+}
+
+// Bytes of the tile buffers, one if a tile holds every tree, else two; the
+// rows at an odd stride and the mbarriers follow them (ops/fold_kernel.py
+// fold_smem_bytes).
+__host__ __device__ __forceinline__ long long buffer_bytes(int T, int D, int tile) {
+    return (tile >= T ? 1LL : 2LL) * tile * tree_words(D) * 4;
+}
+
+__host__ __device__ __forceinline__ long long row_bytes(int BR, int W) {
+    return static_cast<long long>(BR) * (W | 1) * 4;
+}
+
+// Field n of a block's code word (common.cuh tahoe_block_code): only the
+// sign form's codes are negative, so the others need no sign extension.
+template <int Form>
+static __device__ __forceinline__ int block_field(int word, int n) {
+    if constexpr (Form == kSign) return tahoe_block_code(word, n);
+    else return (word >> (kCodeBits * n)) & ((1 << kCodeBits) - 1);
+}
+
+// The node's branch condition on this thread's row ``xr`` (common.cuh
+// tahoe_node_test); the sign form negates by the code's sign bit, as -v
+// does, NaN included.
+template <int Form>
+static __device__ __forceinline__ int node_cond(const float* xr, int code, float t) {
+    if constexpr (Form == kSign) {
+        const float v = xr[code ^ (code >> 31)];
+        return __int_as_float(__float_as_int(v) ^ (code & INT_MIN)) >= t;
+    } else {
+        return tahoe_node_test<Form>(xr[tahoe_node_feature<Form>(code)], code, t);
+    }
+}
+
+// Trees tt .. tt + K - 1 of a staged tile (tw words a tree, its leaves nw
+// words in), their leaves added to acc in tree order.
+template <int Form, bool Batch, int K>
+static __device__ __forceinline__ void descend(const int* tile, int tw, int nw,
+                                               int tt, int D, const float* xr,
+                                               double& acc) {
+    int j[K];
+    const int4* tb[K];  // each tree's blocks
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        j[k] = 0;
+        tb[k] = reinterpret_cast<const int4*>(tile + (tt + k) * tw);
+    }
+    int off = 0;  // the group's first block
+    int d = 0;    // the group's first level
+    if (D & 1) {  // a root group of one level: its block's top node only
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int4 b = tb[k][0];
+            j[k] = node_cond<Form>(xr, block_field<Form>(b.w, 0), __int_as_float(b.x));
+        }
+        off = d = 1;
+    }
+    // groups of two levels, with no branch between the trees' steps
+    for (; d < D; off += 1 << d, d += 2) {
+        int4 b[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) b[k] = tb[k][off + j[k]];
+        if constexpr (Batch) __syncwarp();
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const bool c0 = node_cond<Form>(xr, block_field<Form>(b[k].w, 0),
+                                            __int_as_float(b[k].x));
+            const int thr = c0 ? b[k].z : b[k].y;
+            const int word = c0 ? b[k].w >> kCodeBits : b[k].w;
+            const bool c1 = node_cond<Form>(xr, block_field<Form>(word, 1),
+                                            __int_as_float(thr));
+            j[k] += (c0 ? 1 << d : 0) + (c1 ? 2 << d : 0);
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+        acc += static_cast<double>(__int_as_float(tile[(tt + k) * tw + nw + j[k]]));
+}
+
+// The trees tt .. nt - 1 of a tile, fewer than 2K: K at a time, then K / 2,
+// ..., 1, so that no tree descends twice.
+template <int Form, bool Batch, int K>
+static __device__ __forceinline__ void descend_rest(const int* tile, int tw, int nw,
+                                                    int tt, int nt, int D,
+                                                    const float* xr, double& acc) {
+    if (nt - tt >= K) {
+        descend<Form, Batch, K>(tile, tw, nw, tt, D, xr, acc);
+        tt += K;
+    }
+    if constexpr (K > 1)
+        descend_rest<Form, Batch, K / 2>(tile, tw, nw, tt, nt, D, xr, acc);
+}
+
+// Every tree of a tile of nt: kTrees at a time, then the rest.
+template <int Form, bool Batch>
+static __device__ __forceinline__ void descend_tile(const int* tile, int tw, int nw,
+                                                    int nt, int D, const float* xr,
+                                                    double& acc) {
+    int tt = 0;
+    for (; tt + kTrees <= nt; tt += kTrees)
+        descend<Form, Batch, kTrees>(tile, tw, nw, tt, D, xr, acc);
+    descend_rest<Form, Batch, kTrees / 2>(tile, tw, nw, tt, nt, D, xr, acc);
+}
+
+// Tile t of the table into a buffer, by one bulk copy (thread 0).
+static __device__ __forceinline__ void issue_tile(int* dst, const int* table, int tw,
+                                                  int t, int tile_trees, int T,
+                                                  uint64_t* bar) {
+    const int nt = min(tile_trees, T - t * tile_trees);
+    const uint32_t bytes = static_cast<uint32_t>(nt) * tw * 4;
+    tahoe_mbar_expect_tx(bar, bytes);
+    tahoe_bulk_copy(dst, table + static_cast<long long>(t) * tile_trees * tw, bytes,
+                    bar);
+}
+
+template <int Form, bool Batch>
+__global__ void __launch_bounds__(256)
+fold_kernel(const float* __restrict__ x, int rows, int W,
+            const int* __restrict__ table, int T, int D, int tile_trees,
+            float* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem[];
     const int BR = blockDim.x;
-    const int Ws = W | 1;  // odd stride: conflict-free same-lane reads
-    const int N = (1 << D) - 1;
-    const int L = 1 << D;
-    float* xs = smem;                                  // [BR, Ws]
-    float* ts = xs + BR * Ws;                          // [tile, N]
-    int* fs = reinterpret_cast<int*>(ts + tile_trees * N);  // [tile, N]
-    float* ls = reinterpret_cast<float*>(fs + tile_trees * N);  // [tile, L]
+    const int nw = node_words(D);
+    const int tw = tree_words(D);
+    const int nbuf = tile_trees >= T ? 1 : 2;
+    const int ntiles = (T + tile_trees - 1) / tile_trees;
+    int* bufs = reinterpret_cast<int*>(smem);  // [nbuf][tile_trees * tw]
+    float* xs = reinterpret_cast<float*>(smem + buffer_bytes(T, D, tile_trees));
+    uint64_t* full = reinterpret_cast<uint64_t*>(
+        reinterpret_cast<unsigned char*>(xs) + row_bytes(BR, W));
 
     const long long row0 = static_cast<long long>(blockIdx.x) * BR;
     const int nrows = static_cast<int>(min(static_cast<long long>(BR), rows - row0));
-    for (int i = threadIdx.x; i < nrows * W; i += BR)
-        xs[(i / W) * Ws + i % W] = x2[row0 * W + i];
-
-    const int r = threadIdx.x;
-    const float* xr = xs + r * Ws;
-    double acc = 0.0;
-    for (int t0 = 0; t0 < T; t0 += tile_trees) {
-        const int nt = min(tile_trees, T - t0);
-        __syncthreads();  // previous tile fully read
-        for (int i = threadIdx.x; i < nt * N; i += BR) {
-            ts[i] = thr[static_cast<long long>(t0) * N + i];
-            fs[i] = fid[static_cast<long long>(t0) * N + i];
+    const int tid = threadIdx.x;
+    if (tid == 0) {  // the first tiles start while the rows are staged
+        for (int s = 0; s < nbuf; ++s) tahoe_mbar_init(&full[s], 1);
+        tahoe_mbar_init_fence();
+        for (int s = 0; s < nbuf && s < ntiles; ++s)
+            issue_tile(bufs + s * tile_trees * tw, table, tw, s, tile_trees, T,
+                       &full[s]);
+    }
+    {
+        // Element i of the block's rows goes to row i / W, column i % W, at
+        // an odd stride (conflict-free same-lane reads); each thread walks
+        // its elements with no division and issues every copy before it
+        // waits, so the whole block's rows are in flight at once.
+        const int Ws = W | 1;
+        const int dr = BR / W;
+        const int dc = BR - dr * W;
+        int r = tid / W;
+        int c = tid - r * W;
+        const float* src = x + row0 * W + tid;
+        for (int i = tid; i < nrows * W; i += BR) {
+            tahoe_cp_async4(xs + r * Ws + c, src);
+            src += BR;
+            r += dr;
+            c += dc;
+            if (c >= W) {
+                c -= W;
+                ++r;
+            }
         }
-        for (int i = threadIdx.x; i < nt * L; i += BR)
-            ls[i] = leaf[static_cast<long long>(t0) * L + i];
-        __syncthreads();
-        if (r >= nrows) continue;
-        for (int tt = 0; tt < nt; tt += kTreesInFlight) {
-            int j[kTreesInFlight];
-            int base[kTreesInFlight];
-#pragma unroll
-            for (int k = 0; k < kTreesInFlight; ++k) {
-                j[k] = 0;
-                base[k] = min(tt + k, nt - 1) * N;  // tail slots repeat a tree
-            }
-            for (int d = 0; d < D; ++d) {
-                const int off = (1 << d) - 1;
-#pragma unroll
-                for (int k = 0; k < kTreesInFlight; ++k) {
-                    const int n = base[k] + off + j[k];
-                    // tahoe_node_cond<kDual>, written out: through the
-                    // helper ptxas orders this body's loads differently
-                    j[k] += (xr[fs[n]] >= ts[n]) << d;
-                }
-            }
-#pragma unroll
-            for (int k = 0; k < kTreesInFlight; ++k)
-                if (tt + k < nt) acc += static_cast<double>(ls[(tt + k) * L + j[k]]);
+        tahoe_cp_async_wait_all();
+    }
+    __syncthreads();  // rows staged, mbarriers initialised
+
+    // threads past the last row walk its row too, so that whole warps
+    // descend (the __syncwarp above), and write nothing
+    const float* xr = xs + min(tid, nrows - 1) * (W | 1);
+    double acc = 0.0;
+    for (int t = 0; t < ntiles; ++t) {
+        const int nt = min(tile_trees, T - t * tile_trees);
+        const int s = t & (nbuf - 1);
+        int* tile = bufs + s * tile_trees * tw;
+        tahoe_mbar_wait(&full[s], (t / nbuf) & 1);
+        descend_tile<Form, Batch>(tile, tw, nw, nt, D, xr, acc);
+        if (t + nbuf < ntiles) {
+            __syncthreads();  // every thread done with buffer s
+            if (tid == 0) issue_tile(tile, table, tw, t + nbuf, tile_trees, T, &full[s]);
         }
     }
-    if (r < nrows) out[row0 + r] = static_cast<float>(acc);
+    if (tid < nrows) out[row0 + tid] = static_cast<float>(acc);
 }
 
-// The sign and non-ge forms: the dual form's kernel with tahoe_node_cond<F>.
-template <int F>
-__global__ void fold_form_kernel(const float* __restrict__ x, int rows, int W,
-                                 const float* __restrict__ thr,
-                                 const int* __restrict__ fid,
-                                 const float* __restrict__ leaf, int T, int D,
-                                 int tile_trees, float* __restrict__ out) {
-    extern __shared__ float smem[];
-    const int BR = blockDim.x;
-    const int Ws = W | 1;  // odd stride: conflict-free same-lane reads
-    const int N = (1 << D) - 1;
-    const int L = 1 << D;
-    float* xs = smem;                                  // [BR, Ws]
-    float* ts = xs + BR * Ws;                          // [tile, N]
-    int* fs = reinterpret_cast<int*>(ts + tile_trees * N);  // [tile, N]
-    float* ls = reinterpret_cast<float*>(fs + tile_trees * N);  // [tile, L]
-
-    const long long row0 = static_cast<long long>(blockIdx.x) * BR;
-    const int nrows = static_cast<int>(min(static_cast<long long>(BR), rows - row0));
-    for (int i = threadIdx.x; i < nrows * W; i += BR)
-        xs[(i / W) * Ws + i % W] = x[row0 * W + i];
-
-    const int r = threadIdx.x;
-    const float* xr = xs + r * Ws;
-    double acc = 0.0;
-    for (int t0 = 0; t0 < T; t0 += tile_trees) {
-        const int nt = min(tile_trees, T - t0);
-        __syncthreads();  // previous tile fully read
-        for (int i = threadIdx.x; i < nt * N; i += BR) {
-            ts[i] = thr[static_cast<long long>(t0) * N + i];
-            fs[i] = fid[static_cast<long long>(t0) * N + i];
-        }
-        for (int i = threadIdx.x; i < nt * L; i += BR)
-            ls[i] = leaf[static_cast<long long>(t0) * L + i];
-        __syncthreads();
-        if (r >= nrows) continue;
-        for (int tt = 0; tt < nt; tt += kTreesInFlight) {
-            int j[kTreesInFlight];
-            int base[kTreesInFlight];
-#pragma unroll
-            for (int k = 0; k < kTreesInFlight; ++k) {
-                j[k] = 0;
-                base[k] = min(tt + k, nt - 1) * N;  // tail slots repeat a tree
-            }
-            for (int d = 0; d < D; ++d) {
-                const int off = (1 << d) - 1;
-#pragma unroll
-                for (int k = 0; k < kTreesInFlight; ++k) {
-                    const int n = base[k] + off + j[k];
-                    j[k] += tahoe_node_cond<F>(xr, fs[n], ts[n]) << d;
-                }
-            }
-#pragma unroll
-            for (int k = 0; k < kTreesInFlight; ++k)
-                if (tt + k < nt) acc += static_cast<double>(ls[(tt + k) * L + j[k]]);
-        }
-    }
-    if (r < nrows) out[row0 + r] = static_cast<float>(acc);
-}
-
-using FoldFn = void (*)(const float*, int, int, const float*, const int*,
-                       const float*, int, int, int, float*);
-
-int launch_fold(FoldFn kernel, const float* x, int rows, int W, const float* thr,
-                const int* fid, const float* leaf, int T, int D,
+template <int Form>
+int launch_fold(const float* x, int rows, int W, const int* table, int T, int D,
                 int rows_per_block, int tile_trees, int smem_bytes, float* out,
                 cudaStream_t stream) {
     if (rows == 0) return 0;
+    // whole warps and the sizes fold_launch gave
+    if (T < 0 || D < 0 || D > 15 || W < 1 || rows_per_block < 32 ||
+        rows_per_block > 256 || rows_per_block % 32 || tile_trees < 1 ||
+        reinterpret_cast<uintptr_t>(table) % 16 ||
+        smem_bytes < buffer_bytes(T, D, tile_trees) + row_bytes(rows_per_block, W) +
+                         kBarrierBytes)
+        return static_cast<int>(cudaErrorInvalidValue);
+    bool batch = kBatchMode == 2;
+    if (kBatchMode == 1) {  // one block an SM: more than half its shared memory
+        int dev = 0, per_sm = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(
+                &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        batch = 2 * (smem_bytes + kReservedSmemPerBlock) > per_sm;
+    }
+    auto* kernel = batch ? fold_kernel<Form, true> : fold_kernel<Form, false>;
     cudaError_t err = tahoe_grant_smem(kernel, static_cast<size_t>(smem_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     const int grid = (rows + rows_per_block - 1) / rows_per_block;
-    kernel<<<grid, rows_per_block, smem_bytes, stream>>>(
-        x, rows, W, thr, fid, leaf, T, D, tile_trees, out);
+    kernel<<<grid, rows_per_block, smem_bytes, stream>>>(x, rows, W, table, T, D,
+                                                         tile_trees, out);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-TAHOE_EXPORT int tahoe_fold(const float* x2, int rows, int W, const float* thr,
-                            const int* fid, const float* leaf, int T, int D,
-                            int rows_per_block, int tile_trees, int smem_bytes,
-                            float* out, cudaStream_t stream) {
-    return launch_fold(fold_kernel, x2, rows, W, thr, fid, leaf, T, D,
-                       rows_per_block, tile_trees, smem_bytes, out, stream);
+TAHOE_EXPORT int tahoe_fold(const float* x2, int rows, int W, const int* table,
+                            int T, int D, int rows_per_block, int tile_trees,
+                            int smem_bytes, float* out, cudaStream_t stream) {
+    return launch_fold<kDual>(x2, rows, W, table, T, D, rows_per_block, tile_trees,
+                              smem_bytes, out, stream);
 }
 
-TAHOE_EXPORT int tahoe_fold_sign(const float* x, int rows, int W, const float* thr,
-                                 const int* fid, const float* leaf, int T, int D,
-                                 int rows_per_block, int tile_trees, int smem_bytes,
-                                 float* out, cudaStream_t stream) {
-    return launch_fold(fold_form_kernel<kSign>, x, rows, W, thr, fid, leaf, T, D,
-                       rows_per_block, tile_trees, smem_bytes, out, stream);
+TAHOE_EXPORT int tahoe_fold_sign(const float* x, int rows, int W, const int* table,
+                                 int T, int D, int rows_per_block, int tile_trees,
+                                 int smem_bytes, float* out, cudaStream_t stream) {
+    return launch_fold<kSign>(x, rows, W, table, T, D, rows_per_block, tile_trees,
+                              smem_bytes, out, stream);
 }
 
-TAHOE_EXPORT int tahoe_fold_nonge(const float* x, int rows, int W, const float* thr,
-                                  const int* fid, const float* leaf, int T, int D,
-                                  int rows_per_block, int tile_trees, int smem_bytes,
-                                  float* out, cudaStream_t stream) {
-    return launch_fold(fold_form_kernel<kNonGe>, x, rows, W, thr, fid, leaf, T, D,
-                       rows_per_block, tile_trees, smem_bytes, out, stream);
+TAHOE_EXPORT int tahoe_fold_nonge(const float* x, int rows, int W, const int* table,
+                                  int T, int D, int rows_per_block, int tile_trees,
+                                  int smem_bytes, float* out, cudaStream_t stream) {
+    return launch_fold<kNonGe>(x, rows, W, table, T, D, rows_per_block, tile_trees,
+                               smem_bytes, out, stream);
 }

@@ -1,6 +1,6 @@
 // Deep kernel: f32 fold of the forests that kernel C's shared-memory tiles
-// serve badly (deep trees, rows too wide for 256-row blocks, depth 13-15,
-// which no tile holds), ge dual and sign forms, one entry point each.
+// serve badly (depth 12-15, whose trees a tile restages too often or cannot
+// hold), in the dual, sign and non-ge forms, one entry point each.
 //
 // Replaces the Pallas kernel tahoe_tpu/ops/fold_kernel.py _make_split_kernel
 // (:688, launched from fold_margins' split branch :829-865). It computes the
@@ -8,6 +8,8 @@
 // compare of common.cuh:
 //   tahoe_fold_deep        dual, rows as [x, -x]
 //   tahoe_fold_deep_sign   sign, rows at width F
+//   tahoe_fold_deep_nonge  non-ge (fold_kernel.py:551-586), rows at width F;
+//                          the non-ge form of DEPTH_BUCKETED's fold buckets
 // The TPU kernel's subtree-group grid, roots scratch and compile walls exist
 // for VMEM and Mosaic compile time; none is carried over.
 //
@@ -44,20 +46,6 @@ namespace {
 #define TAHOE_DEEP_TREES 8
 #endif
 constexpr int kTrees = TAHOE_DEEP_TREES;  // trees in flight per thread
-constexpr int kCodeBits = 10;             // ops/fold_kernel.py DEEP_CODE_BITS
-
-// Node n (0: the block's top, 1 and 2: its cond-False and cond-True
-// children) of a block's code word, sign-extended.
-static __device__ __forceinline__ int block_code(int word, int n) {
-    return (word << (32 - kCodeBits * (n + 1))) >> (32 - kCodeBits);
-}
-
-// Blocks of one tree of depth D (ops/fold_kernel.py deep_block_count).
-inline long long block_count(int D) {
-    long long total = 0;
-    for (int d = D & 1 ? -1 : 0; d < D; d += 2) total += 1LL << max(d, 0);
-    return total;
-}
 
 // One thread a row.
 template <int Form>
@@ -100,12 +88,12 @@ __global__ void fold_deep_kernel(const float* __restrict__ x, int rows, int W,
             for (int k = 0; k < kTrees; ++k) b[k] = __ldg(tb[k] + off + j[k]);
 #pragma unroll
             for (int k = 0; k < kTrees; ++k) {
-                const int c0 = tahoe_node_cond<Form>(xr, block_code(b[k].w, 0),
+                const int c0 = tahoe_node_cond<Form>(xr, tahoe_block_code(b[k].w, 0),
                                                      __int_as_float(b[k].x));
                 int u = c0;
                 if (!one) {
                     const int thr = c0 ? b[k].z : b[k].y;
-                    const int code = block_code(b[k].w, 1 + c0);
+                    const int code = tahoe_block_code(b[k].w, 1 + c0);
                     u |= tahoe_node_cond<Form>(xr, code, __int_as_float(thr)) << 1;
                 }
                 j[k] += u << d;
@@ -164,12 +152,12 @@ __global__ void fold_deep_pair_kernel(const float* __restrict__ x, int rows, int
             for (int k = 0; k < kTrees; ++k) b[k] = __ldg(tb[k] + off + j[k]);
 #pragma unroll
             for (int k = 0; k < kTrees; ++k) {
-                const int c0 = tahoe_node_cond<Form>(xr, block_code(b[k].w, 0),
+                const int c0 = tahoe_node_cond<Form>(xr, tahoe_block_code(b[k].w, 0),
                                                      __int_as_float(b[k].x));
                 int u = c0;
                 if (!one) {
                     const int thr = c0 ? b[k].z : b[k].y;
-                    const int code = block_code(b[k].w, 1 + c0);
+                    const int code = tahoe_block_code(b[k].w, 1 + c0);
                     u |= tahoe_node_cond<Form>(xr, code, __int_as_float(thr)) << 1;
                 }
                 j[k] += u << d;
@@ -203,8 +191,8 @@ cudaError_t launch_kernel(Kernel* kernel, int threads_per_row, const float* x,
     if (err != cudaSuccess) return err;
     const int grid = (rows + rows_per_block - 1) / rows_per_block;
     kernel<<<grid, rows_per_block * threads_per_row, smem_bytes, stream>>>(
-        x, rows, W, reinterpret_cast<const int4*>(blocks), block_count(D), leaf,
-        T, D, out);
+        x, rows, W, reinterpret_cast<const int4*>(blocks), tahoe_block_count(D),
+        leaf, T, D, out);
     return cudaGetLastError();
 }
 
@@ -243,4 +231,13 @@ TAHOE_EXPORT int tahoe_fold_deep_sign(const float* x, int rows, int W,
                                       cudaStream_t stream) {
     return launch_deep<kSign>(x, rows, W, blocks, leaf, T, D, rows_per_block,
                               lanes, smem_bytes, out, stream);
+}
+
+TAHOE_EXPORT int tahoe_fold_deep_nonge(const float* x, int rows, int W,
+                                       const int* blocks, const float* leaf, int T,
+                                       int D, int rows_per_block, int lanes,
+                                       int smem_bytes, float* out,
+                                       cudaStream_t stream) {
+    return launch_deep<kNonGe>(x, rows, W, blocks, leaf, T, D, rows_per_block,
+                               lanes, smem_bytes, out, stream);
 }

@@ -23,10 +23,8 @@ from tahoe_tpu_torch.forest.compiler import (
 from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops.fold_kernel import (
     MAX_DENSE_DEPTH,
-    MAX_DUAL_COLS,
     MAX_NONGE_COLS,
     MAX_SIGN_COLS,
-    fold_launch,
     fold_leveled,
     fold_plan,
     row_width,
@@ -103,7 +101,7 @@ def _fold_reason(strategy: Strategy, forest: ForestSpec,
     return None
 
 
-def _bucketed_reason(forest: ForestSpec, limits: GpuLimits) -> Optional[str]:
+def _bucketed_reason(forest: ForestSpec) -> Optional[str]:
     reason = _depth_reason(forest.depth)
     if reason:
         return reason
@@ -115,14 +113,8 @@ def _bucketed_reason(forest: ForestSpec, limits: GpuLimits) -> Optional[str]:
     if forest.num_cols > MAX_NONGE_COLS:
         return (f"rank variant needs <= 2 plane groups and the fold variant "
                 f"<= {MAX_NONGE_COLS} columns; forest has {forest.num_cols}")
-    if forest.num_cols > MAX_DUAL_COLS:
-        # the non-ge form runs on kernel C alone: the deepest bucket's trees
-        # must fit its shared-memory tiles
-        d = int(depths.max())
-        if fold_launch(forest.num_cols, d, 1, limits) is None:
-            return (f"non-ge fold: one depth-{d} tree's node tables and a "
-                    f"32-row block do not fit {limits.smem_per_block} bytes "
-                    f"of shared memory per block")
+    # the fold variant: the deep kernel takes every bucket's depth (<= 15) in
+    # the non-ge form too, so fold_plan always has a kernel
     return None
 
 
@@ -132,7 +124,7 @@ def check(strategy: Strategy, forest: ForestSpec,
     if strategy in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST):
         return _fold_reason(strategy, forest, limits)
     if strategy == Strategy.DEPTH_BUCKETED:
-        return _bucketed_reason(forest, limits)
+        return _bucketed_reason(forest)
     if strategy == Strategy.RANK_MXU:
         return _rank_reason(forest)
     if strategy == Strategy.SPARSE:

@@ -23,17 +23,17 @@ level d has its children at j and j + 2^d of level d + 1, exactly as in the
 rank engine.
 
 Two kernels run these tables, each with one entry point and one launch
-counter per form. Kernel C (csrc/fold.cu) stages tiles of whole trees in
-shared memory and restages them for every block of rows; the deep kernel
-(csrc/fold_deep.cu, dual and sign forms, the counterpart of the subtree-
-split fold) stages only the rows and reads the nodes through the read-only
-cache as 16-byte blocks of two levels (``deep_blocks``), one load a block.
-``fold_plan`` picks the one measured faster: kernel C while its block
-restages at most 0.9 bytes of tables per node visit and holds a tile of 16
-trees (depth <= 7 in 256-row blocks), the deep kernel otherwise (SUSY-class
-depth 8, deeper forests, wide rows, depth 13-15). The non-ge form has only
-kernel C. The TPU tiling, VMEM estimates, split grid and compile walls have
-no counterpart here.
+counter per form, and both read a tree's nodes as the same 16-byte blocks of
+two levels (``deep_blocks``): three thresholds and one word of three 10-bit
+codes, one load a block. Kernel C (csrc/fold.cu) stages tiles of whole trees
+in shared memory (``fold_c_table``: each tree's blocks, then its leaves),
+which arrive by TMA into a ring of two buffers while the last tile
+descends, beside the block's rows at an odd stride; the deep kernel
+(csrc/fold_deep.cu, the counterpart of the subtree-split fold) stages only
+the rows and reads the blocks through the read-only cache. ``fold_plan``
+picks the one measured faster, in every form (PERF.md section 6). The TPU
+tiling, VMEM estimates, split grid and compile walls have no counterpart
+here.
 """
 from __future__ import annotations
 
@@ -60,30 +60,34 @@ MAX_SIGN_COLS = 512
 MAX_NONGE_COLS = 128
 # deeper forests are the SPARSE strategy's (ops/sparse_kernel.py)
 MAX_DENSE_DEPTH = 15
-# kernel C descends this many trees together (kTreesInFlight,
-# csrc/common.cuh)
-TREES_IN_FLIGHT = 4
-# bits of one node code in a deep-kernel block (csrc/fold_deep.cu
-# kCodeBits): the sign form's codes lie in [-512, 511], the dual form's in
-# [0, 128)
+# bits of one node code in a block (csrc/common.cuh kCodeBits): the sign
+# form's codes lie in [-512, 511], the dual form's in [0, 128), the non-ge
+# form's in [0, 512) (BLOCK_NONGE_*)
 DEEP_CODE_BITS = 10
 # fold_plan's route, fit to scripts/kernel_ab.py route (kernel C against
-# the deep kernel on the same tables, 17 shapes, 65,536 rows on an H100;
+# the deep kernel on the same tables, 22 shapes, 65,536 rows on an H100;
 # PERF.md section 6): kernel C was the faster on every shape whose block
-# restages at most 0.853 bytes of node tables per node visit, per_tree /
-# (rows x depth), the deep kernel on every one at 1.496 or more, and on
-# mnist-class at 0.99 (128-row blocks) already before its redesign; kernel C
-# also needs a tile of this many trees
-C_MAX_STAGED_PER_VISIT = 0.9
-C_MIN_TILE = 16
-# non-ge node code bits (csrc/fold.cu kNonGe*)
+# restages at most 3.73 bytes of tables per node visit, tree_bytes / (rows
+# x depth), and on every one whose rows the deep kernel cannot hold 256 a
+# block; the deep kernel at 12.44 (deep12-class)
+C_MAX_STAGED_PER_VISIT = 8.0
+# kernel C's shared memory past its rows and tiles: two 8-byte mbarriers
+C_BARRIER_BYTES = 16
+# kernel C's trees in flight a thread (csrc/fold.cu TAHOE_FOLD_TREES)
+C_TREES_IN_FLIGHT = 8
+# non-ge node code bits in the tables (fids)
 NONGE_SEL_LT = 1 << 29
 NONGE_FLIP = 1 << 30
 NONGE_FID = NONGE_SEL_LT - 1
+# ... and in a block's 10-bit field (csrc/common.cuh kBlockNonGe*): a 7-bit
+# feature (<= MAX_NONGE_COLS), sel_lt and flip
+BLOCK_NONGE_SEL_LT = 1 << 7
+BLOCK_NONGE_FLIP = 1 << 8
+BLOCK_NONGE_FID = BLOCK_NONGE_SEL_LT - 1
 
 _FOLD_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_void_p]
 FOLD = CudaKernel("tahoe_fold", _FOLD_ARGS,
                   source="tahoe_tpu_torch/csrc/fold.cu",
                   replaces="tahoe_tpu/ops/fold_kernel.py:531")
@@ -102,8 +106,12 @@ FOLD_DEEP = CudaKernel("tahoe_fold_deep", _DEEP_ARGS,
 FOLD_DEEP_SIGN = CudaKernel("tahoe_fold_deep_sign", _DEEP_ARGS,
                             source="tahoe_tpu_torch/csrc/fold_deep.cu",
                             replaces="tahoe_tpu/ops/fold_kernel.py:688")
+FOLD_DEEP_NONGE = CudaKernel("tahoe_fold_deep_nonge", _DEEP_ARGS,
+                             source="tahoe_tpu_torch/csrc/fold_deep.cu",
+                             replaces="tahoe_tpu/ops/fold_kernel.py:562")
 FOLD_KERNELS = {"dual": FOLD, "sign": FOLD_SIGN, "nonge": FOLD_NONGE}
-DEEP_KERNELS = {"dual": FOLD_DEEP, "sign": FOLD_DEEP_SIGN}
+DEEP_KERNELS = {"dual": FOLD_DEEP, "sign": FOLD_DEEP_SIGN,
+                "nonge": FOLD_DEEP_NONGE}
 
 # the plain version folds a chunk of rows at a time; this bounds the bytes of
 # one chunk's widest level (gathered x, its compare and the f32 frontier)
@@ -198,7 +206,8 @@ def fold_tables(spec: ForestSpec, *, device: torch.device,
 
 
 class FoldLaunch(NamedTuple):
-    """Kernel C's block: rows, trees per staged tile, dynamic shared bytes."""
+    """Kernel C's block: rows, trees per staged tile, dynamic shared bytes.
+    A tile that holds the whole forest takes one buffer, else two."""
 
     rows_per_block: int
     tile_trees: int
@@ -216,24 +225,35 @@ class DeepLaunch(NamedTuple):
 
 
 def fold_launch(width: int, depth: int, num_trees: int, limits: GpuLimits, *,
-                min_tile: int = 1, budget: int | None = None
-                ) -> FoldLaunch | None:
-    """Kernel C's block shape: one thread per row, the block's rows staged
-    in shared memory at an odd stride, then as many trees' node tables per
-    tile as fit. Aims at half an SM so two blocks share one; takes the whole
+                min_tile: int = 1, budget: int | None = None) -> FoldLaunch | None:
+    """Kernel C's block shape: one thread per row; the whole forest in one
+    buffer if it fits, else a ring of two buffers of as many trees each as
+    fit (``tree_bytes``); then the block's rows at an odd stride and two
+    mbarriers. Aims at half an SM so two blocks share one; takes the whole
     opt-in budget, then fewer rows, when ``min_tile`` trees do not fit (only
     ``budget`` when given). None when no block of >= 32 rows holds
     ``min_tile`` trees."""
-    per_tree = tree_bytes(depth)
+    T = max(num_trees, 1)
     budgets = ((limits.smem_half_sm, limits.smem_per_block)
                if budget is None else (budget,))
     for rows in (256, 128, 64, 32):
-        xs = rows * (width | 1) * 4
         for b in budgets:
-            tile = min(max(num_trees, 1), (b - xs) // per_tree)
+            if fold_smem_bytes(width, depth, T, rows, T) <= b:
+                return FoldLaunch(rows, T, fold_smem_bytes(width, depth, T, rows, T))
+            tile = (b - fold_smem_bytes(width, depth, T, rows, 0)) // (2 * tree_bytes(depth))
             if tile >= min_tile:
-                return FoldLaunch(rows, tile, xs + tile * per_tree)
+                return FoldLaunch(rows, tile, fold_smem_bytes(width, depth, T, rows, tile))
     return None
+
+
+def fold_smem_bytes(width: int, depth: int, num_trees: int, rows: int,
+                    tile: int) -> int:
+    """Kernel C's dynamic shared memory for a block of ``rows`` rows and
+    tiles of ``tile`` trees: one buffer if a tile holds every tree, else
+    two; then the rows at an odd stride and the mbarriers (the launcher
+    checks the same sizes, csrc/fold.cu buffer_bytes, row_bytes)."""
+    bufs = (1 if tile >= num_trees else 2) * tile * tree_bytes(depth)
+    return bufs + rows * (width | 1) * 4 + C_BARRIER_BYTES
 
 
 def deep_launch(width: int, limits: GpuLimits) -> DeepLaunch | None:
@@ -251,10 +271,16 @@ def deep_launch(width: int, limits: GpuLimits) -> DeepLaunch | None:
     return DeepLaunch(rows, rows * row_bytes, 2 if rows < 256 else 1) if rows else None
 
 
+def leaf_slots(depth: int) -> int:
+    """A tree's leaf values in kernel C's table: 2^depth, padded to 4 so
+    that every tree fills whole 16-byte units, as the bulk copies need."""
+    return max(1 << depth, 4)
+
+
 def tree_bytes(depth: int) -> int:
-    """One tree's staged node tables in kernel C: (threshold, code) per node
-    and a leaf value per leaf."""
-    return ((1 << depth) - 1) * 8 + (1 << depth) * 4
+    """One tree's staged tables in kernel C: its ``deep_blocks``, then its
+    leaves."""
+    return 16 * deep_block_count(depth) + 4 * leaf_slots(depth)
 
 
 def fold_plan(form: str, width: int, depth: int, num_trees: int,
@@ -263,28 +289,24 @@ def fold_plan(form: str, width: int, depth: int, num_trees: int,
     """Which kernel runs a forest, and its block.
 
     - ``whole_forest`` (VMEM_FOREST): kernel C with every tree in one tile;
-    - non-ge: kernel C, the only kernel of that form;
-    - otherwise kernel C when a block (half an SM, else the whole opt-in
-      budget) holds a tile of min(T, C_MIN_TILE) trees and restages at most
-      C_MAX_STAGED_PER_VISIT bytes of tables per node visit; else the deep
-      kernel. That keeps kernel C up to depth 7 in 256-row blocks (svhn-,
-      gisette-, cifar- and stumps-class); SUSY-class (depth 8) and
-      everything deeper, or too wide for 256 rows, take the deep kernel.
-      Where 256 rows do not fit half an SM, one 256-row block of the whole
-      budget beat two 128-row blocks an SM on every shape timed
-      (scripts/kernel_ab.py route ``c_half``: gisette-class 1.20x, cifar-
-      class 1.35x).
+    - otherwise, in every form, kernel C in ``fold_launch``'s block (the
+      most rows, half an SM before the whole opt-in budget) while that
+      block restages at most C_MAX_STAGED_PER_VISIT bytes of tables per
+      node visit, or while the deep kernel's rows do not fit 256 a block
+      (wide rows, which leave it few threads an SM); else the deep kernel.
+      PERF.md section 6 has the shapes and times the rule was fit to.
     None when nothing fits."""
     T = max(num_trees, 1)
     if whole_forest:
         return fold_launch(width, depth, T, limits, min_tile=T)
-    if form == "nonge":
-        return fold_launch(width, depth, T, limits)
-    launch = fold_launch(width, depth, T, limits, min_tile=min(T, C_MIN_TILE))
-    if launch is not None and (tree_bytes(depth) <= C_MAX_STAGED_PER_VISIT
-                               * launch.rows_per_block * max(depth, 1)):
+    launch = fold_launch(width, depth, T, limits)
+    deep = deep_launch(width, limits)
+    if launch is not None and (
+            deep is None or deep.rows_per_block < 256
+            or tree_bytes(depth) <= C_MAX_STAGED_PER_VISIT
+            * launch.rows_per_block * max(depth, 1)):
         return launch
-    return deep_launch(width, limits)
+    return deep
 
 
 def _node_cond(xv: torch.Tensor, thr: torch.Tensor, codes: torch.Tensor,
@@ -354,18 +376,65 @@ def _check(x: torch.Tensor, t: FoldTables) -> None:
                          f"({t.form} form over {t.num_cols} features)")
 
 
-def fold_margins_cuda(x: torch.Tensor, t: FoldTables,
+def fold_margins_cuda(x: torch.Tensor, t: FoldTables, table: torch.Tensor,
                       launch: FoldLaunch) -> torch.Tensor:
-    """Kernel C on the card (csrc/fold.cu), in the tables' form."""
+    """Kernel C on the card (csrc/fold.cu), in the tables' form; ``table``
+    is ``fold_c_table(t)``."""
     _check(x, t)
     dev = x.device
+    check_operand(table, "table", torch.int32, dev, 2)
     R, W = x.shape
+    T = t.leaf.shape[0]
+    if table.shape != (T, tree_bytes(t.depth) // 4):
+        raise ValueError(f"table {tuple(table.shape)} does not match the "
+                         f"tables' {T} trees of depth {t.depth}")
+    if table.data_ptr() % 16:
+        raise ValueError("kernel C's table must start on a 16-byte boundary "
+                         "(its tiles arrive by bulk copy)")
     out = torch.empty(R, dtype=torch.float32, device=dev)
     FOLD_KERNELS[t.form].launch(
-        dev, ptr(x), R, W, ptr(t.thresholds), ptr(t.fids), ptr(t.leaf),
-        t.leaf.shape[0], t.depth, launch.rows_per_block, launch.tile_trees,
-        launch.smem_bytes, ptr(out))
+        dev, ptr(x), R, W, ptr(table), T, t.depth, launch.rows_per_block,
+        launch.tile_trees, launch.smem_bytes, ptr(out))
     return out
+
+
+def block_codes(t: FoldTables) -> torch.Tensor:
+    """[T, 2^D - 1] int32: the node codes as a block's 10-bit field holds
+    them (``DEEP_CODE_BITS``). The dual and sign forms' codes as they are,
+    within [-512, 511]; the non-ge form's feature, sel_lt and flip moved to
+    bits 0-6, 7 and 8 (``BLOCK_NONGE_*``). Raises on a code that does not
+    fit."""
+    if t.form == "nonge":
+        feature = t.fids & NONGE_FID
+        if feature.numel() and int(feature.max()) > BLOCK_NONGE_FID:
+            raise ValueError(f"non-ge features past {BLOCK_NONGE_FID} do not "
+                             f"fit a block's code")
+        return (feature | ((t.fids & NONGE_SEL_LT) != 0).int() * BLOCK_NONGE_SEL_LT
+                | ((t.fids & NONGE_FLIP) != 0).int() * BLOCK_NONGE_FLIP)
+    lo, hi = -(1 << (DEEP_CODE_BITS - 1)), (1 << (DEEP_CODE_BITS - 1)) - 1
+    if t.fids.numel() and not (lo <= int(t.fids.min()) and int(t.fids.max()) <= hi):
+        raise ValueError(f"node codes outside the blocks' {DEEP_CODE_BITS} bits")
+    return t.fids
+
+
+def _table_codes(codes: torch.Tensor, form: str) -> torch.Tensor:
+    """A block's decoded (sign-extended) codes back in the tables' form."""
+    if form != "nonge":
+        return codes
+    return (codes & BLOCK_NONGE_FID
+            | ((codes & BLOCK_NONGE_SEL_LT) != 0).int() * NONGE_SEL_LT
+            | ((codes & BLOCK_NONGE_FLIP) != 0).int() * NONGE_FLIP)
+
+
+def fold_c_table(t: FoldTables) -> torch.Tensor:
+    """[T, tree_bytes(D) / 4] int32: kernel C's table, one tree a row, so
+    that a tile of trees is one contiguous span (one bulk copy): a tree's
+    ``deep_blocks``, then its 2^D leaf values' bits, zero-padded to
+    ``leaf_slots``."""
+    T, D = t.leaf.shape[0], t.depth
+    leaves = torch.zeros(T, leaf_slots(D), dtype=torch.int32, device=t.leaf.device)
+    leaves[:, :1 << D] = t.leaf.view(torch.int32)
+    return torch.cat([deep_blocks(t).reshape(T, -1), leaves], dim=1).contiguous()
 
 
 def deep_groups(depth: int) -> list[int]:
@@ -384,23 +453,20 @@ def deep_block_count(depth: int) -> int:
 
 
 def deep_blocks(t: FoldTables) -> torch.Tensor:
-    """[T, B, 4] int32: the deep kernel's node blocks, 16 bytes each.
+    """[T, B, 4] int32: the node blocks of both fold kernels, 16 bytes each.
 
     The levels of a tree split into groups (``deep_groups``); a group that
     starts at level d has 2^d blocks, one per path q to level d, laid out
     after the groups above it. Block q holds node q of level d and nodes q
     and q + 2^d of level d + 1 (its cond-False and cond-True children):
     their three threshold bits, then their three codes as 10-bit fields of
-    one word (``DEEP_CODE_BITS``), the top node's lowest. A walk that leaves
+    one word (``block_codes``), the top node's lowest. A walk that leaves
     it with the branch bits u goes on to block q + (u << d) of the next
     group, and the last one's path is the leaf index: no pointer is stored.
     A root group of one level leaves its block's two child slots 0."""
     T, D = t.leaf.shape[0], t.depth
-    lo, hi = -(1 << (DEEP_CODE_BITS - 1)), (1 << (DEEP_CODE_BITS - 1)) - 1
-    if t.fids.numel() and not (lo <= int(t.fids.min()) and int(t.fids.max()) <= hi):
-        raise ValueError(f"node codes outside the deep kernel's {DEEP_CODE_BITS} bits")
     thr = t.thresholds.view(torch.int32)
-    codes = t.fids & ((1 << DEEP_CODE_BITS) - 1)
+    codes = block_codes(t) & ((1 << DEEP_CODE_BITS) - 1)
     out = torch.zeros(T, deep_block_count(D), 4, dtype=torch.int32,
                       device=t.leaf.device)
     off, d = 0, 0
@@ -420,7 +486,7 @@ def deep_blocks(t: FoldTables) -> torch.Tensor:
 
 def deep_block_walk(x: torch.Tensor, t: FoldTables,
                     blocks: torch.Tensor) -> torch.Tensor:
-    """The deep kernel's walk over ``deep_blocks`` in torch, the same decode,
+    """The fold kernels' walk over ``deep_blocks`` in torch, the same decode,
     arithmetic and compare; leaves summed in f64 in tree order, as the plain
     version sums them."""
     T = blocks.shape[0]
@@ -432,7 +498,7 @@ def deep_block_walk(x: torch.Tensor, t: FoldTables,
         # in int32, as the kernel shifts: the field's top bit is bit 31
         left = torch.as_tensor(shift - DEEP_CODE_BITS * n, dtype=torch.int32,
                                device=word.device)
-        codes = (word << left) >> shift
+        codes = _table_codes((word << left) >> shift, t.form)
         xv = torch.gather(x, 1, _node_features(codes, t.form))
         return _node_cond(xv, thr_bits.view(torch.float32), codes, t.form).long()
 
@@ -449,13 +515,91 @@ def deep_block_walk(x: torch.Tensor, t: FoldTables,
     return t.leaf[tree, j].double().sum(dim=1).float()
 
 
+def descent_paths(x: torch.Tensor, t: FoldTables) -> torch.Tensor:
+    """[D + 1, R, T] int64: the node a walk of the plain version's compares
+    reaches at each level (its index j within the level), the last the
+    leaf."""
+    T = t.leaf.shape[0]
+    tree = torch.arange(T, device=x.device)
+    j = torch.zeros(x.shape[0], T, dtype=torch.int64, device=x.device)
+    out = [j]
+    for d in range(t.depth):
+        n = (1 << d) - 1 + j
+        codes = t.fids[tree, n]
+        xv = torch.gather(x, 1, _node_features(codes, t.form))
+        j = j + (_node_cond(xv, t.thresholds[tree, n], codes, t.form).long() << d)
+        out.append(j)
+    return torch.stack(out)
+
+
+def _wavefronts(words: torch.Tensor) -> torch.Tensor:
+    """Shared-memory wavefronts of warp-wide loads, given [..., n] word
+    addresses each: the most distinct words that one bank (word mod 32)
+    serves."""
+    s = words.sort(dim=-1).values
+    new = torch.ones_like(s)
+    new[..., 1:] = (s[..., 1:] != s[..., :-1]).long()
+    per_bank = torch.zeros(*s.shape[:-1], 32, dtype=torch.int64, device=s.device)
+    return per_bank.scatter_add_(-1, s % 32, new).amax(dim=-1)
+
+
+def fold_wavefronts(x: torch.Tensor, t: FoldTables,
+                    rows_per_block: int = 256) -> dict:
+    """Kernel C's shared-memory wavefronts per (warp, tree), reckoned from
+    the real walks of ``x``'s rows (whole warps of 32): the row gathers at
+    an odd stride (``row_major``, csrc/fold.cu) or feature-major, where lane
+    r always reads bank r mod 32; the nodes as ``words`` (a threshold and a
+    code load per level, the layout kernel C read before its blocks) or ``blocks`` (one 16-byte load
+    per two levels, csrc/fold.cu); and the leaf load. Also the shared loads
+    per (row, tree) of each node layout."""
+    R = x.shape[0] // 32 * 32
+    x, D = x[:R], t.depth
+    paths = descent_paths(x, t)
+    T = paths.shape[2]
+    tree = torch.arange(T, device=x.device)
+    lane = torch.arange(32, device=x.device)
+
+    def warps(a):  # [R, T] -> [R / 32, T, 32]
+        return a.view(R // 32, 32, T).transpose(1, 2)
+
+    zero = torch.zeros(R // 32, T, dtype=torch.int64, device=x.device)
+    row_major, feature_major, words, blocks = zero, zero, zero, zero
+    for d in range(D):
+        n = (1 << d) - 1 + paths[d]
+        f = warps(_node_features(t.fids[tree, n], t.form))
+        row_major = row_major + _wavefronts(lane * (t.width | 1) + f)
+        feature_major = feature_major + _wavefronts(f * rows_per_block + lane)
+        words = words + 2 * _wavefronts(warps(n))
+    off, d = 0, 0
+    for size in deep_groups(D):
+        chunk = warps(off + paths[d]).unsqueeze(-1)
+        blocks = blocks + _wavefronts((4 * chunk + torch.arange(4, device=x.device))
+                                      .flatten(-2))
+        off += 1 << d
+        d += size
+    leaf = _wavefronts(warps(paths[D]))
+    mean = {k: float(v.double().mean()) for k, v in (
+        ("gather_row_major", row_major), ("gather_feature_major", feature_major),
+        ("nodes_words", words), ("nodes_blocks", blocks), ("leaf", leaf))}
+    return {
+        "rows": R,
+        "loads_per_row_tree": {"words": 3 * D + 1,
+                               "blocks": D + len(deep_groups(D)) + 1},
+        "per_gather": {k: mean[f"gather_{k}"] / max(D, 1)
+                       for k in ("row_major", "feature_major")},
+        "per_warp_tree": mean,
+        "total_per_warp_tree": {
+            f"{rows}_{nodes}": mean[f"gather_{rows}"] + mean[f"nodes_{nodes}"]
+            + mean["leaf"]
+            for rows in ("row_major", "feature_major")
+            for nodes in ("words", "blocks")},
+    }
+
+
 def fold_deep_cuda(x: torch.Tensor, t: FoldTables, blocks: torch.Tensor,
                    launch: DeepLaunch) -> torch.Tensor:
-    """The deep kernel on the card (csrc/fold_deep.cu) in the tables' form,
-    dual or sign; ``blocks`` is ``deep_blocks(t)``."""
-    if t.form not in DEEP_KERNELS:
-        raise ValueError(f"the deep kernel takes the dual and sign forms, "
-                         f"not {t.form}")
+    """The deep kernel on the card (csrc/fold_deep.cu) in the tables' form;
+    ``blocks`` is ``deep_blocks(t)``."""
     _check(x, t)
     dev = x.device
     check_operand(blocks, "blocks", torch.int32, dev, 3)
@@ -501,7 +645,10 @@ class FoldKernelEngine:
                 f"shared memory")
         deep = isinstance(self.launch, DeepLaunch)
         self.kernel = (DEEP_KERNELS if deep else FOLD_KERNELS)[t.form]
+        # the table the engine's kernel reads: the deep kernel's blocks, or
+        # kernel C's trees of blocks and leaves
         self.blocks = deep_blocks(t) if deep else None
+        self.c_table = None if deep else fold_c_table(t)
 
     def canonicalize(self, rows) -> torch.Tensor:
         """Raw rows [R, C] -> [R, width] f32 (``[x, -x]`` lanes in the dual
@@ -517,7 +664,7 @@ class FoldKernelEngine:
             return fold_margins_plain(x, self.tables)
         if self.blocks is not None:
             return fold_deep_cuda(x, self.tables, self.blocks, self.launch)
-        return fold_margins_cuda(x, self.tables, self.launch)
+        return fold_margins_cuda(x, self.tables, self.c_table, self.launch)
 
     def margins(self, rows) -> torch.Tensor:
         return self.margins_rows(self.canonicalize(rows))

@@ -4,6 +4,7 @@
     python -m tahoe_tpu_torch.scripts.kernel_ab b [--rounds 5]
     python -m tahoe_tpu_torch.scripts.kernel_ab sparse OTHER.cu [--rounds 5]
     python -m tahoe_tpu_torch.scripts.kernel_ab deep OTHER.cu [--rounds 5]
+    python -m tahoe_tpu_torch.scripts.kernel_ab c OTHER.cu [--rounds 5]
     python -m tahoe_tpu_torch.scripts.kernel_ab route [--rounds 5]
 
 ``a``: OTHER.cu is another version of ``csrc/rank_transform.cu`` (an earlier
@@ -43,12 +44,28 @@ block and with the other number of lanes a row, on cup98-class (sign form),
 deep15-class and deep12-class (dual), all on the same tables, margins bit
 for bit this tree's kernel's.
 
+``c``: OTHER.cu is an earlier ``csrc/fold.cu`` (the one before the blocks: rows at an odd
+stride, (threshold, code) tables a node, every thread staging each tile;
+``tahoe_fold(x, rows, W, thr, fid, leaf, T, D, rows_per_block, tile_trees,
+smem_bytes, out)``, ``_sign`` and ``_nonge``), run in its own block
+(``parent_fold_launch``). This tree's kernel C runs as shipped and rebuilt
+at ``TAHOE_FOLD_TREES`` 4 and 16 and ``TAHOE_FOLD_BATCH`` 0 and 2 (the
+block loads never or always issued together; ``C_BUILDS``), in the same
+block. On
+stumps-class (dual), svhn-, gisette- and cifar-class (sign) and the four
+non-ge buckets of the mixed 90-column forest (``chip_smoke.py`` phase 9),
+every build's margins must equal the parent's bit for bit; beside the times,
+each case's shared-memory wavefronts per (warp, tree), reckoned from the real
+walks of 2,048 rows (``fold_wavefronts``).
+
 ``route``: kernel C (``fold_launch``: half an SM, else the whole opt-in
 budget, for each row count) against the deep kernel (``deep_launch``) on the
 same ``FoldTables``, on the shapes ``test_fold_plan_routes`` holds
-``fold_plan`` to and those ``chip_smoke.py`` phases 3 and 6-8 route, with
-``fold_plan``'s pick beside the faster one. Where kernel C's block in half an
-SM alone (two blocks an SM) is another, it is timed too (``c_half``).
+``fold_plan`` to and those ``chip_smoke.py`` phases 3 and 6-9 route, with
+``fold_plan``'s pick beside the faster one. Kernel C runs in ``fold_plan``'s
+block (``c``), and where they differ from it also in the block of the most
+rows in half an SM alone (two blocks an SM, ``c_half``) and in the whole
+opt-in budget (``c_whole``), each with any tile of trees.
 
 Every other build is compiled alone, with this tree's nvcc flags, into a
 library of its own under ``build/tahoe_tpu_torch/``. Each time is
@@ -97,7 +114,24 @@ ROUTE_SHAPES = {
     "sign_d8": ("sign", 100, 8, 200),
     "dual_d10": ("dual", 28, 10, 100),
     "sign_d9": ("sign", 120, 9, 100),
+    "mnist_sign": ("sign", 400, 6, 100),
+    # the mixed 90-column forest's DEPTH_BUCKETED buckets (chip_smoke.py
+    # phase 9)
+    "nonge_d7": ("nonge", 90, 7, 59),
+    "nonge_d8": ("nonge", 90, 8, 17),
+    "nonge_d9": ("nonge", 90, 9, 23),
+    "nonge_d10": ("nonge", 90, 10, 21),
 }
+# c: the builds of this tree's kernel C, each one axis off the shipped one
+# (the build of C_TREES_IN_FLIGHT trees is the shipped one, and skipped)
+C_BUILDS = {
+    "trees4": ["-DTAHOE_FOLD_TREES=4"],
+    "trees8": ["-DTAHOE_FOLD_TREES=8"],
+    "trees16": ["-DTAHOE_FOLD_TREES=16"],
+    "batch_never": ["-DTAHOE_FOLD_BATCH=0"],
+    "batch_always": ["-DTAHOE_FOLD_BATCH=2"],
+}
+WAVEFRONT_ROWS = 2048
 
 
 def card_line() -> str:
@@ -438,8 +472,8 @@ def run_route(rounds: int) -> dict:
     from tahoe_tpu_torch.config import GpuLimits
     from tahoe_tpu_torch.forest import synthetic
     from tahoe_tpu_torch.ops.fold_kernel import (
-        deep_blocks, deep_launch, fold_deep_cuda, fold_launch,
-        fold_margins_cuda, fold_plan, fold_tables, tree_bytes)
+        deep_blocks, deep_launch, fold_c_table, fold_deep_cuda,
+        fold_launch, fold_margins_cuda, fold_plan, fold_tables, tree_bytes)
     from tahoe_tpu_torch.ops.rows import canonicalize_rows
 
     dev = torch.device("cuda", 0)
@@ -447,7 +481,7 @@ def run_route(rounds: int) -> dict:
     out = {}
     for i, (name, (form, cols, depth, trees)) in enumerate(ROUTE_SHAPES.items()):
         forest = synthetic.generate_forest(trees, depth, cols, seed=100 + i)
-        t = fold_tables(forest, device=dev)
+        t = fold_tables(forest, device=dev, ge_mode=form != "nonge")
         if t.form != form:
             raise RuntimeError(f"{name}: {t.form} form, not {form}")
         x = canonicalize_rows(
@@ -456,17 +490,22 @@ def run_route(rounds: int) -> dict:
         launches = {"c": fold_launch(t.width, t.depth, trees, limits),
                     "c_half": fold_launch(t.width, t.depth, trees, limits,
                                           budget=limits.smem_half_sm),
+                    "c_whole": fold_launch(t.width, t.depth, trees, limits,
+                                           budget=limits.smem_per_block),
                     "deep": deep_launch(t.width, limits)}
-        if launches["c_half"] == launches["c"]:
-            launches["c_half"] = None
+        for k in ("c_half", "c_whole"):
+            if launches[k] == launches["c"]:
+                launches[k] = None
         blocks = deep_blocks(t)
+        table = fold_c_table(t)
         fns = {"deep": lambda x=x, t=t, b=blocks, d=launches["deep"]:
                fold_deep_cuda(x, t, b, d)}
-        for k in ("c", "c_half"):
+        for k in ("c", "c_half", "c_whole"):
             if launches[k] is not None:
-                fns[k] = lambda x=x, t=t, c=launches[k]: fold_margins_cuda(x, t, c)
+                fns[k] = lambda x=x, t=t, tb=table, c=launches[k]: fold_margins_cuda(
+                    x, t, tb, c)
         m = {k: fn() for k, fn in fns.items()}
-        err = max(float((v - m["deep"]).abs().max()) for v in m.values())
+        exact = all(torch.equal(v, m["deep"]) for v in m.values())
         times = timed_rounds(fns, rounds)
         med = {k: v["median_ms"] for k, v in times.items()}
         plan = fold_plan(form, t.width, t.depth, trees, limits)
@@ -477,8 +516,9 @@ def run_route(rounds: int) -> dict:
                      "staged_per_visit": {
                          k: tree_bytes(t.depth) / (launches[k].rows_per_block
                                                    * max(t.depth, 1))
-                         for k in ("c", "c_half") if launches[k] is not None},
-                     "c_vs_deep_max_abs_err": err, "ok": err <= KERNEL_ATOL,
+                         for k in ("c", "c_half", "c_whole")
+                         if launches[k] is not None},
+                     "c_bit_equal_deep": exact, "ok": exact,
                      **{f"{k}_ms": med.get(k) for k in launches},
                      "c_over_deep": med["c"] / med["deep"] if "c" in med else None,
                      "faster": min(med, key=med.get),
@@ -488,13 +528,128 @@ def run_route(rounds: int) -> dict:
     return out
 
 
+def c_cases():
+    """name -> (forest, rows, ge_mode) of kernel C's paths (chip_smoke.py
+    phases 6, 8 and 9; gisette- and cifar-class as in route)."""
+    from tahoe_tpu_torch.forest import synthetic
+    from tahoe_tpu_torch.forest.compiler import reachable_depths, truncate_depth
+    from tahoe_tpu_torch.ops.bucketed import plan_buckets, subset_trees
+
+    names = list(ROUTE_SHAPES)
+    out = {
+        "stumps_dual": (synthetic.generate_forest(800, 3, 10, seed=1),
+                        synthetic.generate_data(ROWS, 10, missing_prob=0.05, seed=7),
+                        True),
+        "svhn_sign": (synthetic.generate_forest(200, 6, 100, seed=1),
+                      synthetic.generate_data(ROWS, 100, missing_prob=0.02, seed=10),
+                      True),
+    }
+    for name in ("gisette_sign", "cifar_sign"):
+        _, cols, depth, trees = ROUTE_SHAPES[name]
+        i = names.index(name)
+        out[name] = (synthetic.generate_forest(trees, depth, cols, seed=100 + i),
+                     synthetic.generate_data(ROWS, cols, missing_prob=0.02,
+                                             seed=200 + i), True)
+    mix90 = synthetic.generate_mixed_depth_forest(120, 10, 90, seed=1)
+    rows90 = synthetic.generate_data(ROWS, 90, missing_prob=0.02, seed=9)
+    depths = reachable_depths(mix90)
+    for idx in plan_buckets(depths):
+        d = int(depths[idx].max(initial=0))
+        if d:
+            out[f"mixed90_nonge_d{d}"] = (
+                truncate_depth(subset_trees(mix90, idx), d), rows90, False)
+    return out
+
+
+def parent_fold_launch(form: str, width: int, depth: int, T: int, limits):
+    """The earlier kernel C's block: rows at an odd stride, (threshold, code) and a
+    leaf a tree's node, tiles of min(T, 16) trees (one tree in the non-ge
+    form), half an SM, else the whole opt-in budget."""
+    from tahoe_tpu_torch.ops.fold_kernel import FoldLaunch
+
+    per_tree = ((1 << depth) - 1) * 8 + (1 << depth) * 4
+    min_tile = 1 if form == "nonge" else min(T, 16)
+    for rows in (256, 128, 64, 32):
+        xs = rows * (width | 1) * 4
+        for b in (limits.smem_half_sm, limits.smem_per_block):
+            tile = min(T, (b - xs) // per_tree)
+            if tile >= min_tile:
+                return FoldLaunch(rows, tile, xs + tile * per_tree)
+    return None
+
+
+def run_c(other_lib, libs: dict, rounds: int) -> dict:
+    import torch
+
+    from tahoe_tpu_torch.config import GpuLimits
+    from tahoe_tpu_torch.ops._build import ptr
+    from tahoe_tpu_torch.ops.fold_kernel import (
+        FOLD_KERNELS, fold_c_table, fold_launch, fold_margins_cuda,
+        fold_margins_plain, fold_tables, fold_wavefronts)
+    from tahoe_tpu_torch.ops.rows import canonicalize_rows
+
+    dev = torch.device("cuda", 0)
+    limits = GpuLimits.for_device(dev)
+    out = {}
+    for case, (forest, data, ge_mode) in c_cases().items():
+        t = fold_tables(forest, device=dev, ge_mode=ge_mode)
+        x = canonicalize_rows(data, forest.missing, device=dev,
+                              col_index=t.col_index, dual=t.form == "dual")
+        R, W = x.shape
+        T = t.leaf.shape[0]
+        symbol = FOLD_KERNELS[t.form].symbol
+        launch = fold_launch(W, t.depth, T, limits)
+        parent = parent_fold_launch(t.form, W, t.depth, T, limits)
+        old = bind(other_lib, symbol,
+                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+        def other(x=x, t=t):
+            m = torch.empty(R, dtype=torch.float32, device=dev)
+            checked(old(ptr(x), R, W, ptr(t.thresholds), ptr(t.fids), ptr(t.leaf),
+                        T, t.depth, parent.rows_per_block, parent.tile_trees,
+                        parent.smem_bytes, ptr(m), stream()), f"other {symbol}")
+            return m
+
+        table = fold_c_table(t)
+        fns = {"this": lambda x=x, t=t: fold_margins_cuda(x, t, table, launch),
+               "other": other}
+        for name, lib in libs.items():
+            fn = bind(lib, symbol, FOLD_KERNELS[t.form].argtypes)
+
+            def call(fn=fn, x=x, t=t):
+                m = torch.empty(R, dtype=torch.float32, device=dev)
+                checked(fn(ptr(x), R, W, ptr(table), T, t.depth, launch.rows_per_block,
+                           launch.tile_trees, launch.smem_bytes, ptr(m), stream()),
+                        symbol)
+                return m
+            fns[name] = call
+        want = fns["other"]()
+        plain_err = float((want - fold_margins_plain(x, t)).abs().max())
+        exact = {k: bool(torch.equal(fn(), want)) for k, fn in fns.items()}
+        times = timed_rounds(fns, rounds)
+        med = {k: v["median_ms"] for k, v in times.items()}
+        out[case] = {"form": t.form, "width": W, "depth": t.depth, "trees": T,
+                     "launch": list(launch),
+                     "parent_launch": list(parent),
+                     "exact_vs_parent": exact,
+                     "parent_max_abs_err_vs_plain": plain_err,
+                     "ok": all(exact.values()) and plain_err <= KERNEL_ATOL,
+                     "this_over_other": med["this"] / med["other"],
+                     "wavefronts": fold_wavefronts(x[:WAVEFRONT_ROWS], t,
+                                                   launch.rows_per_block),
+                     "times": times}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=["a", "b", "sparse", "deep", "route"])
+    ap.add_argument("mode", choices=["a", "b", "sparse", "deep", "c", "route"])
     ap.add_argument("other", type=Path, nargs="?")
     ap.add_argument("--rounds", type=int, default=None)
     args = ap.parse_args()
-    if args.mode in ("a", "sparse", "deep") and args.other is None:
+    if args.mode in ("a", "sparse", "deep", "c") and args.other is None:
         ap.error(f"mode {args.mode} takes OTHER.cu")
     import torch
 
@@ -534,6 +689,15 @@ def main() -> int:
         builds["other"] = (args.other.resolve(), [])
         libs = build_alone(builds)
         res = run_deep(libs.pop("other"), libs, args.rounds or 5)
+    elif args.mode == "c":
+        from tahoe_tpu_torch.ops.fold_kernel import C_TREES_IN_FLIGHT
+
+        src = _build.CSRC / "fold.cu"
+        builds = {name: (src, defines) for name, defines in C_BUILDS.items()
+                  if name != f"trees{C_TREES_IN_FLIGHT}"}
+        builds["other"] = (args.other.resolve(), [])
+        libs = build_alone(builds)
+        res = run_c(libs.pop("other"), libs, args.rounds or 5)
     else:
         res = run_route(args.rounds or 5)
     if args.mode in ("a", "b"):

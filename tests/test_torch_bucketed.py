@@ -22,7 +22,17 @@ from tahoe_tpu_torch.ops.bucketed import (
     plan_buckets,
     subset_trees,
 )
-from tahoe_tpu_torch.ops.fold_kernel import FOLD, FOLD_DEEP, FOLD_NONGE
+from tahoe_tpu_torch.config import Strategy
+from tahoe_tpu_torch.engine import feasibility
+from tahoe_tpu_torch.ops.fold_kernel import (
+    FOLD,
+    FOLD_DEEP,
+    FOLD_DEEP_NONGE,
+    FOLD_NONGE,
+    deep_block_walk,
+    deep_blocks,
+    fold_margins_plain,
+)
 
 CPU = torch.device("cpu")
 JAX_ATOL = 1e-5
@@ -99,6 +109,28 @@ def test_bucketed_fold_non_ge_matches_jax():
     jeng = jax_bucketed.DepthBucketedFoldEngine(f, row_tile=8, tree_tile=16,
                                                 interpret=True)
     _check(eng.predict(data).numpy(), jeng, f, data)
+
+
+def test_bucketed_fold_non_ge_deep_buckets():
+    """A 90-column forest stored to depth 14: its shallow buckets in the
+    non-ge form on kernel C, the depth-14 bucket, which no ring of kernel C
+    holds, on the deep kernel's non-ge instance (fold_plan); the margins
+    against the oracle, and the walk of the blocks both kernels read against
+    the plain version bit for bit."""
+    f = _mixed_depth_forest(trees=9, stored=14, cols=90, seed=33, missing=-999.0)
+    data = synthetic.generate_data(24, 90, missing=-999.0, missing_prob=0.1,
+                                   seed=34)
+    port = _port(f)
+    assert feasibility.check(Strategy.DEPTH_BUCKETED, port) is None
+    eng = DepthBucketedFoldEngine(port, device=CPU)
+    assert [e.tables.depth for e in eng.sub] == [3, 14]
+    assert [e.kernel for e in eng.sub] == [FOLD_NONGE, FOLD_DEEP_NONGE]
+    np.testing.assert_allclose(eng.predict(data).numpy(), oracle.predict(f, data),
+                               atol=ORACLE_ATOL, rtol=0)
+    x = eng.sub[0].canonicalize(data)
+    for e in eng.sub:
+        assert torch.equal(deep_block_walk(x, e.tables, deep_blocks(e.tables)),
+                           fold_margins_plain(x, e.tables))
 
 
 def test_bucketed_fold_with_stump_bucket():

@@ -22,16 +22,22 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     DEEP_KERNELS,
     FOLD,
     FOLD_DEEP,
+    FOLD_DEEP_NONGE,
     FOLD_DEEP_SIGN,
+    FOLD_KERNELS,
     FOLD_NONGE,
     FOLD_SIGN,
     FoldKernelEngine,
+    FoldLaunch,
     deep_blocks,
     deep_launch,
+    fold_c_table,
     fold_deep_cuda,
     fold_launch,
     fold_margins_cuda,
     fold_margins_plain,
+    fold_smem_bytes,
+    fold_tables,
 )
 from tahoe_tpu_torch.ops.probes import (
     INT8_MODES,
@@ -63,6 +69,7 @@ from tahoe_tpu_torch.ops.rank_transform import (
     rank_planes_plain,
     threshold_table,
 )
+from tahoe_tpu_torch.ops.rows import canonicalize_rows
 from tahoe_tpu_torch.ops.sparse_kernel import (
     SPARSE_RANK,
     SparseRankEngine,
@@ -167,7 +174,7 @@ def test_fold_kernel(dev, depth, trees):
     # kernel C's own block, also at depth 12, where the engine takes the
     # deep kernel
     launch = fold_launch(t.width, t.depth, trees, GpuLimits.for_device(dev))
-    got = fold_margins_cuda(x2, t, launch)
+    got = fold_margins_cuda(x2, t, fold_c_table(t), launch)
     torch.cuda.synchronize()
     want = fold_margins_plain(x2, t)
     assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
@@ -301,7 +308,7 @@ def test_fold_sign_kernel(dev, depth):
     assert t.form == "sign"
     launch = fold_launch(t.width, t.depth, 60, GpuLimits.for_device(dev))
     before = FOLD_SIGN.launches
-    got = fold_margins_cuda(x, t, launch)
+    got = fold_margins_cuda(x, t, fold_c_table(t), launch)
     torch.cuda.synchronize()
     assert FOLD_SIGN.launches == before + 1
     want = fold_margins_plain(x, t)
@@ -313,16 +320,25 @@ def test_fold_sign_kernel(dev, depth):
 
 @pytest.mark.parametrize("depth,cols", [(6, 90), (13, 40)])
 def test_fold_nonge_kernel(dev, depth, cols):
+    """The non-ge form on kernel C (where a tile holds a tree) and on the
+    deep kernel, each in its own block, and through the engine on the
+    kernel fold_plan picks."""
     forest = compiler.hot_child_swap(synthetic.generate_forest(
         24, depth, cols, leaf_prob=0.1, missing=-999.0, seed=depth + cols))
     data = _data(2000, cols, depth, missing=-999.0)
     eng = FoldKernelEngine(forest, device=dev, ge_mode=False)
-    assert eng.kernel is FOLD_NONGE
+    assert eng.kernel in (FOLD_NONGE, FOLD_DEEP_NONGE)
     x = eng.canonicalize(data)
     t = eng.tables
-    got = fold_margins_cuda(x, t, eng.launch)
-    torch.cuda.synchronize()
+    limits = GpuLimits.for_device(dev)
     want = fold_margins_plain(x, t)
+    c_launch = fold_launch(t.width, t.depth, 24, limits)
+    if c_launch is not None:
+        got = fold_margins_cuda(x, t, fold_c_table(t), c_launch)
+        torch.cuda.synchronize()
+        assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+    got = fold_deep_cuda(x, t, deep_blocks(t), deep_launch(t.width, limits))
+    torch.cuda.synchronize()
     assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
     np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
                                Forest(forest, device="cpu").predict_oracle(data),
@@ -332,16 +348,21 @@ def test_fold_nonge_kernel(dev, depth, cols):
 @pytest.mark.parametrize("depth,cols,active", [(12, 28, 28), (15, 16, 16),
                                                (12, 479, 300)])
 def test_fold_deep_kernel(dev, depth, cols, active):
+    """The deep kernel in its own block; the engine on fold_plan's kernel
+    (kernel C for the 300-wide rows, which leave the deep kernel fewer than
+    256 rows a block)."""
     forest = compiler.hot_child_swap(_wide_forest(
         9, depth, cols, active, seed=depth, leaf_prob=0.02))
     data = _data(1500, cols, depth + 2)
     eng = FoldKernelEngine(forest, device=dev)
     t = eng.tables
     kernel = FOLD_DEEP_SIGN if active > 64 else FOLD_DEEP
-    assert eng.kernel is kernel and DEEP_KERNELS[t.form] is kernel
+    assert DEEP_KERNELS[t.form] is kernel
+    assert eng.kernel is (FOLD_SIGN if active > 64 else FOLD_DEEP)
     x = eng.canonicalize(data)
     before = kernel.launches
-    got = fold_deep_cuda(x, t, eng.blocks, eng.launch)
+    got = fold_deep_cuda(x, t, deep_blocks(t),
+                         deep_launch(t.width, GpuLimits.for_device(dev)))
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     want = fold_margins_plain(x, t)
@@ -360,7 +381,8 @@ def test_kernel_c_and_deep_kernel_agree_at_depth_12(dev):
     t = eng.tables
     x = eng.canonicalize(data)
     limits = GpuLimits.for_device(dev)
-    c = fold_margins_cuda(x, t, fold_launch(t.width, t.depth, 10, limits))
+    c = fold_margins_cuda(x, t, fold_c_table(t),
+                          fold_launch(t.width, t.depth, 10, limits))
     deep = fold_deep_cuda(x, t, deep_blocks(t), deep_launch(t.width, limits))
     assert torch.allclose(c, deep, atol=KERNEL_ATOL, rtol=0)
 
@@ -370,7 +392,7 @@ def test_facade_vmem_and_bucketed_count_launches(dev):
     mixed9 = synthetic.generate_mixed_depth_forest(60, 10, 9, seed=24)
     mixed90 = synthetic.generate_mixed_depth_forest(40, 9, 90, seed=25)
     shallow_wide = synthetic.generate_forest(60, 6, 100, seed=27)
-    deep_wide = _wide_forest(40, 8, 479, 300, seed=28)
+    deep_wide = _wide_forest(8, 15, 479, 300, seed=28)  # no tile of kernel C
     for forest, strategy, engine_type, kernels in (
             (shallow_wide, Strategy.SPLIT_FOREST, FoldKernelEngine, (FOLD_SIGN,)),
             (deep_wide, Strategy.SPLIT_FOREST, FoldKernelEngine,
@@ -378,12 +400,14 @@ def test_facade_vmem_and_bucketed_count_launches(dev):
             (stumps, Strategy.VMEM_FOREST, FoldKernelEngine, (FOLD,)),
             (mixed9, Strategy.DEPTH_BUCKETED, DepthBucketedRankEngine,
              (RANK_PLANES, RANK_FOLD)),
-            (mixed90, Strategy.DEPTH_BUCKETED, DepthBucketedFoldEngine,
-             (FOLD_NONGE,))):
+            (mixed90, Strategy.DEPTH_BUCKETED, DepthBucketedFoldEngine, None)):
         data = _data(1024, forest.num_cols, 26)
         f = Forest(forest, device=dev)
         eng = f.engine(strategy)
         assert isinstance(eng, engine_type)
+        if kernels is None:  # the non-ge buckets: each on fold_plan's kernel
+            kernels = tuple({e.kernel for e in eng.sub})
+            assert set(kernels) <= {FOLD_NONGE, FOLD_DEEP_NONGE}
         counts = [k.launches for k in kernels]
         np.testing.assert_allclose(f.predict(data, strategy).cpu().numpy(),
                                    f.predict_oracle(data), atol=ORACLE_ATOL,
@@ -448,7 +472,7 @@ def test_facade_sparse_and_plain_strategies(dev):
     wide = synthetic.generate_forest(40, 6, 1440, seed=39)
     shallow = synthetic.generate_forest(30, 6, 18, leaf_prob=0.1, seed=40)
     kernels = (RANK_PLANES, RANK_FOLD, FOLD, FOLD_SIGN, FOLD_NONGE, FOLD_DEEP,
-               FOLD_DEEP_SIGN, SPARSE_RANK)
+               FOLD_DEEP_SIGN, FOLD_DEEP_NONGE, SPARSE_RANK)
     for forest, strategy, engine_type, launched in (
             (deep, Strategy.SPARSE, SparseRankEngine, {RANK_PLANES, SPARSE_RANK}),
             (wide, Strategy.SPARSE, SparseGatherEngine, set()),
@@ -581,26 +605,29 @@ def test_redesigned_kernels_at_row_counts(dev, rows):
             (_wide_forest(8, 9, 300, 120, seed=74, missing=-999.0),
              FOLD_DEEP_SIGN)):
         eng = FoldKernelEngine(forest, device=dev)
-        assert eng.kernel is kernel
+        assert DEEP_KERNELS[eng.form] is kernel
         x = eng.canonicalize(_data(rows, forest.num_cols, 75,
                                    missing=forest.missing))
         want = fold_margins_plain(x, eng.tables)
+        blocks = deep_blocks(eng.tables)
         # one thread a row and two, each in a partial last block
         for lanes in (1, 2):
-            launch = eng.launch._replace(rows_per_block=48, lanes=lanes)
-            got = fold_deep_cuda(x, eng.tables, eng.blocks, launch)
+            launch = deep_launch(eng.tables.width, GpuLimits.for_device(dev))._replace(
+                rows_per_block=48, lanes=lanes)
+            got = fold_deep_cuda(x, eng.tables, blocks, launch)
             torch.cuda.synchronize()
             assert got.shape == (rows,)
             assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
 
 
 def test_launchers_capture_in_a_cuda_graph(dev):
-    """The five launchers that grant shared memory (kernels A and B, kernel
-    C in its dual then its sign form, the deep and the sparse kernel) give
-    inside a CUDA graph what they give outside it: no attribute call falls
-    in the capture. The two kernel-C forms take the whole opt-in budget back
-    to back, the sign form the smaller, so that a grant keyed by anything
-    less than the kernel leaves the sign form's launch refused."""
+    """The launchers that grant shared memory (kernels A and B, kernel C in
+    its dual, sign and non-ge forms, the deep kernel in its sign and non-ge
+    forms, the sparse kernel) give inside a CUDA graph what they give outside
+    it: no attribute call falls in the capture. Kernel C's forms take the
+    whole opt-in budget back to back, the sign form the smaller, so that a
+    grant keyed by anything less than the kernel leaves the sign form's
+    launch refused."""
     limits = GpuLimits.for_device(dev)
     rank = RankFoldEngine(synthetic.generate_forest(60, 8, 18, seed=61), device=dev)
     rt = rank.tables
@@ -609,15 +636,26 @@ def test_launchers_capture_in_a_cuda_graph(dev):
     dual = FoldKernelEngine(synthetic.generate_forest(200, 8, 18, seed=63),
                             device=dev)
     sign = FoldKernelEngine(_wide_forest(200, 7, 300, 120, seed=64), device=dev)
+    nonge = FoldKernelEngine(synthetic.generate_forest(40, 9, 90, seed=71),
+                             device=dev, ge_mode=False)
     xd = dual.canonicalize(_data(4096, 18, 65))
     xs = sign.canonicalize(_data(4096, 300, 66))
+    xn = nonge.canonicalize(_data(4096, 90, 72))
+    tables = {e: fold_c_table(e.tables) for e in (dual, sign, nonge)}
     dl = fold_launch(dual.tables.width, 8, 200, limits, budget=limits.smem_per_block)
     sl = fold_launch(sign.tables.width, 7, 200, limits,
                      budget=limits.smem_per_block - 4096)
+    nl = fold_launch(nonge.tables.width, 9, 40, limits, budget=limits.smem_per_block)
     assert 48 * 1024 < sl.smem_bytes < dl.smem_bytes
+    assert nl.smem_bytes > 48 * 1024 and nl.tile_trees < 40  # a ring
     deep = FoldKernelEngine(_wide_forest(30, 10, 479, 300, seed=67), device=dev)
-    assert deep.kernel is FOLD_DEEP_SIGN and deep.launch.smem_bytes > 48 * 1024
+    deep_blocks_w = deep_blocks(deep.tables)
+    deep_launch_w = deep_launch(deep.tables.width, limits)
+    assert deep_launch_w.smem_bytes > 48 * 1024
     xw = deep.canonicalize(_data(4096, 479, 68))
+    nonge_launch = deep_launch(nonge.tables.width, limits)
+    assert nonge_launch.smem_bytes > 48 * 1024
+    nonge_blocks = deep_blocks(nonge.tables)
     sparse = SparseRankEngine(synthetic.generate_forest(40, 6, 480, seed=69),
                               device=dev)
     st = sparse.tables
@@ -626,11 +664,14 @@ def test_launchers_capture_in_a_cuda_graph(dev):
     calls = {
         "rank_transform": lambda: rank_planes_cuda(x, rt.thresholds, rt.counts),
         "rank_fold": lambda: rank_margins_cuda(planes, rt.records, rt.leaf, rt.depth),
-        "fold dual, fold sign": lambda: torch.stack([
-            fold_margins_cuda(xd, dual.tables, dl),
-            fold_margins_cuda(xs, sign.tables, sl)]),
-        "fold_deep_sign": lambda: fold_deep_cuda(xw, deep.tables, deep.blocks,
-                                                 deep.launch),
+        "fold dual, fold sign, fold nonge": lambda: torch.stack([
+            fold_margins_cuda(xd, dual.tables, tables[dual], dl),
+            fold_margins_cuda(xs, sign.tables, tables[sign], sl),
+            fold_margins_cuda(xn, nonge.tables, tables[nonge], nl)]),
+        "fold_deep_sign": lambda: fold_deep_cuda(xw, deep.tables, deep_blocks_w,
+                                                 deep_launch_w),
+        "fold_deep_nonge": lambda: fold_deep_cuda(xn, nonge.tables, nonge_blocks,
+                                                  nonge_launch),
         "sparse_rank": lambda: sparse_margins_cuda(sp, st.slots, st.roots.shape[0],
                                                    st.steps),
     }
@@ -643,3 +684,58 @@ def test_launchers_capture_in_a_cuda_graph(dev):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(got, want), name
+
+
+# (form, columns, depth) of kernel C's ring tests
+RING_FORMS = {"dual": (18, 6), "sign": (120, 7), "nonge": (90, 5)}
+
+
+@pytest.mark.parametrize("tile", [1, 3, 4, 5, 11])
+@pytest.mark.parametrize("form", sorted(RING_FORMS))
+def test_kernel_c_ring_of_tiles(dev, form, tile):
+    """Kernel C in each form at tiles of 1, 3, 4, 5 and 11 trees (8 in
+    flight: a tile of fewer descends only its own), 7 tiles so that each of
+    the ring's two buffers is refilled at least three times, the last tile
+    short; at one row, a partial warp and one row past 65,536 in 64-row
+    blocks: against the plain version, and each kernel launch counted."""
+    cols, depth = RING_FORMS[form]
+    T = 6 * tile + max(tile - 1, 1)
+    forest = compiler.hot_child_swap(synthetic.generate_forest(
+        T, depth, cols, leaf_prob=0.1, missing=-999.0, seed=tile + depth))
+    t = fold_tables(forest, device=dev, ge_mode=form != "nonge")
+    assert t.form == form
+    table = fold_c_table(t)
+    launch = FoldLaunch(64, tile, fold_smem_bytes(t.width, depth, T, 64, tile))
+    kernel = FOLD_KERNELS[form]
+    for rows in (1, 31, 65537):
+        x = canonicalize_rows(_data(rows, cols, rows + tile, missing=-999.0),
+                              forest.missing, device=dev, col_index=t.col_index,
+                              dual=form == "dual")
+        before = kernel.launches
+        got = fold_margins_cuda(x, t, table, launch)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert got.shape == (rows,)
+        assert torch.allclose(got, fold_margins_plain(x, t), atol=KERNEL_ATOL,
+                              rtol=0)
+
+
+@pytest.mark.parametrize("depth", [9, 13])
+def test_fold_deep_nonge_kernel(dev, depth):
+    """The deep kernel's non-ge instance against the plain version, one and
+    two threads a row, in partial last blocks."""
+    forest = compiler.hot_child_swap(synthetic.generate_forest(
+        10, depth, 90, leaf_prob=0.05, missing=-999.0, seed=depth))
+    eng = FoldKernelEngine(forest, device=dev, ge_mode=False)
+    t = eng.tables
+    x = eng.canonicalize(_data(3001, 90, depth, missing=-999.0))
+    blocks = deep_blocks(t)
+    want = fold_margins_plain(x, t)
+    for lanes in (1, 2):
+        launch = deep_launch(t.width, GpuLimits.for_device(dev))._replace(
+            rows_per_block=48, lanes=lanes)
+        before = FOLD_DEEP_NONGE.launches
+        got = fold_deep_cuda(x, t, blocks, launch)
+        torch.cuda.synchronize()
+        assert FOLD_DEEP_NONGE.launches == before + 1
+        assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)

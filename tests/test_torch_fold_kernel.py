@@ -18,9 +18,14 @@ from tahoe_tpu.ops.fold_kernel import FoldKernelEngine as JaxFoldKernelEngine
 from tahoe_tpu_torch.config import GpuLimits
 from tahoe_tpu_torch.forest.spec import from_arrays
 from tahoe_tpu_torch.ops.fold_kernel import (
+    BLOCK_NONGE_FID,
+    C_BARRIER_BYTES,
+    DEEP_KERNELS,
     FOLD,
+    FOLD_KERNELS,
     MAX_DUAL_COLS,
     FOLD_DEEP,
+    FOLD_DEEP_NONGE,
     FOLD_DEEP_SIGN,
     FOLD_NONGE,
     FOLD_SIGN,
@@ -31,15 +36,21 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     FoldKernelEngine,
     FoldLaunch,
     FoldTables,
+    block_codes,
     deep_block_count,
     deep_block_walk,
     deep_blocks,
     deep_groups,
+    fold_c_table,
     fold_launch,
     fold_margins_plain,
     fold_plan,
+    fold_smem_bytes,
     fold_tables,
+    fold_wavefronts,
+    tree_bytes,
 )
+from tahoe_tpu_torch.ops.transform import apply_output_transform
 
 CPU = torch.device("cpu")
 JAX_ATOL = 1e-5
@@ -200,7 +211,7 @@ def test_non_ge_matches_jax_and_oracle(name):
                                    seed=cols)
     data[0, :min(cols, 7)] = forest.values[0, :min(cols, 7)]  # threshold hits
     eng = FoldKernelEngine(_port(forest), device=CPU, ge_mode=False)
-    assert eng.form == "nonge" and eng.kernel is FOLD_NONGE
+    assert eng.form == "nonge" and eng.kernel in (FOLD_NONGE, FOLD_DEEP_NONGE)
     assert eng.tables.col_index is None  # no compaction up to 128 columns
     got = eng.predict(data).numpy()
     jeng = JaxFoldKernelEngine(compiler.levelize(forest), row_tile=8,
@@ -329,29 +340,36 @@ def test_fold_caps_hold(what):
 # (form, width, depth, trees, whole_forest) -> kernel C block or deep kernel,
 # and the kernel that `scripts/kernel_ab.py route` measured the faster on the
 # shape (65,536 rows on an H100, PERF.md section 6; None where only one
-# kernel serves it)
+# kernel serves it). The nonge_d* shapes are the mixed 90-column forest's
+# DEPTH_BUCKETED buckets.
 PLANS = {
-    "susy_dual": ("dual", 36, 8, 500, False, DeepLaunch(256, 37888), "deep"),
-    "cup98_sign": ("sign", 300, 8, 150, False, DeepLaunch(192, 231168, 2), "deep"),
-    "svhn_sign": ("sign", 100, 6, 200, False, FoldLaunch(256, 16, 115584), "c"),
-    "gisette_sign": ("sign", 120, 6, 100, False, FoldLaunch(256, 100, 199904), "c"),
-    "cifar_sign": ("sign", 120, 7, 150, False, FoldLaunch(256, 71, 232392), "c"),
-    "covtype_dual": ("dual", 108, 9, 250, False, DeepLaunch(256, 111616), "deep"),
-    "narrow_depth9_dual": ("dual", 32, 9, 300, False, DeepLaunch(256, 33792), "deep"),
+    "susy_dual": ("dual", 36, 8, 500, False, FoldLaunch(256, 16, 114192), "c"),
+    "cup98_sign": ("sign", 300, 8, 150, False, FoldLaunch(128, 16, 230416), "c"),
+    "svhn_sign": ("sign", 100, 6, 200, False, FoldLaunch(256, 10, 115280), "c"),
+    "gisette_sign": ("sign", 120, 6, 100, False, FoldLaunch(256, 100, 183120), "c"),
+    "cifar_sign": ("sign", 120, 7, 150, False, FoldLaunch(256, 45, 231920), "c"),
+    "covtype_dual": ("dual", 108, 9, 250, False, FoldLaunch(256, 12, 226448), "c"),
+    "narrow_depth9_dual": ("dual", 32, 9, 300, False, FoldLaunch(256, 8, 110352),
+                           "c"),
     "deep12_dual": ("dual", 56, 12, 100, False, DeepLaunch(256, 58368), "deep"),
     "deep15_dual": ("dual", 32, 15, 30, False, DeepLaunch(256, 33792), "deep"),
-    "wide_deep_sign": ("sign", 512, 12, 60, False, DeepLaunch(96, 196992, 2),
-                       "deep"),
-    "stumps_dual": ("dual", 20, 3, 800, False, FoldLaunch(256, 800, 91904), "c"),
-    "depth6_dual": ("dual", 36, 6, 500, False, FoldLaunch(256, 102, 115408), "c"),
-    "depth7_dual": ("dual", 36, 7, 500, False, FoldLaunch(256, 50, 114288), "c"),
-    "covtype_d8_dual": ("dual", 108, 8, 250, False, DeepLaunch(256, 111616), "deep"),
-    "sign_d8": ("sign", 100, 8, 200, False, DeepLaunch(256, 103424), "deep"),
-    "dual_d10": ("dual", 56, 10, 100, False, DeepLaunch(256, 58368), "deep"),
-    "sign_d9": ("sign", 120, 9, 100, False, DeepLaunch(256, 123904), "deep"),
-    "nonge_depth14": ("nonge", 90, 14, 40, False, FoldLaunch(64, 1, 219896), None),
-    "nonge_depth15": ("nonge", 90, 15, 40, False, None, None),
-    "stumps_whole": ("dual", 20, 3, 800, True, FoldLaunch(256, 800, 91904), None),
+    "wide_deep_sign": ("sign", 512, 12, 60, False, FoldLaunch(64, 1, 207792), "c"),
+    "stumps_dual": ("dual", 20, 3, 800, False, FoldLaunch(256, 800, 85520), "c"),
+    "depth6_dual": ("dual", 36, 6, 500, False, FoldLaunch(256, 65, 114864), "c"),
+    "depth7_dual": ("dual", 36, 7, 500, False, FoldLaunch(256, 32, 114704), "c"),
+    "covtype_d8_dual": ("dual", 108, 8, 250, False, FoldLaunch(256, 25, 230832),
+                        "c"),
+    "sign_d8": ("sign", 100, 8, 200, False, FoldLaunch(256, 2, 112976), "c"),
+    "dual_d10": ("dual", 56, 10, 100, False, FoldLaunch(256, 3, 115696), "c"),
+    "sign_d9": ("sign", 120, 9, 100, False, FoldLaunch(256, 11, 229168), "c"),
+    "mnist_sign": ("sign", 400, 6, 100, False, FoldLaunch(128, 22, 231376), "c"),
+    "nonge_d7": ("nonge", 90, 7, 59, False, FoldLaunch(256, 9, 114800), "c"),
+    "nonge_d8": ("nonge", 90, 8, 17, False, FoldLaunch(256, 4, 112272), "c"),
+    "nonge_d9": ("nonge", 90, 9, 23, False, FoldLaunch(256, 2, 112336), "c"),
+    "nonge_d10": ("nonge", 90, 10, 21, False, FoldLaunch(256, 1, 112304), "c"),
+    "nonge_depth14": ("nonge", 90, 14, 40, False, DeepLaunch(256, 93184), None),
+    "nonge_depth15": ("nonge", 90, 15, 40, False, DeepLaunch(256, 93184), None),
+    "stumps_whole": ("dual", 20, 3, 800, True, FoldLaunch(256, 800, 85520), None),
     "susy_whole": ("dual", 36, 8, 500, True, None, None),
 }
 
@@ -371,10 +389,14 @@ def test_fold_plan_routes(name):
 
 
 @pytest.mark.parametrize("depth,rows,fits", [
-    (8, 256, True), (12, 256, True), (13, 256, True), (14, 128, True),
+    (8, 256, True), (12, 256, True), (13, 256, True), (14, None, False),
     (15, None, False),
 ])
 def test_fold_launch_fits_shared_memory(depth, rows, fits):
+    """Kernel C's ring of two buffers of whole trees (16-byte blocks of two
+    levels, then the leaves) beside 256 rows at an odd stride: no longer a
+    depth-14 tree, whose two buffers pass the opt-in budget (the deep
+    kernel takes it)."""
     limits = GpuLimits()
     launch = fold_launch(36, depth, 500, limits)
     if not fits:
@@ -382,8 +404,9 @@ def test_fold_launch_fits_shared_memory(depth, rows, fits):
         return
     assert launch.rows_per_block == rows and launch.tile_trees >= 1
     assert launch.smem_bytes <= limits.smem_per_block
-    per_tree = ((1 << depth) - 1) * 8 + (1 << depth) * 4
-    assert launch.smem_bytes == rows * 37 * 4 + launch.tile_trees * per_tree
+    per_tree = 16 * deep_block_count(depth) + 4 * (1 << depth)
+    assert launch.smem_bytes == (2 * launch.tile_trees * per_tree + rows * 37 * 4
+                                 + C_BARRIER_BYTES)
 
 
 
@@ -416,12 +439,18 @@ def test_deep_block_walk_matches_plain_and_jax(name):
     eng = FoldKernelEngine(_port(forest), device=CPU)
     t = eng.tables
     assert t.depth == depth and t.form == name[:4]
-    assert eng.kernel is (FOLD_DEEP_SIGN if t.form == "sign" else FOLD_DEEP)
+    # fold_plan takes kernel C up to depth 11 in 256-row blocks, the deep
+    # kernel deeper; both read these blocks
+    deep = depth > 11
+    assert eng.kernel is (DEEP_KERNELS if deep else FOLD_KERNELS)[t.form]
     x = eng.canonicalize(data)
     blocks = deep_blocks(t)
     assert blocks.shape == (trees, deep_block_count(depth), 4)
     assert sum(deep_groups(depth)) == depth and set(deep_groups(depth)) <= {1, 2}
-    assert torch.equal(eng.blocks, blocks)
+    if deep:
+        assert torch.equal(eng.blocks, blocks)
+    else:
+        assert torch.equal(eng.c_table, fold_c_table(t))
     assert torch.equal(deep_block_walk(x, t, blocks), fold_margins_plain(x, t))
     jeng = JaxFoldKernelEngine(compiler.levelize(forest), row_tile=8,
                                tree_tile=16, interpret=True)
@@ -432,9 +461,10 @@ def test_deep_block_walk_matches_plain_and_jax(name):
 
 @pytest.mark.parametrize("form", ["dual", "sign"])
 def test_deep_block_walk_zero_and_denormal_thresholds(form):
-    """Thresholds at +-0 and denormals on the deep route (depth 10): the
-    walk equals the plain version bit for bit and routes as numpy does (the
-    JAX CPU interpret path flushes denormals)."""
+    """Thresholds at +-0 and denormals at depth 10 (kernel C's route, over
+    the blocks both kernels read): the walk equals the plain version bit for
+    bit and routes as numpy does (the JAX CPU interpret path flushes
+    denormals)."""
     cols = 80 if form == "sign" else 6
     forest = _forest(10, 6, cols, 0.05, "mixed", True, float("nan"), seed=19)
     internal = ~forest.is_leaf
@@ -445,7 +475,7 @@ def test_deep_block_walk_zero_and_denormal_thresholds(form):
                      -3e-40, np.nan, 1.0, -1.0], np.float32)
     data = rng.choice(vals, (200, cols)).astype(np.float32)
     eng = FoldKernelEngine(_port(forest), device=CPU)
-    assert eng.form == form and isinstance(eng.launch, DeepLaunch)
+    assert eng.form == form and eng.kernel is FOLD_KERNELS[form]
     x = eng.canonicalize(data)
     walked = deep_block_walk(x, eng.tables, deep_blocks(eng.tables))
     assert torch.equal(walked, fold_margins_plain(x, eng.tables))
@@ -479,3 +509,160 @@ def test_deep_blocks_pack_the_code_range(depth):
     bad = dataclasses.replace(t, fids=t.fids.clone().fill_(512))
     with pytest.raises(ValueError):
         deep_blocks(bad)
+
+
+@pytest.mark.parametrize("name", sorted(NONGE_CASES))
+def test_non_ge_block_walk_matches_plain_and_jax(name):
+    """The non-ge form's blocks (a 7-bit feature, sel_lt and flip in each
+    10-bit code) walked as kernel C and the deep kernel walk them: the plain
+    version's margins bit for bit, and within JAX_ATOL of the JAX engine."""
+    trees, depth, cols, leaf_prob, def_left, swap, missing = NONGE_CASES[name]
+    forest = _forest(depth, trees, cols, leaf_prob, def_left, swap, missing,
+                     seed=cols + trees)
+    data = synthetic.generate_data(40, cols, missing=missing, missing_prob=0.15,
+                                   seed=cols)
+    data[0, :min(cols, 7)] = forest.values[0, :min(cols, 7)]  # threshold hits
+    eng = FoldKernelEngine(_port(forest), device=CPU, ge_mode=False)
+    t = eng.tables
+    x = eng.canonicalize(data)
+    blocks = deep_blocks(t)
+    assert blocks.shape == (trees, deep_block_count(depth), 4)
+    walked = deep_block_walk(x, t, blocks)
+    assert torch.equal(walked, fold_margins_plain(x, t))
+    jeng = JaxFoldKernelEngine(compiler.levelize(forest), row_tile=8,
+                               tree_tile=32, ge_mode=False, interpret=True)
+    got = apply_output_transform(walked, eng.num_trees, eng.output,
+                                 eng.global_bias, eng.threshold)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jeng.predict(data)),
+                               atol=JAX_ATOL, rtol=0)
+
+
+def _special_tables(form, depth, F, rng, T=9):
+    """FoldTables of ``form`` whose thresholds are +-0, denormals, NaN and
+    ordinary values, codes drawn over the form's whole range."""
+    n = (1 << depth) - 1
+    thr = rng.choice(np.array([0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-40, np.nan,
+                               0.5, -0.5], np.float32), (T, n))
+    if form == "dual":
+        codes = rng.integers(0, 2 * F, (T, n))
+    elif form == "sign":
+        codes = rng.integers(-F, F, (T, n))
+    else:
+        codes = (rng.integers(0, F, (T, n))
+                 | rng.integers(0, 2, (T, n)) * NONGE_SEL_LT
+                 | rng.integers(0, 2, (T, n)) * NONGE_FLIP)
+    return FoldTables(form=form, col_index=None, num_cols=F,
+                      thresholds=torch.as_tensor(thr),
+                      fids=torch.as_tensor(codes.astype(np.int32)),
+                      leaf=torch.as_tensor(rng.normal(size=(T, 1 << depth)),
+                                           dtype=torch.float32),
+                      depth=depth)
+
+
+def _special_rows(t, rng, rows=96):
+    vals = np.array([0.0, -0.0, 1e-45, -1e-45, 2e-45, 1e-40, -1e-40, 3e-40,
+                     np.nan, 1.0, -1.0, 0.5, -0.5], np.float32)
+    x = rng.choice(vals, (rows, t.num_cols)).astype(np.float32)
+    if t.form == "dual":
+        x = np.concatenate([x, -x], axis=1)
+    return torch.as_tensor(x)
+
+
+@pytest.mark.parametrize("form", ["dual", "sign", "nonge"])
+def test_block_walk_zero_denormal_nan_thresholds_all_forms(form):
+    """±0, denormal and NaN thresholds against ±0, denormal and NaN rows, in
+    all three forms, at an odd and an even depth: the blocks both kernels
+    read route as the plain version's compares, bit for bit."""
+    rng = np.random.default_rng({"dual": 1, "sign": 2, "nonge": 3}[form])
+    for depth in (5, 6):
+        t = _special_tables(form, depth, 30, rng)
+        x = _special_rows(t, rng)
+        assert torch.equal(deep_block_walk(x, t, deep_blocks(t)),
+                           fold_margins_plain(x, t))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 5])
+def test_non_ge_code_field_ends(depth):
+    """Feature 127 (the 7-bit field's last) with sel_lt and flip in every
+    combination packs and unpacks exactly; feature 128 is refused."""
+    rng = np.random.default_rng(40 + depth)
+    T, F = 8, 128
+    n = (1 << depth) - 1
+    feature = rng.integers(0, F, (T, n))
+    feature[:4] = F - 1
+    sel = np.array([0, 1, 0, 1] + [0] * (T - 4))[:, None] * np.ones((1, n), int)
+    flip = np.array([0, 0, 1, 1] + [1] * (T - 4))[:, None] * np.ones((1, n), int)
+    codes = (feature | sel * NONGE_SEL_LT | flip * NONGE_FLIP).astype(np.int32)
+    thr = rng.choice(np.array([0.0, -0.0, 1e-45, 0.5, -0.5, np.nan], np.float32),
+                     (T, n))
+    t = FoldTables(form="nonge", col_index=None, num_cols=F,
+                   thresholds=torch.as_tensor(thr), fids=torch.as_tensor(codes),
+                   leaf=torch.as_tensor(rng.normal(size=(T, 1 << depth)),
+                                        dtype=torch.float32),
+                   depth=depth)
+    packed = block_codes(t)
+    assert int(packed.max()) <= 511 and int(packed.min()) >= 0
+    assert torch.equal(packed[:4] & BLOCK_NONGE_FID,
+                       torch.full((4, n), F - 1, dtype=torch.int32))
+    x = _special_rows(t, rng, rows=64)
+    assert torch.equal(deep_block_walk(x, t, deep_blocks(t)),
+                       fold_margins_plain(x, t))
+    bad = dataclasses.replace(t, fids=t.fids.clone().fill_(F))
+    with pytest.raises(ValueError):
+        deep_blocks(bad)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 3, 6, 7, 10])
+def test_c_table_layout(depth):
+    """Kernel C's table: a row a tree of its blocks then its leaves (padded
+    to 4), every tree a whole number of 16-byte units."""
+    rng = np.random.default_rng(depth)
+    t = _special_tables("sign", depth, 40, rng, T=5)
+    table = fold_c_table(t)
+    B = deep_block_count(depth)
+    per_tree = tree_bytes(depth)
+    assert per_tree % 16 == 0 and table.shape == (5, per_tree // 4)
+    assert per_tree == 16 * B + 4 * max(1 << depth, 4)
+    assert torch.equal(table[:, :4 * B], deep_blocks(t).reshape(5, -1))
+    leaves = table[:, 4 * B:]
+    assert torch.equal(leaves[:, :1 << depth], t.leaf.view(torch.int32))
+    assert not leaves[:, 1 << depth:].any()
+
+
+def test_c_tree_bytes_and_whole_forest_tile():
+    """The sizes of one tree's blocks (depth 3, 6, 7, 10: 48, 336,
+    688, 5,456 bytes) and 800 stumps-class trees in one tile: one buffer, no
+    ring, beside 256 rows of [x, -x] over 10 features at an odd stride."""
+    for depth, blocks in ((3, 48), (6, 336), (7, 688), (10, 5456)):
+        assert tree_bytes(depth) == blocks + 4 * (1 << depth)
+    limits = GpuLimits()
+    launch = fold_launch(20, 3, 800, limits)
+    assert launch == FoldLaunch(256, 800, 800 * 80 + 256 * 21 * 4 + C_BARRIER_BYTES)
+    assert launch.smem_bytes <= limits.smem_half_sm
+    assert fold_plan("dual", 20, 3, 800, limits, whole_forest=True) == launch
+    # a ring of two buffers once the forest passes one tile
+    ring = fold_launch(20, 3, 8000, limits)
+    assert ring.tile_trees < 8000
+    assert ring.smem_bytes == fold_smem_bytes(20, 3, 8000, 256, ring.tile_trees)
+    assert ring.smem_bytes == (2 * ring.tile_trees * 80 + 256 * 21 * 4
+                               + C_BARRIER_BYTES)
+
+
+def test_fold_wavefronts_reckoning():
+    """The wavefront reckoning on real walks: feature-major rows are
+    one wavefront a gather whatever the walk; at an odd stride the stumps
+    class's gathers cost more; blocks need no more wavefronts than the
+    two-word layout, in fewer loads."""
+    forest = synthetic.generate_forest(80, 3, 10, seed=1)
+    data = synthetic.generate_data(512, 10, missing_prob=0.05, seed=7)
+    eng = FoldKernelEngine(_port(forest), device=CPU)
+    x = eng.canonicalize(data)
+    w = fold_wavefronts(x, eng.tables)
+    assert w["rows"] == 512
+    assert w["per_gather"]["feature_major"] == 1.0
+    assert 1.0 < w["per_gather"]["row_major"] <= 32.0
+    per = w["per_warp_tree"]
+    assert per["nodes_blocks"] <= per["nodes_words"]
+    assert w["loads_per_row_tree"] == {"words": 10, "blocks": 6}
+    tot = w["total_per_warp_tree"]
+    assert tot["feature_major_blocks"] == min(tot.values())

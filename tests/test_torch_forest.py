@@ -210,13 +210,14 @@ def test_depth_bucketed_through_the_facade(tmp_path, cols, variant):
 
 
 # sweep families (scripts/run_sweep.py SHAPES): (trees, depth, cols, active,
-# the kernel measured faster on the H100)
+# the kernel fold_plan takes, measured the faster on the H100: PERF.md
+# section 6)
 SWEEP_SHAPES = {
-    "susy_like": (500, 8, 18, None, FOLD_DEEP),
-    "allstate_like": (250, 8, 130, None, FOLD_DEEP_SIGN),
-    "cup98_like": (150, 8, 479, 300, FOLD_DEEP_SIGN),
+    "susy_like": (500, 8, 18, None, FOLD),
+    "allstate_like": (250, 8, 130, None, FOLD_SIGN),
+    "cup98_like": (150, 8, 479, 300, FOLD_SIGN),
     "gisette_like": (100, 6, 5000, 120, FOLD_SIGN),
-    "mnist_like": (100, 6, 400, None, FOLD_DEEP_SIGN),
+    "mnist_like": (100, 6, 400, None, FOLD_SIGN),
     "deep13_like": (80, 13, 24, None, FOLD_DEEP),
     "deep15_like": (30, 15, 16, None, FOLD_DEEP),
     "stumps_like": (800, 3, 10, None, FOLD),
