@@ -52,12 +52,14 @@ Phases, each of which exits non-zero when it fails:
    on the SUSY-class forest and on phase 5's forest;
 12. the fused rank transform + traversal: RankFoldEngine(fuse_transform=
    True) on the SUSY-class forest and 65,536 rows, the fused kernel held to
-   its plain version and bit for bit to kernels A then B, the predictions
-   bit-equal to the unfused engine's and within ORACLE_ATOL of the oracle,
-   with only the fused kernel launching;
+   its plain version and bit for bit to kernels A then B, and timed against
+   them (both captured in one CUDA graph) by device time in alternating
+   rounds; the predictions bit-equal to the unfused engine's and within
+   ORACLE_ATOL of the oracle, with only the fused kernel launching;
 13. the probes of tahoe_tpu_torch/scripts (int8_cast_probe, overhead_bench,
    unit_bench) in-process, every probe kernel equal to its plain version,
-   each printing its JSON line.
+   each printing its JSON line; the int8 probe and torch._int_mm by device
+   time.
 
 Phases 6-12 run 65,536 rows each (phase 11's second forest 4,096) against
 the numpy oracle at ORACLE_ATOL,
@@ -765,17 +767,28 @@ def main() -> int:
                         (ROWS * steps, SCALAR_OPS_PER_S))
 
     def fused_kernel():
-        return rank_margins_fused_cuda(x, ft.thresholds, ft.counts, ft.mats,
-                                       ft.leaf, ft.depth)
+        return rank_margins_fused_cuda(x, ft.thresholds, ft.counts,
+                                       ft.fused_records, ft.leaf, ft.depth)
+
+    def a_then_b():
+        return rank_margins_cuda(rank_planes_cuda(x, ft.thresholds, ft.counts),
+                                 ft.records, ft.leaf, ft.depth)
 
     hold("12", {"rank_fused": fused_kernel},
          lambda: rank_margins_fused_plain(x, ft.thresholds, ft.counts, ft.mats,
                                           ft.leaf, ft.depth),
-         {"rank_fused": fused_bound})
-    two = rank_margins_cuda(rank_planes_cuda(x, ft.thresholds, ft.counts),
-                            ft.records, ft.leaf, ft.depth)
+         {"rank_fused": fused_bound}, timer=cuda_device_ms)
+    two = a_then_b()
     if not torch.equal(fused_kernel(), two):
         fail("[12] the fused kernel is not bit-equal to kernels A then B")
+    # the fused kernel against kernels A and B captured together, in
+    # alternating rounds of device time
+    ab_times = alternating({"fused": fused_kernel, "A + B": a_then_b})
+    for name, (med, rounds) in ab_times.items():
+        print(f"[12] {name}: device time median {med:.4f} ms, rounds "
+              f"{', '.join(f'{r:.4f}' for r in rounds)} ({card})")
+    print(f"[12] fused / (A + B): "
+          f"{ab_times['fused'][0] / ab_times['A + B'][0]:.4f} ({card})")
     rows_d = torch.as_tensor(data, device=dev)
     unfused = RankFoldEngine(forest, device=dev)
     for k in all_kernels.values():
@@ -794,18 +807,11 @@ def main() -> int:
         fail(f"[12] fused predict: max |pred - oracle| {err} > {ORACLE_ATOL}")
     us_fused = cuda_median_ms(lambda: fused.predict(rows_d)) * 1e3 / ROWS
     us_unfused = cuda_median_ms(lambda: unfused.predict(rows_d)) * 1e3 / ROWS
-    planes = rank_planes_cuda(x, ft.thresholds, ft.counts)
-    a_ms = cuda_device_ms(lambda: rank_planes_cuda(x, ft.thresholds, ft.counts))
-    b_ms = cuda_median_ms(lambda: rank_margins_cuda(planes, ft.records, ft.leaf,
-                                                    ft.depth))
-    f_ms = cuda_median_ms(fused_kernel)
     print(f"[12] RANK_MXU fused: max |pred - oracle| {err} (tolerance "
           f"{ORACLE_ATOL}), bit-equal to the unfused engine; {us_fused:.6f} "
           f"us/sample fused, {us_unfused:.6f} unfused, over {ROWS} rows; "
-          f"launches {counts}; kernels: fused {f_ms:.4f} ms, A {a_ms:.4f} + "
-          f"B {b_ms:.4f} = {a_ms + b_ms:.4f} ms, fused / (A + B) "
-          f"{f_ms / (a_ms + b_ms):.4f} ({card})")
-    del fused, x, planes, two, pred, rows_d
+          f"launches {counts} ({card})")
+    del fused, x, two, pred, rows_d
 
     # 13. the probes, in-process
     probes = {"probe_int8": (PROBE_INT8, int8_cast_probe),

@@ -6,6 +6,7 @@
 #include <cstdint>
 #include <mutex>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #define TAHOE_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -45,10 +46,6 @@ template <typename Kernel>
 static inline cudaError_t tahoe_grant_smem(Kernel* kernel, size_t bytes) {
     return tahoe_grant_smem_fn(reinterpret_cast<const void*>(kernel), bytes);
 }
-
-// The fused kernel (rank_fused.cu) and the probes (probes.cu) descend this
-// many trees together to overlap their load chains.
-constexpr int kTreesInFlight = 4;
 
 // The fold's node forms (ops/fold_kernel.py module docstring), as the
 // kernels read them from a block's 10-bit code field (ops/fold_kernel.py
@@ -168,62 +165,115 @@ static __device__ __forceinline__ void tahoe_mbar_wait(uint64_t* bar, int parity
     }
 }
 
-// Sum of one int over the 32 lanes of a warp; every lane gets the total.
-static __device__ __forceinline__ int tahoe_warp_sum(int v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
 // The rank planes' layout per 30-feature group of 128 lanes
 // (compiler.rank_normalize): [0,30) qh | [30,60) ql | [60,90) -qh |
 // [90,120) -ql | 120: 127 | 121: 1 | 122-127: 0.
 constexpr int kRankGroupCols = 30;  // compiler.RANK_GROUP_COLS
 constexpr int kRankBase = 127;      // compiler.RANK_BASE
 
-// Kernel A's per-lane work, which kernel A (rank_transform.cu) and the
-// fused kernel (rank_fused.cu) both run. Lane ``i`` of the warp given
-// to one (row, group): a lane i < 30 ranks feature f = 30*g + i of the row
-// ``xr`` (F features) among its count[f] sorted thresholds (row f of the
-// [F, K] table ``thr``) by binary search, q = #{u <= v}, and writes the
-// group's plane bytes i, 30+i, 60+i, 90+i of ``o`` (qh, ql, -qh, -ql with
-// q = 127*qh + ql; -128 in all four for a missing (NaN) value; 0 past the
-// last feature). Lane 30 writes the constant lanes 120-127. Plain float
-// compares give the reference's rank (-0.0 == +0.0, denormals kept: no
-// fast-math).
-static __device__ __forceinline__ void tahoe_rank_lanes(
-        const float* __restrict__ xr, int F, int g, const float* __restrict__ thr,
-        int K, const int* __restrict__ counts, int8_t* o, int i) {
-    if (i < kRankGroupCols) {
-        const int f = g * kRankGroupCols + i;
-        int8_t qh = 0, ql = 0, nqh = 0, nql = 0;
-        if (f < F) {
-            const float v = xr[f];
-            if (v != v) {  // missing: -128 in all four segments
-                qh = ql = nqh = nql = -128;
-            } else {
-                const float* u = thr + static_cast<long long>(f) * K;
-                int lo = 0, hi = counts[f];
-                while (lo < hi) {  // first index with u > v
-                    const int mid = (lo + hi) >> 1;
-                    if (u[mid] <= v) lo = mid + 1; else hi = mid;
-                }
-                const int h = lo / kRankBase;
-                const int l = lo - kRankBase * h;
-                qh = static_cast<int8_t>(h);
-                ql = static_cast<int8_t>(l);
-                nqh = static_cast<int8_t>(-h);
-                nql = static_cast<int8_t>(-l);
-            }
-        }
-        o[i] = qh;
-        o[kRankGroupCols + i] = ql;
-        o[2 * kRankGroupCols + i] = nqh;
-        o[3 * kRankGroupCols + i] = nql;
-    } else if (i == kRankGroupCols) {  // lanes 120..127: 127, 1, then zeros
-        o[120] = 127;
-        o[121] = 1;
-#pragma unroll
-        for (int k = 122; k < 128; ++k) o[k] = 0;
+// The rank search that kernel A (rank_transform.cu) and the fused kernel
+// (rank_fused.cu) share: q = #{u <= v} of a value v among the count[f]
+// sorted thresholds u of one row of an [F, K] table (+inf past count[f]),
+// in two dependent reads. A coarse index of every S-th threshold, staged in
+// shared memory (padded with NaN to Mp, a power of two), is searched
+// branch-free; then one aligned window of kRankWindow thresholds is counted
+// in device memory. Plain float compares give the reference's rank (-0.0 ==
+// +0.0, denormals kept: no fast-math). The tables are K % kRankWindow == 0
+// and 16-byte aligned, so that every window is an aligned 64 bytes
+// (ops/rank_transform.py TABLE_ALIGN).
+constexpr int kRankWindow = 16;                // thresholds counted in device memory
+constexpr int kRankCoarseBytes = 64 * 1024;    // coarse index budget a block
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// The coarse index of Fg features of a K-threshold table: stride S (the
+// window, doubled while the index padded to a power of two would pass
+// kRankCoarseBytes), M entries a feature, padded to Mp.
+struct RankCoarse { int S, M, Mp; };
+
+static inline RankCoarse tahoe_rank_coarse(int K, int Fg) {
+    RankCoarse c{kRankWindow, 0, 1};
+    for (;; c.S *= 2) {
+        c.M = (K + c.S - 1) / c.S;
+        for (c.Mp = 1; c.Mp < c.M; c.Mp *= 2) {}
+        if (static_cast<long long>(Fg) * c.Mp * 4 <= kRankCoarseBytes) return c;
     }
+}
+
+// The coarse index [Fg, Mp] of the features f0.. f0 + Fg - 1, staged by the
+// block's threads in turn: c[m] = u[S*m], NaN from M on (NaN compares false
+// for every v, +inf included).
+static __device__ __forceinline__ void tahoe_rank_stage_coarse(
+        float* coarse, const float* __restrict__ thr, int f0, int Fg, int K,
+        RankCoarse c) {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < Fg * c.Mp; i += blockDim.x) {
+        const int f = i / c.Mp;
+        const int m = i - f * c.Mp;
+        coarse[i] = m < c.M ? __ldg(thr + static_cast<long long>(f0 + f) * K +
+                                    static_cast<long long>(m) * c.S)
+                            : CUDART_NAN_F;
+    }
+}
+
+// The window b of a sorted row ``u`` of K floats, W = kRankWindow, with
+// u[W*b] <= v < u[W*(b+1)] (or W*(b+1) past the row), found with the coarse
+// index ``c`` of the row; -1 when v < u[0] (or v is NaN).
+static __device__ __forceinline__ int tahoe_rank_window(
+        float v, const float* __restrict__ c, RankCoarse rc,
+        const float* __restrict__ u, int K) {
+    int lo = 0;  // #{m : c[m] <= v}, branch-free
+    for (int step = rc.Mp >> 1; step > 0; step >>= 1)
+        lo += c[lo + step - 1] <= v ? step : 0;
+    lo += c[lo] <= v;  // the last entry of a run of Mp
+    if (lo == 0) return -1;
+    const int per = rc.S / kRankWindow;
+    int b = (lo - 1) * per;
+    int e = min(lo * per, (K + kRankWindow - 1) / kRankWindow);
+    while (e - b > 1) {  // only when S > kRankWindow
+        const int mid = (b + e) >> 1;
+        if (__ldg(u + mid * kRankWindow) <= v) b = mid; else e = mid;
+    }
+    return b;
+}
+
+// #{j < 16 : u[16b + j] <= v} for each lane's (v, b), b >= 0; every lane of
+// the warp on the same row u. The warp reads eight lanes' 64-byte windows an
+// instruction, four lanes a window with one 16-byte load each, all four
+// loads a lane issued before any is used; each lane packs its four counts in
+// bytes, and the four lanes of a window add them up by shuffles.
+static __device__ __forceinline__ int tahoe_rank_count(
+        float v, int b, const float* __restrict__ u, int lane) {
+    constexpr int kRounds = 4;  // 32 lanes' windows, 8 a round
+    float4 q[kRounds];
+    float vj[kRounds];
+#pragma unroll
+    for (int j = 0; j < kRounds; ++j) {
+        const int src = 8 * j + (lane >> 2);
+        const int bj = __shfl_sync(kFullMask, b, src);
+        vj[j] = __shfl_sync(kFullMask, v, src);
+        q[j] = bj >= 0
+            ? __ldg(reinterpret_cast<const float4*>(u + bj * kRankWindow + 4 * (lane & 3)))
+            : make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+    }
+    unsigned n = 0;  // byte j: this lane's count for the window of lane 8j + g
+#pragma unroll
+    for (int j = 0; j < kRounds; ++j)
+        n += ((q[j].x <= vj[j]) + (q[j].y <= vj[j]) + (q[j].z <= vj[j]) +
+              (q[j].w <= vj[j])) << (8 * j);
+    n += __shfl_xor_sync(kFullMask, n, 1);  // over the 4 lanes of a window
+    n += __shfl_xor_sync(kFullMask, n, 2);
+    // lane 8j + g takes byte j from the lanes 4g..4g+3
+    return (__shfl_sync(kFullMask, n, 4 * (lane & 7)) >> (8 * (lane >> 3))) & 0xFF;
+}
+
+// The rank q of each lane's value v (NaN: -1, missing) among the count
+// thresholds of the row ``u`` of the table, with its coarse index ``c``.
+// Warp-uniform: every lane of the warp calls it on the same feature.
+static __device__ __forceinline__ int tahoe_rank_search(
+        float v, const float* __restrict__ c, RankCoarse rc,
+        const float* __restrict__ u, int K, int count, int lane) {
+    const int b = v == v ? tahoe_rank_window(v, c, rc, u, K) : -1;
+    const int n = tahoe_rank_count(v, b, u, lane);
+    if (v != v) return -1;
+    return b < 0 ? 0 : min(b * kRankWindow + n, count);
 }

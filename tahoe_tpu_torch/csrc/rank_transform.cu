@@ -40,76 +40,17 @@
 // - The tile's x is staged feature-major in shared memory, its loads issued
 //   before the previous tile's search; the planes are assembled in shared
 //   memory at an odd word stride and written with coalesced 16-byte stores.
-// The fused kernel (rank_fused.cu) keeps its own per-lane binary search,
-// tahoe_rank_lanes (common.cuh).
-#include <math_constants.h>
-
+// The search itself (tahoe_rank_search, common.cuh) is the fused kernel's
+// (rank_fused.cu) too.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBlock = 1024;                // one block an SM
 constexpr int kTileRows = 256;              // a power of two: a warp's pairs share a feature
-constexpr int kWindow = 16;                 // thresholds counted in device memory
-constexpr int kCoarseBytes = 64 * 1024;     // coarse index budget a block
 constexpr int kSlotWords = 33;              // a row's 128 plane bytes + a word: odd stride
 constexpr int kXStride = kTileRows + 1;     // staged x, feature-major: odd stride
 constexpr int kXRegs = (kRankGroupCols * kTileRows + kBlock - 1) / kBlock;
-constexpr unsigned kFull = 0xffffffffu;
-
-// The window b of a sorted row ``u`` of K floats, W = kWindow, with
-// u[W*b] <= v < u[W*(b+1)] (or W*(b+1) past the row), found with the coarse
-// index ``c``
-// (M entries, c[m] = u[S*m], NaN up to Mp, a power of two); -1 when
-// v < u[0].
-__device__ __forceinline__ int window_block(float v, const float* __restrict__ c,
-                                            int Mp, const float* __restrict__ u,
-                                            int K, int S) {
-    int lo = 0;  // #{m : c[m] <= v}, branch-free
-    for (int step = Mp >> 1; step > 0; step >>= 1)
-        lo += c[lo + step - 1] <= v ? step : 0;
-    lo += c[lo] <= v;  // the last entry of a run of Mp
-    if (lo == 0) return -1;
-    const int per = S / kWindow;
-    int b = (lo - 1) * per;
-    int e = min(lo * per, (K + kWindow - 1) / kWindow);
-    while (e - b > 1) {  // only when S > kWindow
-        const int mid = (b + e) >> 1;
-        if (__ldg(u + mid * kWindow) <= v) b = mid; else e = mid;
-    }
-    return b;
-}
-
-// #{j < 16 : u[16b + j] <= v} for each lane's (v, b), b >= 0; every lane of
-// the warp on the same row u, K % 16 == 0 and u 16-byte aligned. The warp
-// reads eight lanes' 64-byte windows an instruction, four lanes a window with
-// one 16-byte load each, all four loads a lane issued before any is used;
-// each lane packs its four counts in bytes, and the four lanes of a window
-// add them up by shuffles.
-__device__ __forceinline__ int count_window(float v, int b,
-                                            const float* __restrict__ u, int lane) {
-    constexpr int kRounds = 4;  // 32 lanes' windows, 8 a round
-    float4 q[kRounds];
-    float vj[kRounds];
-#pragma unroll
-    for (int j = 0; j < kRounds; ++j) {
-        const int src = 8 * j + (lane >> 2);
-        const int bj = __shfl_sync(kFull, b, src);
-        vj[j] = __shfl_sync(kFull, v, src);
-        q[j] = bj >= 0
-            ? __ldg(reinterpret_cast<const float4*>(u + bj * kWindow + 4 * (lane & 3)))
-            : make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
-    }
-    unsigned c = 0;  // byte j: this lane's count for the window of lane 8j + g
-#pragma unroll
-    for (int j = 0; j < kRounds; ++j)
-        c += ((q[j].x <= vj[j]) + (q[j].y <= vj[j]) + (q[j].z <= vj[j]) +
-              (q[j].w <= vj[j])) << (8 * j);
-    c += __shfl_xor_sync(kFull, c, 1);  // over the 4 lanes of a window
-    c += __shfl_xor_sync(kFull, c, 2);
-    // lane 8j + g takes byte j from the lanes 4g..4g+3
-    return (__shfl_sync(kFull, c, 4 * (lane & 7)) >> (8 * (lane >> 3))) & 0xFF;
-}
 
 // Tile ``tile``'s x, [Fg, kTileRows] feature-major: loaded into registers
 // (load_x), then written to shared memory (store_x), so the loads of the
@@ -138,7 +79,7 @@ __device__ __forceinline__ void store_x(float* xs, const float (&xr)[kXRegs], in
 __global__ void __launch_bounds__(kBlock, 1)
 rank_planes_kernel(const float* __restrict__ x, int rows, int F, int G,
                    const float* __restrict__ thr, int K,
-                   const int* __restrict__ counts, int S, int M, int Mp,
+                   const int* __restrict__ counts, RankCoarse rc,
                    int8_t* __restrict__ out) {
     extern __shared__ int smem_words[];
     int* slots = smem_words;  // kTileRows rows of kSlotWords words
@@ -147,20 +88,12 @@ rank_planes_kernel(const float* __restrict__ x, int rows, int F, int G,
     const int g = blockIdx.y;
     const int f0 = g * kRankGroupCols;
     const int Fg = max(0, min(kRankGroupCols, F - f0));
-    float* coarse = xs + Fg * kXStride;  // [Fg, Mp]
+    float* coarse = xs + Fg * kXStride;  // [Fg, rc.Mp]
     const int tiles = (rows + kTileRows - 1) / kTileRows;
     float xr[kXRegs];
     if (blockIdx.x < tiles) load_x(xr, x, rows, F, f0, Fg, blockIdx.x);
 
-#pragma unroll 4
-    for (int i = threadIdx.x; i < Fg * Mp; i += blockDim.x) {
-        const int f = i / Mp;
-        const int m = i - f * Mp;
-        // NaN past M compares false for every v, +inf included
-        coarse[i] = m < M ? __ldg(thr + static_cast<long long>(f0 + f) * K +
-                                  static_cast<long long>(m) * S)
-                          : CUDART_NAN_F;
-    }
+    tahoe_rank_stage_coarse(coarse, thr, f0, Fg, K, rc);
     // lanes no feature writes stay 0; lanes 120 and 121 hold 127 and 1
     for (int w = threadIdx.x; w < kTileRows * kSlotWords; w += blockDim.x)
         slots[w] = w % kSlotWords == 30 ? 0x017F : 0;
@@ -179,14 +112,13 @@ rank_planes_kernel(const float* __restrict__ x, int rows, int F, int G,
             const int i = pr / kTileRows;
             const int r = pr % kTileRows;
             const int f = f0 + i;
-            const float* u = thr + static_cast<long long>(f) * K;
             const float v = r < nrows ? xs[i * kXStride + r] : CUDART_NAN_F;
-            const int b = v == v ? window_block(v, coarse + i * Mp, Mp, u, K, S) : -1;
-            const int n = count_window(v, b, u, lane);
+            const int q = tahoe_rank_search(v, coarse + i * rc.Mp, rc,
+                                            thr + static_cast<long long>(f) * K, K,
+                                            __ldg(counts + f), lane);
             if (r >= nrows) continue;
             int8_t qh = -128, ql = -128, nqh = -128, nql = -128;  // missing
-            if (v == v) {
-                const int q = b < 0 ? 0 : min(b * kWindow + n, __ldg(counts + f));
+            if (q >= 0) {
                 const int h = q / kRankBase;
                 const int l = q - kRankBase * h;
                 qh = static_cast<int8_t>(h);
@@ -217,17 +149,10 @@ constexpr int kMaxDevices = 64;
 
 cudaError_t launch(const float* x, int rows, int F, int G, const float* thr,
                    int K, const int* counts, int8_t* out, cudaStream_t stream) {
-    // the coarse stride: kWindow thresholds, doubled while the group's index
-    // (padded to a power of two) would pass kCoarseBytes
     const int Fg = min(kRankGroupCols, F);
-    int S = kWindow, M = 0, Mp = 1;
-    for (;; S *= 2) {
-        M = (K + S - 1) / S;
-        for (Mp = 1; Mp < M; Mp *= 2) {}
-        if (static_cast<long long>(Fg) * Mp * 4 <= kCoarseBytes) break;
-    }
+    const RankCoarse rc = tahoe_rank_coarse(K, Fg);
     const size_t smem = (kTileRows * kSlotWords + static_cast<size_t>(Fg) * kXStride +
-                         static_cast<size_t>(Fg) * Mp) * 4;
+                         static_cast<size_t>(Fg) * rc.Mp) * 4;
     // the shared-memory grant (common.cuh) and the SM count, once a device:
     // no attribute call inside a CUDA graph capture
     static int sm_count[kMaxDevices];
@@ -247,7 +172,7 @@ cudaError_t launch(const float* x, int rows, int F, int G, const float* thr,
     const int per_group = max(1, min(tiles, sms / G));
     const dim3 grid(per_group, G);
     rank_planes_kernel<<<grid, kBlock, smem, stream>>>(
-        x, rows, F, G, thr, K, counts, S, M, Mp, out);
+        x, rows, F, G, thr, K, counts, rc, out);
     return cudaGetLastError();
 }
 
@@ -259,7 +184,7 @@ TAHOE_EXPORT int tahoe_rank_planes(const float* x, int rows, int F, int G,
     if (rows == 0) return 0;
     // F = 0 (a forest of leaves) gives one group of constant lanes; every
     // window is an aligned 64 bytes
-    if (F < 0 || K < kWindow || K % kWindow ||
+    if (F < 0 || K < kRankWindow || K % kRankWindow ||
         G != max(1, (F + kRankGroupCols - 1) / kRankGroupCols) || G > 16 ||
         reinterpret_cast<uintptr_t>(thr) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
         return static_cast<int>(cudaErrorInvalidValue);

@@ -14,13 +14,14 @@ R_d[:, node] with
 and in the levelize/rank_normalize layout node j of level d has its children
 at j (cond False) and j + 2^d (cond True) of level d + 1. A column has at
 most four nonzeros, so kernel B reads each node as one int32 record
-(``rank_records``) and computes the dot in closed form; its plain version,
-the fused kernel and the probes read the columns (``mats``).
+(``rank_records``) and computes the dot in closed form, as the fused kernel
+does; their plain versions and the probes read the columns (``mats``).
 
 With ``fuse_transform=True`` a forest of one plane group (<= 30 virtual
 features) whose widest feature has more than 256 thresholds runs the fused
-kernel (csrc/rank_fused.cu): kernels A and B in one launch, the planes kept
-in shared memory. That is the JAX engine's gate (rank_kernel.py:807-814,
+kernel (csrc/rank_fused.cu): kernel A's search and kernel B's walk in one
+launch, each row's pair values kept in shared memory and read through the
+records remapped to them (``fused_records``). That is the JAX engine's gate (rank_kernel.py:807-814,
 :1043) without its two TPU grid conditions (a split level, no stream-once
 chunking), which have no counterpart here; other forests run kernels A and
 B, as the JAX engine does.
@@ -71,6 +72,7 @@ from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
 from tahoe_tpu_torch.ops.rank_transform import (
     LANE,
+    TABLE_ALIGN,
     rank_planes,
     rank_planes_plain,
     threshold_table,
@@ -203,13 +205,16 @@ class RankTables(RankInput):
       column j of level d's R_d;
     - ``records`` [T, 2^D - 1] int32: the same nodes as kernel B's records
       (``rank_records``);
-    - ``leaf`` [T, 2^D] f32, in the mirror-composed rank_normalize order.
+    - ``leaf`` [T, 2^D] f32, in the mirror-composed rank_normalize order;
+    - ``fused_records`` [T, 2^D - 1] int32: the records as the fused kernel
+      reads them (``fused_records``), or None past one plane group.
     """
 
     mats: torch.Tensor
     records: torch.Tensor
     leaf: torch.Tensor
     depth: int
+    fused_records: torch.Tensor | None = None
 
 
 def rank_records(mats: np.ndarray) -> np.ndarray:
@@ -251,6 +256,28 @@ def rank_records(mats: np.ndarray) -> np.ndarray:
     return pack_records(k, lanes).reshape(T, N)
 
 
+def fused_records(records: np.ndarray, num_features: int) -> np.ndarray:
+    """Kernel B's records [T, N] of one plane group -> the fused kernel's.
+
+    The fused kernel stages a row's pair values compactly, 2F + 1 int16 for
+    F features: q of feature i at i, -q at F + i and a zero at 2F. Each
+    record keeps its k and points at the same value there: lane i (QH) ->
+    i, lane 60 + i (NQH) -> F + i, the pass-through lane 128 -> 2F. Raises on
+    any other lane."""
+    F = num_features
+    if not 1 <= F <= RANK_GROUP_COLS:
+        raise ValueError(f"one plane group holds 1..{RANK_GROUP_COLS} features; got {F}")
+    r = np.asarray(records, np.int32)
+    lane = r & RECORD_LANE_MASK
+    pos = lane < F
+    neg = (lane >= RANK_LANE_NQH) & (lane < RANK_LANE_NQH + F)
+    passing = lane == LANE
+    if not (pos | neg | passing).all():
+        raise ValueError("a record points at a lane past the forest's features")
+    compact = np.where(pos, lane, np.where(neg, lane - RANK_LANE_NQH + F, 2 * F))
+    return pack_records(r >> RECORD_LANE_BITS, compact)
+
+
 def pack_records(k: np.ndarray, lane: np.ndarray) -> np.ndarray:
     """(k, lane) -> int32 records ``(k << 12) | lane``; kernel B decodes
     ``lane = r & 0xFFF`` and ``k = r >> 12`` (arithmetic)."""
@@ -281,12 +308,16 @@ def rank_tables(spec: ForestSpec, band: int | None = None, *,
     node_cols = (np.concatenate([m.transpose(1, 2, 0) for m in mats], axis=1)
                  if mats else np.zeros((lev.num_trees, 0, K), np.int8))
     node_cols = np.ascontiguousarray(node_cols)
+    records = rank_records(node_cols)
     return RankTables(
         **fields,
         mats=torch.as_tensor(node_cols, device=device),
-        records=torch.as_tensor(rank_records(node_cols), device=device),
+        records=torch.as_tensor(records, device=device),
         leaf=torch.as_tensor(leaf, device=device),
         depth=lev.depth,
+        fused_records=(torch.as_tensor(fused_records(records, q.spec.num_cols),
+                                       device=device)
+                       if 1 <= q.spec.num_cols <= RANK_GROUP_COLS else None),
     )
 
 
@@ -365,15 +396,17 @@ def rank_margins_fused_plain(x: torch.Tensor, thresholds: torch.Tensor,
 
 
 def rank_margins_fused_cuda(x: torch.Tensor, thresholds: torch.Tensor,
-                            counts: torch.Tensor, mats: torch.Tensor,
+                            counts: torch.Tensor, records: torch.Tensor,
                             leaf: torch.Tensor, depth: int) -> torch.Tensor:
     """The fused kernel on the card (csrc/rank_fused.cu): rows [R, F_v] f32
-    (NaN = missing, F_v <= 30) -> margins [R] f32."""
+    (NaN = missing, F_v <= 30, one plane group), kernel A's aligned table
+    (K % 16 == 0, 16-byte aligned; rank_transform.aligned_table) and the
+    records ``fused_records`` built for F_v features -> margins [R] f32."""
     dev = x.device
     check_operand(x, "x", torch.float32, dev, 2)
     check_operand(thresholds, "thresholds", torch.float32, dev, 2)
     check_operand(counts, "counts", torch.int32, dev, 1)
-    check_operand(mats, "mats", torch.int8, dev, 3)
+    check_operand(records, "records", torch.int32, dev, 2)
     check_operand(leaf, "leaf", torch.float32, dev, 2)
     R, nf = x.shape
     T = leaf.shape[0]
@@ -382,23 +415,33 @@ def rank_margins_fused_cuda(x: torch.Tensor, thresholds: torch.Tensor,
                          f"features (one plane group); x has {nf}")
     if thresholds.shape[0] != nf or counts.shape[0] != nf:
         raise ValueError(f"tables cover {thresholds.shape[0]} features, x has {nf}")
-    if mats.shape != (T, (1 << depth) - 1, LANE) or leaf.shape[1] != 1 << depth:
+    if thresholds.shape[1] % TABLE_ALIGN or thresholds.data_ptr() % 16:
+        raise ValueError(f"the fused kernel takes kernel A's aligned table "
+                         f"(K % {TABLE_ALIGN} == 0, 16-byte aligned; "
+                         f"rank_transform.aligned_table); got K = "
+                         f"{thresholds.shape[1]} at {thresholds.data_ptr() % 16} "
+                         f"bytes past 16")
+    if (T < 1 or records.shape != (T, (1 << depth) - 1)
+            or leaf.shape[1] != 1 << depth):
         raise ValueError(
-            f"tables {tuple(mats.shape)} / {tuple(leaf.shape)} do not match "
-            f"depth {depth} and one plane group")
+            f"tables {tuple(records.shape)} / {tuple(leaf.shape)} do not "
+            f"match depth {depth}")
     out = torch.empty(R, dtype=torch.float32, device=dev)
     RANK_FUSED.launch(dev, ptr(x), R, nf, ptr(thresholds), thresholds.shape[1],
-                      ptr(counts), ptr(mats), T, depth, ptr(leaf), ptr(out))
+                      ptr(counts), ptr(records), T, depth, ptr(leaf), ptr(out))
     return out
 
 
-def rank_margins_fused(x: torch.Tensor, thresholds: torch.Tensor,
-                       counts: torch.Tensor, mats: torch.Tensor,
-                       leaf: torch.Tensor, depth: int) -> torch.Tensor:
+def rank_margins_fused(x: torch.Tensor, t: RankTables) -> torch.Tensor:
     """The fused kernel on a CUDA tensor, its plain version on a CPU tensor."""
     if x.device.type == "cpu":
-        return rank_margins_fused_plain(x, thresholds, counts, mats, leaf, depth)
-    return rank_margins_fused_cuda(x, thresholds, counts, mats, leaf, depth)
+        return rank_margins_fused_plain(x, t.thresholds, t.counts, t.mats, t.leaf,
+                                        t.depth)
+    if t.fused_records is None:
+        raise ValueError("the fused kernel takes one plane group; these tables "
+                         f"have {t.groups}")
+    return rank_margins_fused_cuda(x, t.thresholds, t.counts, t.fused_records,
+                                   t.leaf, t.depth)
 
 
 class RankFoldEngine:
@@ -451,8 +494,7 @@ class RankFoldEngine:
         if not self.fused:
             return self.margins_planes(self.transform(rows))
         t = self.tables
-        return rank_margins_fused(t.rows(rows, self.raw_missing), t.thresholds,
-                                  t.counts, t.mats, t.leaf, t.depth)
+        return rank_margins_fused(t.rows(rows, self.raw_missing), t)
 
     def _finish(self, margins: torch.Tensor) -> torch.Tensor:
         return apply_output_transform(margins, self.num_trees, self.output,

@@ -15,7 +15,9 @@ mma.sync m16n8k32 s8 (the tensor cores), and each must equal the numpy
 int32 product exactly: that says whether kernel B's dot could move to the
 tensor cores without losing exactness. Prints one JSON line: each check's
 verdict, its kernel time and its plain version's, and torch._int_mm on the
-same int8 operands as the library's time (median of 20 calls, CUDA events).
+scratch_dot operands (int8(x), W) as the library's time, all device times
+(utils/profiling.py cuda_device_ms: 20 calls replayed from a CUDA graph,
+since each call is shorter than the host's time to issue it).
 """
 from __future__ import annotations
 
@@ -26,10 +28,11 @@ import numpy as np
 from tahoe_tpu_torch.scripts import main
 
 
-def inputs():
-    """The original probe's x and W (numpy seed 0)."""
+def inputs(rows: int = 256):
+    """The original probe's x and W (numpy seed 0); at another row count, x
+    and W drawn the same way."""
     rng = np.random.default_rng(0)
-    x32 = rng.integers(-100, 100, (256, 128)).astype(np.int32)
+    x32 = rng.integers(-100, 100, (rows, 128)).astype(np.int32)
     w8 = rng.integers(-4, 4, (128, 128)).astype(np.int8)
     return x32, w8
 
@@ -46,7 +49,7 @@ def run(device) -> dict:
 
     from tahoe_tpu_torch.ops.probes import (
         INT8_MODES, int8_probe_cuda, int8_probe_plain)
-    from tahoe_tpu_torch.utils.profiling import cuda_median_ms
+    from tahoe_tpu_torch.utils.profiling import cuda_device_ms
 
     x32, w8 = inputs()
     x = torch.as_tensor(x32, device=device)
@@ -62,11 +65,11 @@ def run(device) -> dict:
         out["checks"][mode] = {
             "exact": bool(exact),
             "max_abs_err": int((got.long() - plain.long()).abs().max()),
-            "ms": cuda_median_ms(lambda: int8_probe_cuda(x, w, mode)),
-            "plain_ms": cuda_median_ms(lambda: int8_probe_plain(x, w, mode)),
+            "ms": cuda_device_ms(lambda: int8_probe_cuda(x, w, mode)),
+            "plain_ms": cuda_device_ms(lambda: int8_probe_plain(x, w, mode)),
         }
-    lhs = (x > 0).to(torch.int8)
-    out["library_int_mm_ms"] = cuda_median_ms(lambda: torch._int_mm(lhs, w))
+    lhs = x.to(torch.int8)
+    out["library_int_mm_ms"] = cuda_device_ms(lambda: torch._int_mm(lhs, w))
     out["all_exact"] = all(c["exact"] for c in out["checks"].values())
     return out
 

@@ -6,6 +6,8 @@
     python -m tahoe_tpu_torch.scripts.kernel_ab deep OTHER.cu [--rounds 5]
     python -m tahoe_tpu_torch.scripts.kernel_ab c OTHER.cu [--rounds 5]
     python -m tahoe_tpu_torch.scripts.kernel_ab route [--rounds 5]
+    python -m tahoe_tpu_torch.scripts.kernel_ab fused OTHER.cu [--rounds 5]
+    python -m tahoe_tpu_torch.scripts.kernel_ab int8 OTHER.cu [--rounds 5]
 
 ``a``: OTHER.cu is another version of ``csrc/rank_transform.cu`` (an earlier
 commit's, unpacked with ``git archive``), with the ``common.cuh`` it includes
@@ -66,6 +68,22 @@ same ``FoldTables``, on the shapes ``test_fold_plan_routes`` holds
 block (``c``), and where they differ from it also in the block of the most
 rows in half an SM alone (two blocks an SM, ``c_half``) and in the whole
 opt-in budget (``c_whole``), each with any tile of trees.
+
+``fused``: OTHER.cu is an earlier ``csrc/rank_fused.cu``, which read each
+visited node's int8 column (``tahoe_rank_fused(x, rows, F, thr, K, counts,
+mats, T, D, leaf, out)``). This tree's fused kernel runs as shipped and
+rebuilt at 128 rows a block (``FUSED_BUILDS``; the other layouts measured,
+kernel B's full pair staging, x staged a warp at a time and persistent
+blocks, lost or tied and were removed: PERF.md), beside kernels A and B
+in one CUDA graph, on SUSY-class, trained_mix-class and the widest band (30
+virtual features of 16,255 thresholds each, a 61 KB coarse index:
+``generate_forest(470, 10, 15, seed=5)``). Every build's margins must
+equal kernels A then B bit for bit.
+
+``int8``: OTHER.cu is an earlier ``csrc/probes.cu``. Its ``tahoe_probe_int8``
+and this tree's, each in all five modes, and ``torch._int_mm`` on the
+scratch_dot operands (int8(x), W), at M = 256 (the probe's own inputs) and
+M = 65,536; every output must equal the plain version exactly.
 
 Every other build is compiled alone, with this tree's nvcc flags, into a
 library of its own under ``build/tahoe_tpu_torch/``. Each time is
@@ -132,6 +150,9 @@ C_BUILDS = {
     "batch_always": ["-DTAHOE_FOLD_BATCH=2"],
 }
 WAVEFRONT_ROWS = 2048
+# fused: the builds of this tree's fused kernel off the shipped one
+FUSED_BUILDS = {"rows128": ["-DTAHOE_FUSED_ROWS=128"]}
+INT8_ROWS = (256, 65536)
 
 
 def card_line() -> str:
@@ -643,13 +664,117 @@ def run_c(other_lib, libs: dict, rounds: int) -> dict:
     return out
 
 
+def fused_cases():
+    from tahoe_tpu_torch.forest import synthetic
+
+    return {
+        "susy": (synthetic.susy_class_forest(seed=0), 18, 0.02, 1),
+        "trained_mix": (synthetic.generate_mixed_depth_forest(300, 12, 26, seed=1),
+                        26, 0.01, 8),
+        "widest_band": (synthetic.generate_forest(470, 10, 15, seed=5), 15, 0.02, 9),
+    }
+
+
+def run_fused(other_lib, libs: dict, rounds: int) -> dict:
+    import torch
+
+    from tahoe_tpu_torch.ops._build import ptr
+    from tahoe_tpu_torch.ops.rank_kernel import (
+        RANK_FUSED, RankFoldEngine, rank_margins_cuda, rank_margins_fused_cuda)
+    from tahoe_tpu_torch.ops.rank_transform import rank_planes_cuda
+    from tahoe_tpu_torch.forest import synthetic
+
+    fns_c = {name: bind(lib, "tahoe_rank_fused", RANK_FUSED.argtypes)
+             for name, lib in libs.items()}
+    old = bind(other_lib, "tahoe_rank_fused", RANK_FUSED.argtypes)
+    dev = torch.device("cuda", 0)
+    out = {}
+    for case, (forest, cols, missing, seed) in fused_cases().items():
+        eng = RankFoldEngine(forest, device=dev, fuse_transform=True)
+        t = eng.tables
+        x = t.rows(synthetic.generate_data(ROWS, cols, missing_prob=missing,
+                                           seed=seed), eng.raw_missing)
+
+        def build(fn, records, x=x, t=t):
+            def call():
+                m = torch.empty(x.shape[0], dtype=torch.float32, device=dev)
+                checked(fn(ptr(x), x.shape[0], x.shape[1], ptr(t.thresholds),
+                           t.thresholds.shape[1], ptr(t.counts), ptr(records),
+                           t.leaf.shape[0], t.depth, ptr(t.leaf), ptr(m), stream()),
+                        "tahoe_rank_fused")
+                return m
+            return call
+
+        fns = {"this": lambda x=x, t=t: rank_margins_fused_cuda(
+            x, t.thresholds, t.counts, t.fused_records, t.leaf, t.depth)}
+        fns.update({name: build(fn, t.fused_records) for name, fn in fns_c.items()})
+        fns["other"] = build(old, t.mats)
+        fns["a_then_b"] = lambda x=x, t=t: rank_margins_cuda(
+            rank_planes_cuda(x, t.thresholds, t.counts), t.records, t.leaf, t.depth)
+        want = fns["a_then_b"]()
+        exact = {k: bool(torch.equal(fn(), want)) for k, fn in fns.items()}
+        times = timed_rounds(fns, rounds)
+        ab = times["a_then_b"]["median_ms"]
+        out[case] = {"features": x.shape[1], "table": list(t.thresholds.shape),
+                     "depth": t.depth, "trees": t.leaf.shape[0], "ok": all(exact.values()),
+                     "exact": exact, "times": times,
+                     "over_a_then_b": {k: v["median_ms"] / ab for k, v in times.items()}}
+    return out
+
+
+def run_int8(other_lib, rounds: int) -> dict:
+    import torch
+
+    from tahoe_tpu_torch.ops._build import ptr
+    from tahoe_tpu_torch.ops.probes import (
+        INT8_MODES, PROBE_INT8, int8_probe_cuda, int8_probe_plain)
+    from tahoe_tpu_torch.scripts import int8_cast_probe
+
+    old = bind(other_lib, "tahoe_probe_int8", PROBE_INT8.argtypes)
+    dev = torch.device("cuda", 0)
+    out = {}
+    for m in INT8_ROWS:
+        x32, w8 = int8_cast_probe.inputs(m)
+        x = torch.as_tensor(x32, device=dev)
+        w = torch.as_tensor(w8, device=dev)
+        lhs = x.to(torch.int8)
+        fns, exact = {}, {}
+        for mode in INT8_MODES:
+            i = INT8_MODES.index(mode)
+
+            def other(mode=mode, i=i):
+                o = torch.empty(m, 128, dtype=torch.int8 if i == 0 else torch.int32,
+                                device=dev)
+                checked(old(ptr(x), m, ptr(w), i, ptr(o), stream()), "tahoe_probe_int8")
+                return o
+
+            fns[f"this_{mode}"] = lambda mode=mode: int8_probe_cuda(x, w, mode)
+            fns[f"other_{mode}"] = other
+            want = int8_probe_plain(x, w, mode)
+            exact[mode] = {k: bool(torch.equal(fns[f"{k}_{mode}"](), want))
+                           for k in ("this", "other")}
+        fns["int_mm"] = lambda: torch._int_mm(lhs, w)
+        exact["int_mm"] = {"library": bool(torch.equal(
+            fns["int_mm"](), int8_probe_plain(x, w, "scratch_dot_mma")))}
+        times = timed_rounds(fns, rounds)
+        bound_ms = (2 * m * 128 * 4) / 3.35e12 * 1e3  # x int32 in, int32 out
+        out[str(m)] = {
+            "ok": all(all(v.values()) for v in exact.values()), "exact": exact,
+            "times": times, "bound_ms": bound_ms,
+            "mma_over_int_mm": (times["this_scratch_dot_mma"]["median_ms"]
+                                / times["int_mm"]["median_ms"]),
+            "mma_over_bound": times["this_scratch_dot_mma"]["median_ms"] / bound_ms}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=["a", "b", "sparse", "deep", "c", "route"])
+    ap.add_argument("mode", choices=["a", "b", "sparse", "deep", "c", "route",
+                                     "fused", "int8"])
     ap.add_argument("other", type=Path, nargs="?")
     ap.add_argument("--rounds", type=int, default=None)
     args = ap.parse_args()
-    if args.mode in ("a", "sparse", "deep", "c") and args.other is None:
+    if args.mode in ("a", "sparse", "deep", "c", "fused", "int8") and args.other is None:
         ap.error(f"mode {args.mode} takes OTHER.cu")
     import torch
 
@@ -698,6 +823,15 @@ def main() -> int:
         builds["other"] = (args.other.resolve(), [])
         libs = build_alone(builds)
         res = run_c(libs.pop("other"), libs, args.rounds or 5)
+    elif args.mode == "fused":
+        src = _build.CSRC / "rank_fused.cu"
+        builds = {name: (src, defines) for name, defines in FUSED_BUILDS.items()}
+        builds["other"] = (args.other.resolve(), [])
+        libs = build_alone(builds)
+        res = run_fused(libs.pop("other"), libs, args.rounds or 5)
+    elif args.mode == "int8":
+        libs = build_alone({"other": (args.other.resolve(), [])})
+        res = run_int8(libs["other"], args.rounds or 5)
     else:
         res = run_route(args.rounds or 5)
     if args.mode in ("a", "b"):

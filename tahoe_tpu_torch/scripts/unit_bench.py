@@ -51,7 +51,7 @@ def run(device, rows=ROWS) -> dict:
            "rank_fold_ms": cuda_median_ms(
                lambda: rank_margins_cuda(planes, t.records, t.leaf, t.depth)),
            "rank_fused_ms": cuda_median_ms(lambda: rank_margins_fused_cuda(
-               x, t.thresholds, t.counts, t.mats, t.leaf, t.depth))}
+               x, t.thresholds, t.counts, t.fused_records, t.leaf, t.depth))}
     for mode in RANK_PARTS_MODES:
         got = rank_parts_probe_cuda(planes, t.mats, t.leaf, t.depth, mode)
         plain = rank_parts_probe_plain(planes, t.mats, t.leaf, t.depth, mode)

@@ -491,32 +491,58 @@ def test_facade_sparse_and_plain_strategies(dev):
         assert {k for k, c in zip(kernels, counts) if k.launches > c} == launched
 
 
-@pytest.mark.parametrize("case", ["susy_like", "sentinel_swapped", "banded"])
+def _fused_edge_rows(data, missing):
+    """Rows that every search must rank as kernel A does: one all missing
+    (the forest's own ``missing`` value), one of +0.0 and one of -0.0,
+    denormals of both signs, +inf and -inf."""
+    data = data.copy()
+    data[3] = missing
+    data[4] = 0.0
+    data[5] = -0.0
+    data[6, ::2], data[6, 1::2] = 1e-40, -1e-40
+    data[7] = np.inf
+    data[8] = -np.inf
+    return data
+
+
+@pytest.mark.parametrize("case", ["susy_like", "sentinel_swapped", "banded",
+                                  "widest_band"])
 def test_rank_fused_kernel(dev, case):
     """The fused kernel is bit for bit kernel A then kernel B on the same
-    rows and tables, and within KERNEL_ATOL of its plain version."""
+    rows and tables, and within KERNEL_ATOL of its plain version: at the
+    widest band too (30 virtual features of 16,255 thresholds, a coarse
+    index of stride 32 and 61 KB), at row counts that are not a multiple of
+    the block's, on rows all missing and on +-0.0, denormals and +-inf."""
     forest, band = {
         "susy_like": (synthetic.generate_forest(60, 8, 18, seed=51), None),
         "sentinel_swapped": (compiler.hot_child_swap(synthetic.generate_forest(
             40, 7, 12, leaf_prob=0.1, missing=-999.0, seed=52)), None),
         "banded": (synthetic.generate_forest(30, 6, 9, seed=53), 80),
+        "widest_band": (synthetic.generate_forest(470, 10, 15, seed=5), None),
     }[case]
-    data = _data(3000, forest.num_cols, 54, missing=forest.missing)
+    data = _fused_edge_rows(_data(3000, forest.num_cols, 54, missing=forest.missing),
+                            forest.missing)
     eng = RankFoldEngine(forest, device=dev, band=band, fuse_transform=True)
     t = eng.tables
     assert eng.groups == 1 and eng.fused == (band is None)
+    if case == "widest_band":
+        assert tuple(t.thresholds.shape) == (30, 16256)
     x = t.rows(data, eng.raw_missing)
-    before = RANK_FUSED.launches
-    got = rank_margins_fused_cuda(x, t.thresholds, t.counts, t.mats, t.leaf,
-                                  t.depth)
-    torch.cuda.synchronize()
-    assert RANK_FUSED.launches == before + 1
-    two = rank_margins_cuda(rank_planes_cuda(x, t.thresholds, t.counts),
-                            t.records, t.leaf, t.depth)
-    assert torch.equal(got, two)
-    want = rank_margins_fused_plain(x, t.thresholds, t.counts, t.mats, t.leaf,
-                                    t.depth)
-    assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+    assert bool(torch.isnan(x[3]).all())
+    for rows in (3000, 1, 257):
+        xr = x[:rows].contiguous()
+        before = RANK_FUSED.launches
+        got = rank_margins_fused_cuda(xr, t.thresholds, t.counts, t.fused_records,
+                                      t.leaf, t.depth)
+        torch.cuda.synchronize()
+        assert RANK_FUSED.launches == before + 1
+        assert got.shape == (rows,)
+        two = rank_margins_cuda(rank_planes_cuda(xr, t.thresholds, t.counts),
+                                t.records, t.leaf, t.depth)
+        assert torch.equal(got, two)
+        want = rank_margins_fused_plain(xr, t.thresholds, t.counts, t.mats,
+                                        t.leaf, t.depth)
+        assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
     np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
                                Forest(forest, device="cpu").predict_oracle(data),
                                atol=ORACLE_ATOL, rtol=0)
@@ -536,24 +562,29 @@ def test_fused_engine_launches_only_the_fused_kernel(dev):
     assert torch.equal(got, unfused.predict(data))
     with pytest.raises(ValueError, match="one plane group"):
         x = torch.zeros(8, 40, device=dev)
-        thr = torch.zeros(40, 4, device=dev)
+        thr = torch.zeros(40, 16, device=dev)
         rank_margins_fused_cuda(x, thr, torch.zeros(40, dtype=torch.int32,
                                                     device=dev),
-                                eng.tables.mats, eng.tables.leaf, eng.tables.depth)
+                                eng.tables.fused_records, eng.tables.leaf,
+                                eng.tables.depth)
 
 
 @pytest.mark.parametrize("mode", INT8_MODES)
 def test_probe_int8_kernel(dev, mode):
-    x32, w8 = int8_cast_probe.inputs()
-    x = torch.as_tensor(x32, device=dev)
-    w = torch.as_tensor(w8, device=dev)
-    before = PROBE_INT8.launches
-    got = int8_probe_cuda(x, w, mode)
-    torch.cuda.synchronize()
-    assert PROBE_INT8.launches == before + 1
-    assert torch.equal(got, int8_probe_plain(x, w, mode))
-    np.testing.assert_array_equal(got.cpu().numpy(),
-                                  int8_cast_probe.numpy_reference(x32, w8, mode))
+    """Each mode exact against numpy and the plain version, at the probe's
+    256 rows (two 128-row tiles), at 272 (a last tile of one warp's 16 rows)
+    and at 65,536 (each block looping over several tiles)."""
+    for rows in (256, 272, 65536):
+        x32, w8 = int8_cast_probe.inputs(rows)
+        x = torch.as_tensor(x32, device=dev)
+        w = torch.as_tensor(w8, device=dev)
+        before = PROBE_INT8.launches
+        got = int8_probe_cuda(x, w, mode)
+        torch.cuda.synchronize()
+        assert PROBE_INT8.launches == before + 1
+        assert torch.equal(got, int8_probe_plain(x, w, mode))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      int8_cast_probe.numpy_reference(x32, w8, mode))
 
 
 def _probe_tables(dev, cols):
@@ -621,9 +652,10 @@ def test_redesigned_kernels_at_row_counts(dev, rows):
 
 
 def test_launchers_capture_in_a_cuda_graph(dev):
-    """The launchers that grant shared memory (kernels A and B, kernel C in
-    its dual, sign and non-ge forms, the deep kernel in its sign and non-ge
-    forms, the sparse kernel) give inside a CUDA graph what they give outside
+    """The launchers that grant shared memory (kernels A and B, the fused
+    kernel on SUSY-class tables, kernel C in its dual, sign and non-ge
+    forms, the deep kernel in its sign and non-ge forms, the sparse kernel)
+    give inside a CUDA graph what they give outside
     it: no attribute call falls in the capture. Kernel C's forms take the
     whole opt-in budget back to back, the sign form the smaller, so that a
     grant keyed by anything less than the kernel leaves the sign form's
@@ -633,6 +665,10 @@ def test_launchers_capture_in_a_cuda_graph(dev):
     rt = rank.tables
     x = rt.rows(_data(4096, 18, 62), rank.raw_missing)
     planes = rank_planes_cuda(x, rt.thresholds, rt.counts)
+    susy = RankFoldEngine(synthetic.susy_class_forest(seed=0), device=dev,
+                          fuse_transform=True)
+    ft = susy.tables
+    xf = ft.rows(_data(4096, 18, 62), susy.raw_missing)
     dual = FoldKernelEngine(synthetic.generate_forest(200, 8, 18, seed=63),
                             device=dev)
     sign = FoldKernelEngine(_wide_forest(200, 7, 300, 120, seed=64), device=dev)
@@ -664,6 +700,9 @@ def test_launchers_capture_in_a_cuda_graph(dev):
     calls = {
         "rank_transform": lambda: rank_planes_cuda(x, rt.thresholds, rt.counts),
         "rank_fold": lambda: rank_margins_cuda(planes, rt.records, rt.leaf, rt.depth),
+        "rank_fused": lambda: rank_margins_fused_cuda(xf, ft.thresholds, ft.counts,
+                                                      ft.fused_records, ft.leaf,
+                                                      ft.depth),
         "fold dual, fold sign, fold nonge": lambda: torch.stack([
             fold_margins_cuda(xd, dual.tables, tables[dual], dl),
             fold_margins_cuda(xs, sign.tables, tables[sign], sl),

@@ -66,6 +66,19 @@ def _small(groups=1):
     return eng.transform(data), t.mats, t.leaf, t.depth
 
 
+@pytest.mark.parametrize("mode", INT8_MODES)
+def test_int8_plain_at_other_row_counts(mode):
+    """inputs() is the original probe's at 256 rows; at 272 rows (a last
+    tile of 16) the plain version is numpy's wrap and int32 product too."""
+    x256, w256 = int8_cast_probe.inputs()
+    x, w = int8_cast_probe.inputs(256)
+    assert np.array_equal(x, x256) and np.array_equal(w, w256)
+    x32, w8 = int8_cast_probe.inputs(272)
+    assert x32.shape == (272, 128) and w8.shape == (128, 128)
+    got = int8_probe(torch.as_tensor(x32), torch.as_tensor(w8), mode).numpy()
+    np.testing.assert_array_equal(got, int8_cast_probe.numpy_reference(x32, w8, mode))
+
+
 @pytest.mark.parametrize("groups", [1, 2])
 def test_overhead_plain_matches_numpy(groups):
     planes, mats, _, depth = _small(groups)
@@ -136,7 +149,7 @@ def test_probe_script_exits_2_without_a_card(name):
     assert proc.stdout == ""
 
 
-@pytest.mark.parametrize("mode", ["a", "b"])
+@pytest.mark.parametrize("mode", ["a", "b", "fused", "int8"])
 def test_kernel_ab_exits_2_without_a_card(tmp_path, mode):
     """The kernel A/B probe builds nothing and prints nothing without a card."""
     if torch.cuda.is_available():
@@ -147,7 +160,7 @@ def test_kernel_ab_exits_2_without_a_card(tmp_path, mode):
     env["PYTHONPATH"] = str(ROOT)
     proc = subprocess.run(
         [sys.executable, "-m", "tahoe_tpu_torch.scripts.kernel_ab", mode,
-         *([str(other)] if mode == "a" else [])],
+         *([] if mode == "b" else [str(other)])],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2 and "no CUDA device" in proc.stderr, proc.stderr
     assert proc.stdout == ""

@@ -22,7 +22,9 @@ from tahoe_tpu_torch.ops.rank_kernel import (
     RECORD_LANE_MASK,
     RankFoldEngine,
     _int32_matmul,
+    fused_records,
     pack_records,
+    rank_margins_fused_cuda,
     rank_margins_fused_plain,
     rank_margins_plain,
     rank_records,
@@ -328,3 +330,118 @@ def test_record_walk_matches_plain_and_jax(name):
     np.testing.assert_allclose(eng._finish(walked).numpy(),
                                np.asarray(jeng.predict(data)),
                                atol=JAX_ATOL, rtol=0)
+
+
+def _fused_walk(x, t):
+    """A torch twin of the fused kernel: kernel A's ranks (the plain
+    version's search), staged as the kernel stages them, 2F + 1 values a row
+    (q at i, -q at F + i, -16384 in both for a missing value, 0 at 2F), then
+    kernel B's walk over ``fused_records``; leaves summed in f64."""
+    R, F = x.shape
+    q = torch.searchsorted(t.thresholds, x.t().contiguous(), right=True).t()
+    q = torch.minimum(q, t.counts.to(q.dtype))
+    miss = torch.isnan(x)
+    v = torch.cat([torch.where(miss, -16384, q), torch.where(miss, -16384, -q),
+                   torch.zeros(R, 1, dtype=q.dtype)], dim=1)
+    records = t.fused_records
+    T = records.shape[0]
+    tree = torch.arange(T)
+    n = torch.zeros(R, T, dtype=torch.int64)
+    for d in range(t.depth):
+        r = records[tree, n].to(torch.int64)
+        diff = torch.gather(v, 1, r & RECORD_LANE_MASK) + (r >> RECORD_LANE_BITS)
+        n += (1 + (diff >= 0).long()) << d
+    return t.leaf[tree, n - ((1 << t.depth) - 1)].double().sum(dim=1).float()
+
+
+# (trees, depth, cols, leaf_prob, hot_swap, missing): early leaves (pass-
+# through records), hot-child-swapped nodes (the neg form), a finite
+# sentinel, one feature and thirty (a whole plane group)
+FUSED_WALK_CASES = {
+    "susy_small": (40, 8, 18, 0.0, False, float("nan")),
+    "early_leaves": (30, 7, 12, 0.35, False, float("nan")),
+    "hot_swapped": (30, 6, 18, 0.1, True, float("nan")),
+    "sentinel": (25, 6, 12, 0.15, True, -999.0),
+    "one_feature": (20, 5, 1, 0.1, True, float("nan")),
+    "thirty_features": (40, 7, 30, 0.1, True, float("nan")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_WALK_CASES))
+def test_fused_records_walk_matches_plain(name):
+    """The fused kernel's records (remapped on the host by fused_records),
+    walked over the 2F + 1 staged values, give the plain version's margins
+    bit for bit, on rows with -0.0, +0.0, denormals, +-inf and a row all
+    missing."""
+    trees, depth, cols, leaf_prob, swap, missing = FUSED_WALK_CASES[name]
+    forest = synthetic.generate_forest(trees, depth, cols, leaf_prob=leaf_prob,
+                                       missing=missing, seed=trees + depth + cols)
+    if swap:
+        forest = compiler.hot_child_swap(forest)
+    data = synthetic.generate_data(96, cols, missing=missing, missing_prob=0.1,
+                                   seed=cols + 7)
+    k = min(cols, forest.nodes_per_tree)
+    data[0, :k] = forest.values[0, :k]  # exact threshold hits
+    data[1], data[2, ::2], data[3] = missing, 1e-40, np.inf
+    data[4], data[5], data[6, ::2] = -0.0, 0.0, -np.inf
+    eng = RankFoldEngine(_port(forest), device=CPU)
+    t = eng.tables
+    x = t.rows(data, eng.raw_missing)
+    F = x.shape[1]
+    assert F == cols and t.fused_records.shape == t.records.shape
+    lanes = t.fused_records.numpy() & RECORD_LANE_MASK
+    assert lanes.max() <= 2 * F
+    if name == "early_leaves":
+        assert (lanes == 2 * F).any()
+    if swap:
+        assert ((lanes >= F) & (lanes < 2 * F)).any()
+    want = rank_margins_fused_plain(x, t.thresholds, t.counts, t.mats, t.leaf,
+                                    t.depth)
+    assert torch.equal(_fused_walk(x, t), want)
+    assert torch.equal(want, rank_margins_plain(eng.transform(data), t.mats,
+                                                t.leaf, t.depth))
+
+
+def test_fused_records_remap_lanes():
+    """QH lane i -> i, NQH lane 60 + i -> F + i, the pass-through lane 128 ->
+    2F, each k kept; a QL lane, a lane past F or an F past one group is
+    refused; tables past one plane group have no fused records."""
+    rmax = port_compiler.RANK_MAX
+    rec = pack_records(np.array([[-rmax, 5, rmax - 1, -1]]),
+                       np.array([[0, 64, 66, 128]]))
+    got = fused_records(rec, 7)
+    assert np.array_equal(got & RECORD_LANE_MASK, [[0, 11, 13, 14]])
+    assert np.array_equal(got >> RECORD_LANE_BITS, [[-rmax, 5, rmax - 1, -1]])
+    for lane, F in ((30, 7), (7, 7), (67, 7), (0, 0), (0, 31)):
+        with pytest.raises(ValueError):
+            fused_records(pack_records(np.array([[0]]), np.array([[lane]])), F)
+    two = rank_tables(_port(synthetic.generate_forest(20, 6, 45, seed=3)), None,
+                      device=CPU)
+    assert two.groups == 2 and two.fused_records is None
+
+
+def test_fused_wrapper_refuses_other_tables():
+    """The fused kernel's wrapper takes only kernel A's aligned table (K a
+    multiple of 16, 16-byte aligned) and rows of one plane group: it raises
+    before any launch."""
+    forest = synthetic.generate_forest(30, 6, 12, seed=97)
+    eng = RankFoldEngine(_port(forest), device=CPU, fuse_transform=True)
+    t = eng.tables
+    x = t.rows(synthetic.generate_data(16, 12, seed=98), eng.raw_missing)
+    rest = (t.counts, t.fused_records, t.leaf, t.depth)
+    K = t.thresholds.shape[1]
+    assert K % 16 == 0 and t.thresholds.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="aligned table"):
+        rank_margins_fused_cuda(x, t.thresholds[:, :K - 1].contiguous(), *rest)
+    shifted = torch.empty(t.thresholds.numel() + 1)[1:].view(t.thresholds.shape)
+    shifted.copy_(t.thresholds)
+    assert shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned table"):
+        rank_margins_fused_cuda(x, shifted, *rest)
+    wide = RankFoldEngine(_port(synthetic.generate_forest(20, 6, 45, seed=3)),
+                          device=CPU, fuse_transform=True)
+    wt = wide.tables
+    xw = wt.rows(synthetic.generate_data(16, 45, seed=99), wide.raw_missing)
+    with pytest.raises(ValueError, match="one plane group"):
+        rank_margins_fused_cuda(xw, wt.thresholds, wt.counts, t.fused_records,
+                                wt.leaf, wt.depth)
