@@ -59,7 +59,13 @@ Phases, each of which exits non-zero when it fails:
 13. the probes of tahoe_tpu_torch/scripts (int8_cast_probe, overhead_bench,
    unit_bench) in-process, every probe kernel equal to its plain version,
    each printing its JSON line; the int8 probe and torch._int_mm by device
-   time.
+   time; kernel B's walk taken apart on its own launch at 16,384 and 65,536
+   rows (noop, paths, stream, dot, descent, each by device time in the
+   same alternating rounds as kernel B, with its share of kernel B's time
+   and its bound; stream and dot also less the path words' own cost,
+   paths - noop), beside kernel B's L1 lines, sectors and shared wavefronts a
+   warp-visit reckoned from the walks of 2,048 rows
+   (ops/rank_kernel.py rank_wavefronts) and the SM cycles a warp-visit.
 
 Phases 6-12 run 65,536 rows each (phase 11's second forest 4,096) against
 the numpy oracle at ORACLE_ATOL,
@@ -102,6 +108,9 @@ KERNEL_ATOL = 1e-5  # kernel vs plain version: f64 leaf sums on both sides
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 SCALAR_OPS_PER_S = 67e12
+# the descent probe's node hash a visit (csrc/probes.cu): a XOR, a
+# multiply, a multiply-high, a shift, an AND and an add
+DESCENT_HASH_OPS = 6
 
 
 def nbytes(*tensors) -> int:
@@ -119,6 +128,18 @@ def bound(moved: int, *work):
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def sm_clock_mhz():
+    """The card's maximum SM clock in MHz (nvidia-smi), or None."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30, check=True)
+        return int(out.stdout.strip().splitlines()[0])
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+        return None
 
 
 def card_line(torch) -> str:
@@ -156,7 +177,8 @@ def main() -> int:
         PROBE_INT8, PROBE_OVERHEAD, PROBE_RANK_PARTS)
     from tahoe_tpu_torch.ops.rank_kernel import (
         RANK_FOLD, RANK_FUSED, RankFoldEngine, rank_margins_cuda,
-        rank_margins_fused_cuda, rank_margins_fused_plain, rank_margins_plain)
+        rank_margins_fused_cuda, rank_margins_fused_plain, rank_margins_plain,
+        rank_row_words, rank_wavefronts)
     from tahoe_tpu_torch.ops.rank_transform import (
         RANK_PLANES, rank_planes_cuda, rank_planes_plain)
     from tahoe_tpu_torch.ops.rows import canonicalize_rows
@@ -164,7 +186,8 @@ def main() -> int:
         SPARSE_RANK, SparseRankEngine, record_depths, sparse_block_walk,
         sparse_leaves_plain, sparse_margins_cuda, sparse_margins_plain)
     from tahoe_tpu_torch.scripts import int8_cast_probe, overhead_bench, unit_bench
-    from tahoe_tpu_torch.utils.profiling import cuda_device_ms, cuda_median_ms
+    from tahoe_tpu_torch.utils.profiling import (
+        alternating, cuda_device_ms, cuda_median_ms)
 
     dev = torch.device("cuda", 0)
     # the main path's kernels: RANK_MXU's kernels A and B, and the fold
@@ -219,11 +242,6 @@ def main() -> int:
         return bound(nbytes(x, thr, counts) + out,
                      (x.shape[0] * search_steps(counts), SCALAR_OPS_PER_S))
 
-    def column_ops(rows, mats, depth):
-        """int8 operations of a descent that reads each visited column
-        whole, as the probes do: 2 * 128*G per visit."""
-        return 2 * rows * mats.shape[0] * depth * mats.shape[2]
-
     def descent_ops(rows, records, depth):
         """A visited node's closed-form diff (two multiply-adds), the compare
         and the step; an add per leaf."""
@@ -233,16 +251,6 @@ def main() -> int:
     def rank_b_cost(planes, records, leaf, depth):
         return bound(nbytes(planes, records, leaf) + 4 * planes.shape[0],
                      (descent_ops(planes.shape[0], records, depth), SCALAR_OPS_PER_S))
-
-    def alternating(fns, rounds=5, calls=20):
-        """Device ms a call of each fn (cuda_device_ms over ``calls``
-        calls), in ``rounds`` rounds that take the fns in turn; returns
-        (median of the rounds, the rounds) per name."""
-        meds = {name: [] for name in fns}
-        for _ in range(rounds):
-            for name, fn in fns.items():
-                meds[name].append(cuda_device_ms(fn, calls=calls))
-        return {name: (statistics.median(v), v) for name, v in meds.items()}
 
     def fold_cost(x, t, *tables):
         """A compare per visited node (D a (row, tree) on the leveled
@@ -840,32 +848,80 @@ def main() -> int:
         i8["scratch_dot_mma"]["ms"], i8["scratch_dot_mma"]["plain_ms"],
         *bound(m * k_ * 4 + k_ * k_ + m * k_ * 4, (2 * m * k_ * k_, INT8_OPS_PER_S)),
         results["probe_int8"]["library_int_mm_ms"])]
-    big = results["probe_overhead"]["rows"][str(ROWS)]
+    # the walk probes: each mode's bound from its inputs at 65,536 rows, and
+    # kernel B's L1 reckoning on the same tables and rows
     rt = unfused.tables
-    T, D, K = rt.mats.shape[0], rt.depth, rt.mats.shape[2]
-    record["probe_overhead"] = [(
-        "13", max(r[mo]["max_abs_err"] for r in results["probe_overhead"]["rows"].values()
-                  for mo in ("noop", "stream")),
-        big["stream"]["ms"], big["stream"]["plain_ms"],
-        # the planes, the fixed path's columns once, and a XOR a lane-word
-        *bound(ROWS * K + T * D * K + 4 * ROWS, (ROWS * T * D * K // 4, SCALAR_OPS_PER_S)),
-        None)]
-    parts = results["probe_rank_parts"]
-    record["probe_rank_parts"] = [(
-        "13", max(parts[mo]["max_abs_err"] for mo in ("dot", "descent")),
-        parts["dot"]["ms"], parts["dot"]["plain_ms"],
-        *bound(ROWS * K + nbytes(rt.mats) + 4 * ROWS,
-               (column_ops(ROWS, rt.mats, D), INT8_OPS_PER_S)),
-        None)]
-    rank_fold_ms = parts["rank_fold_ms"]
-    print(f"[13] kernel B {rank_fold_ms:.4f} ms at {ROWS} rows: noop "
-          f"{big['noop']['ms']:.4f} ({big['noop']['share_of_rank_fold']:.4f}), "
-          f"stream {big['stream']['ms']:.4f} ({big['stream']['share_of_rank_fold']:.4f}), "
-          f"dot {parts['dot']['ms']:.4f} ({parts['dot']['share_of_rank_fold']:.4f}), "
-          f"descent {parts['descent']['ms']:.4f} "
-          f"({parts['descent']['share_of_rank_fold']:.4f}); fused "
-          f"{parts['rank_fused_ms']:.4f} ms ({card})")
-    del rt, unfused
+    planes = unfused.transform(data)
+    visits = ROWS * rt.records.shape[0] * rt.depth
+    staged = ROWS * rank_row_words(rt.groups)  # the staged sum's adds
+    path_bytes = -(-rt.records.shape[0] // 8) * 8 * ROWS  # walk_paths
+    walk_bytes = {"noop": nbytes(planes), "paths": nbytes(planes) + path_bytes,
+                  "descent": nbytes(planes, rt.leaf)}
+    walk_ops = {"noop": 0, "paths": ROWS * rt.records.shape[0],
+                "stream": 2 * visits + ROWS * rt.records.shape[0],
+                "dot": descent_ops(ROWS, rt.records, rt.depth),
+                "descent": descent_ops(ROWS, rt.records, rt.depth)
+                + DESCENT_HASH_OPS * visits}
+    walk_bound = {
+        m: bound(walk_bytes.get(m, nbytes(planes, rt.records, rt.leaf) + path_bytes)
+                 + 4 * ROWS,
+                 (walk_ops[m] + staged, SCALAR_OPS_PER_S))
+        for m in walk_ops}
+    modes = {**results["probe_overhead"]["rows"][str(ROWS)],
+             **results["probe_rank_parts"]["rows"][str(ROWS)]}
+    for name, mode in (("probe_overhead", "stream"), ("probe_rank_parts", "dot")):
+        rows_res = results[name]["rows"].values()
+        record[name] = [(
+            "13", max(r[m]["max_abs_err"] for r in rows_res
+                      for m in r if isinstance(r[m], dict)),
+            modes[mode]["ms"], modes[mode]["plain_ms"], *walk_bound[mode], None)]
+    waves = rank_wavefronts(planes, rt)
+    clock = sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    warp_visits = -(-ROWS // 32) * rt.records.shape[0] * rt.depth
+
+    def cycles(ms):
+        """SM cycles a warp-visit at ``clock`` (the card's maximum SM clock):
+        ms over the warp-visits each SM takes."""
+        return ms * 1e-3 * clock * 1e6 * sms / warp_visits if clock else None
+
+    WALK_ORDER = ("noop", "paths", "stream", "dot", "descent")
+    for n in (str(r) for r in overhead_bench.ROWS):
+        parts = {**results["probe_overhead"]["rows"][n],
+                 **results["probe_rank_parts"]["rows"][n]}
+        line = "; ".join(
+            f"{m} {parts[m]['ms']:.4f} ms ({parts[m]['share_of_rank_fold']:.4f} "
+            f"of kernel B" + (f", bound {walk_bound[m][0]:.4f} {walk_bound[m][1]}"
+                              if n == str(ROWS) else "") + ")"
+            for m in WALK_ORDER)
+        b_ms = parts["rank_fold_ms"]
+        print(f"[13] {n} rows: kernel B {b_ms:.4f} ms "
+              f"(overhead_bench's rounds) / "
+              f"{results['probe_rank_parts']['rows'][n]['rank_fold_ms']:.4f} "
+              f"(unit_bench's); {line} ({card})")
+        # stream and dot carry the path words, kernel B does not: their
+        # times less the words' own cost (paths - noop, timed alone)
+        words = parts["paths"]["ms"] - parts["noop"]["ms"]
+        print(f"[13] {n} rows: the path words alone (paths - noop) {words:.4f} ms "
+              f"({words / b_ms:.4f} of kernel B); less them: " + "; ".join(
+                  f"{m} {parts[m]['ms'] - words:.4f} ms "
+                  f"({(parts[m]['ms'] - words) / b_ms:.4f} of kernel B)"
+                  for m in ("stream", "dot")) + f" ({card})")
+    pv = waves["per_warp_visit"]
+    print(f"[13] kernel B's L1 a warp-visit, reckoned from the walks of "
+          f"{waves['rows']} rows: {pv['lines']:.3f} lines, {pv['sectors']:.3f} "
+          f"sectors of records, {pv['wavefronts']:.3f} shared wavefronts; by "
+          f"level: lines {[round(x, 3) for x in waves['per_level']['lines']]}, "
+          f"wavefronts {[round(x, 3) for x in waves['per_level']['wavefronts']]}")
+    if clock:
+        print(f"[13] SM cycles a warp-visit an SM at {clock} MHz, {sms} SMs, "
+              f"{warp_visits} warp-visits: kernel B "
+              f"{cycles(modes['rank_fold_ms']):.3f}, " + ", ".join(
+                  f"{m} {cycles(modes[m]['ms']):.3f}"
+                  for m in WALK_ORDER)
+              + f"; fused {cycles(results['probe_rank_parts']['rank_fused_ms']):.3f}"
+              f" (CUDA events) ({card})")
+    del rt, unfused, planes
 
     for name, checks in record.items():
         print(f"[record] {name}: " + "; ".join(

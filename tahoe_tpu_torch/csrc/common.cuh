@@ -277,3 +277,90 @@ static __device__ __forceinline__ int tahoe_rank_search(
     if (v != v) return -1;
     return b < 0 ? 0 : min(b * kRankWindow + n, count);
 }
+
+// Kernel B's walk (rank_fold.cu): its block, its row staging and its
+// per-visit body, shared with the probes that take the walk apart
+// (probes.cu), so that a probe cannot drift from the kernel it measures.
+// Both choices were measured (PERF.md); scripts/kernel_ab.py rebuilds
+// rank_fold.cu alone with other values to measure them again.
+#ifndef TAHOE_RANK_TREES
+#define TAHOE_RANK_TREES 8
+#endif
+#ifndef TAHOE_RANK_PAIR_GROUPS
+#define TAHOE_RANK_PAIR_GROUPS 1
+#endif
+constexpr int kRankMaxGroups = 16;             // compiler.RANK_MAX_GROUPS
+constexpr int kRankLaneQl = 30;                // compiler.RANK_LANE_QL - RANK_LANE_QH
+constexpr int kRankTrees = TAHOE_RANK_TREES;   // trees in flight a thread
+constexpr int kRankMaxPairGroups = TAHOE_RANK_PAIR_GROUPS;  // stage v up to this many groups
+constexpr int kRankMaxRows = 256;              // rows a block, at most
+constexpr int kRankSmemTarget = 96 * 1024;     // rows a block while they fit this
+
+// Shared-memory words of one staged row: v as int16 over lanes [0, 128G]
+// (v[128G] = 0), or the bytes with 32 zero bytes past lane 128G; both odd.
+static __host__ __device__ __forceinline__ constexpr int tahoe_rank_row_words(
+        int G, bool pairs) {
+    return pairs ? 64 * G + 1 : 32 * G + 9;
+}
+
+// Rows (and threads) of one block: as many whole warps as fit
+// kRankSmemTarget, at most kRankMaxRows.
+static inline int tahoe_rank_block_rows(int G, bool pairs) {
+    const int row_bytes = 4 * tahoe_rank_row_words(G, pairs);
+    return max(32, min(kRankMaxRows, (kRankSmemTarget / row_bytes) & ~31));
+}
+
+// The block's ``nrows`` rows from row0 into shared memory at an odd word
+// stride. kPairs: word w of a row holds v[2w] | v[2w + 1] << 16, with
+// v[lane] = 127 * p[lane] + p[lane + 30] and p past the row 0; else the
+// plane words, then 9 zero words.
+template <bool kPairs>
+static __device__ __forceinline__ void tahoe_rank_stage(
+        int* smem_words, const int8_t* __restrict__ planes, long long row0,
+        int nrows, int G) {
+    const int lanes = 128 * G;
+    const int stride = tahoe_rank_row_words(G, kPairs);
+    if constexpr (kPairs) {
+        const int8_t* src = planes + row0 * lanes;
+        for (int i = threadIdx.x; i < nrows * stride; i += blockDim.x) {
+            const int r = i / stride;
+            const int l = 2 * (i - r * stride);
+            const int8_t* p = src + static_cast<long long>(r) * lanes;
+            int v0 = 0, v1 = 0;
+            if (l < lanes) {
+                v0 = 127 * p[l] + (l + kRankLaneQl < lanes ? p[l + kRankLaneQl] : 0);
+                v1 = 127 * p[l + 1] +
+                     (l + 1 + kRankLaneQl < lanes ? p[l + 1 + kRankLaneQl] : 0);
+            }
+            smem_words[i] = (v0 & 0xFFFF) | (v1 << 16);
+        }
+    } else {
+        const int words = lanes / 4;
+        const int* src = reinterpret_cast<const int*>(planes) + row0 * words;
+        for (int i = threadIdx.x; i < nrows * stride; i += blockDim.x) {
+            const int r = i / stride;
+            const int w = i - r * stride;
+            smem_words[i] = w < words ? src[r * words + w] : 0;
+        }
+    }
+}
+
+// A visit's diff = 127 * p[lane] + p[lane + 30] + k on the row ``own``
+// staged by tahoe_rank_stage: one shared-memory read of v (kPairs) or two
+// of the bytes. cond = diff >= 0.
+template <bool kPairs>
+static __device__ __forceinline__ int tahoe_rank_diff(const int* own, int lane, int k) {
+    if constexpr (kPairs) {
+        return reinterpret_cast<const short*>(own)[lane] + k;
+    } else {
+        const int8_t* p = reinterpret_cast<const int8_t*>(own);
+        return 127 * p[lane] + p[lane + kRankLaneQl] + k;
+    }
+}
+
+// The same for a node record r = (k << 12) | lane (ops/rank_kernel.py
+// rank_records).
+template <bool kPairs>
+static __device__ __forceinline__ int tahoe_rank_record_diff(const int* own, int r) {
+    return tahoe_rank_diff<kPairs>(own, r & 0xFFF, r >> 12);
+}

@@ -1,7 +1,6 @@
-// Probe kernels: they take apart, on this card, the column walk that kernel B
-// (rank_fold.cu) ran before it read 4-byte node records (a warp a row, each
-// visited node's 128*G-byte column read whole, dp4a's and a warp sum), and
-// ask whether in-kernel int8 products are exact on the tensor cores.
+// Probe kernels: they take apart, on this card, the record walk that
+// kernel B (rank_fold.cu) runs, on kernel B's own launch, and ask whether
+// in-kernel int8 products are exact on the tensor cores.
 //
 // Replace the Pallas probes scripts/int8_cast_probe.py (:52, :75, :101),
 // scripts/overhead_bench.py (noop_margins, :107-146, pallas_call :138) and
@@ -30,29 +29,40 @@
 //   out (M = 65,536: 64 MiB, 0.020 ms at 3.35 TB/s; the int8 operations
 //   take 0.0011 ms); at M = 256, a few microseconds of latency.
 
-// tahoe_probe_overhead: the column walk's launch geometry (a warp a row,
-// 256 threads, lane k holding plane words k, k+32, ...) on its columns.
-//   mode 0 noop    out[row] = sum of the row's plane bytes
-//   mode 1 stream  the same XOR every word lane k reads of every column
-//                  the walk would read along the fixed path j = 0 (node
-//                  2^d - 1 of each level of each tree): the loads without
-//                  the dp4a's and the per-node shuffles
-//   Bound: the planes' bytes (128*G a row) for noop; stream reads T*D
-//   columns more, the same for every row, so they stay in L1/L2.
-//
-// tahoe_probe_rank_parts: the column walk's geometry, four trees in flight.
-//   mode 0 dot      every visited column read whole, __dp4a and the warp
-//                   sum, along the path j_d = h & (2^d - 1) with h a hash
-//                   of (row, tree): a root-to-leaf path whose addresses do
-//                   not wait on the conditions; the sums are added into the
-//                   output (mod 2^32) so that nothing is elided
-//   mode 1 descent  the dependent walk j += cond << d with cond the top bit
-//                   of a hash of (the row's plane-word sum, tree, level, j),
-//                   no column read, then the leaf of the final j, its bits
-//                   added into the output (mod 2^32)
-//   Bound (dot): the int8 operations of the visited columns, 2*128*G per
-//   (row, tree, level), as the column walk's. Descent reads only planes and
-//   leaves.
+// tahoe_probe_overhead and tahoe_probe_rank_parts: kernel B's walk in parts.
+//   Both take kernel B's inputs (planes [R, 128G] int8, records [T, 2^D - 1]
+//   int32, leaf [T, 2^D] f32) and its launch: a thread a row, its block and
+//   shared memory, its row staging and per-visit body (common.cuh
+//   tahoe_rank_*), kRankTrees trees in flight. Each writes one int32 a row,
+//   every sum mod 2^32: S, the sum of the row's staged words, plus, per tree,
+//   a part and the f32 bits of one leaf j. paths, stream and dot also take
+//   each walk's leaf j, given in advance (paths [ceil(T / 8), R] words of eight
+//   bytes: tree 8g + b in byte b of word (g, row); D <= 8): the walk's nodes
+//   2^d - 1 + (j & (2^d - 1)) are then known before any condition, and all
+//   D x kRankTrees record loads of a group are issued before any is used.
+//   overhead mode 0 noop     S alone: the launch, the staging and the write
+//            mode 1 stream   part = the XOR of the path's D records: the
+//                            walk's global loads alone
+//            mode 2 paths    j alone, with no record and no leaf read:
+//                            the path words' own cost, which stream and
+//                            dot carry and kernel B does not
+//   rank_parts mode 0 dot    part = sum over d of cond_d << d, cond_d kernel
+//                            B's own visit body (the shared read at the
+//                            record's lane, diff >= 0) on the path's
+//                            records (= j on the real walk): the whole
+//                            visit without the dependence
+//              mode 1 descent  kernel B's dependent walk n += (1 + cond) << d
+//                            with no record loaded: node n of tree t is
+//                            g = (key_t ^ n) * C3, key_t = mix32(t * C1 + C2),
+//                            lane = umulhi(g, 128G + 1) (the zero lane past
+//                            the row included), k = ((g >> 8) & 0x7FFF) -
+//                            16384; part = j = n - (2^D - 1), the leaf it
+//                            reaches: the walk without its global loads
+//   Bounds (chip_smoke.py): noop the planes' bytes; paths those and the
+//   path words'; stream a load and a XOR a visit; dot kernel B's four
+//   operations a visit; descent those and the node hash's six. The path
+//   words are read a group ahead and past L1: through L1 they evicted the
+//   records (stream 0.27 against 0.19 ms).
 #include "common.cuh"
 
 namespace {
@@ -278,15 +288,14 @@ cudaError_t launch_int8(const int* x, int M, const int8_t* w, void* out,
 }
 
 // ------------------------------------------------------ kernel B parts ----
-constexpr int kMaxGroups = 16;  // compiler.RANK_MAX_GROUPS
-constexpr int kTreesInFlight = 4;  // trees the column walk descended together
-
-// Sum of one int over the 32 lanes of a warp; every lane gets the total.
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
+enum WalkMode { kNoop = 0, kPaths, kStream, kDot, kDescent };
+// the modes that read the given paths
+__host__ __device__ constexpr bool reads_paths(int mode) {
+    return mode == kPaths || mode == kStream || mode == kDot;
 }
+static_assert(kRankTrees % 8 == 0, "the paths hold eight trees' leaves a word");
+constexpr int kPathLevels = 8;  // a path's leaf is a byte: D <= 8
+constexpr unsigned kC1 = 0x9E3779B1u, kC2 = 0x85EBCA6Bu, kC3 = 0x2C1B3C6Du;
 
 __device__ __forceinline__ unsigned mix32(unsigned v) {  // ops/probes.py mix32
     v ^= v >> 16;
@@ -297,97 +306,161 @@ __device__ __forceinline__ unsigned mix32(unsigned v) {  // ops/probes.py mix32
     return v;
 }
 
-__global__ void probe_overhead_kernel(const int8_t* __restrict__ planes,
-                                      int rows, int G,
-                                      const int8_t* __restrict__ mats, int T,
-                                      int D, int mode, int* __restrict__ out) {
-    const int lane = threadIdx.x & 31;
-    const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-    if (row >= rows) return;
-    const int* pw = reinterpret_cast<const int*>(planes + row * 128 * G);
-    int sum = 0;
-    unsigned x = 0;
-    for (int g = 0; g < G; ++g) {
-        const int v = pw[32 * g + lane];
-        sum += (v << 24 >> 24) + (v << 16 >> 24) + (v << 8 >> 24) + (v >> 24);
-    }
-    if (mode == 1) {
-        const long long words = 32LL * G;
-        const long long N = (1LL << D) - 1;
-        const int* m = reinterpret_cast<const int*>(mats);
-        for (int t = 0; t < T; ++t)
-            for (int d = 0; d < D; ++d)
-                for (int g = 0; g < G; ++g)
-                    x ^= static_cast<unsigned>(
-                        __ldg(m + (t * N + (1LL << d) - 1) * words + 32 * g + lane));
-    }
-    // one reduction a row, not one a node
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x ^= __shfl_xor_sync(0xffffffffu, x, o);
-    if (lane == 0) out[row] = static_cast<int>(static_cast<unsigned>(sum) ^ x);
+// A path word: read-only and past L1, where it would evict records.
+__device__ __forceinline__ unsigned long long load_path(const unsigned long long* p) {
+    unsigned long long v;
+    asm("ld.global.nc.L1::no_allocate.u64 %0, [%1];" : "=l"(v) : "l"(p));
+    return v;
 }
 
-__global__ void probe_rank_parts_kernel(const int8_t* __restrict__ planes,
-                                        int rows, int G,
-                                        const int8_t* __restrict__ mats, int T,
-                                        int D, const float* __restrict__ leaf,
-                                        int mode, int* __restrict__ out) {
-    const int lane = threadIdx.x & 31;
-    const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-    if (row >= rows) return;
-    const int* pw = reinterpret_cast<const int*>(planes + row * 128 * G);
-    int p[kMaxGroups];
-#pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) p[g] = g < G ? pw[32 * g + lane] : 0;
-    const long long words = 32LL * G;
-    const long long N = (1LL << D) - 1;
-    const long long L = 1LL << D;
-    const unsigned r32 = static_cast<unsigned>(row);
-    unsigned acc = 0;
+template <int Mode, bool kPairs>
+__global__ void __launch_bounds__(kRankMaxRows, 2) probe_walk_kernel(const int8_t* __restrict__ planes, int rows,
+                                  int G, const int* __restrict__ records, int T,
+                                  int D, const float* __restrict__ leaf,
+                                  const unsigned long long* __restrict__ paths,
+                                  int* __restrict__ out) {
+    extern __shared__ int smem_words[];
+    const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
+    const int nrows = static_cast<int>(min(static_cast<long long>(blockDim.x),
+                                           rows - row0));
+    tahoe_rank_stage<kPairs>(smem_words, planes, row0, nrows, G);
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) >= nrows) return;
 
-    if (mode == 0) {  // dot: the walk's loads, dp4a's and sums, no dependence
-        for (int t0 = 0; t0 < T; t0 += kTreesInFlight) {
-            unsigned h[kTreesInFlight];
-            const int* col[kTreesInFlight];
+    const int stride = tahoe_rank_row_words(G, kPairs);
+    const int* own = smem_words + threadIdx.x * stride;
+    unsigned acc = 0;
+    for (int w = 0; w < stride; ++w) acc += static_cast<unsigned>(own[w]);
+    if constexpr (Mode != kNoop) {
+        const int N = (1 << D) - 1;  // nodes per tree; node n = 2^d - 1 + j
+        const long long row = row0 + threadIdx.x;
+        const unsigned span = 128u * G + 1u;  // descent's lanes: [0, 128G]
+        // the paths of the next group of trees are read while this one
+        // descends, past L1 (see above)
+        constexpr int kWords = kRankTrees / 8;
+        unsigned long long pnext[kWords];
+        if constexpr (reads_paths(Mode)) {
 #pragma unroll
-            for (int k = 0; k < kTreesInFlight; ++k) {
-                const int t = min(t0 + k, T - 1);
-                h[k] = mix32(r32 * 0x9E3779B1u ^ static_cast<unsigned>(t) * 0x85EBCA6Bu);
-                col[k] = reinterpret_cast<const int*>(mats) + t * N * words;
-            }
-            for (int d = 0; d < D; ++d) {
-                int s[kTreesInFlight];
-#pragma unroll
-                for (int k = 0; k < kTreesInFlight; ++k) {
-                    const unsigned j = h[k] & ((1u << d) - 1u);
-                    const int* c = col[k] + ((1LL << d) - 1 + j) * words;
-                    int v = 0;
-#pragma unroll
-                    for (int g = 0; g < kMaxGroups; ++g)
-                        if (g < G) v = __dp4a(p[g], __ldg(c + 32 * g + lane), v);
-                    s[k] = v;
-                }
-#pragma unroll
-                for (int k = 0; k < kTreesInFlight; ++k)
-                    if (t0 + k < T) acc += static_cast<unsigned>(warp_sum(s[k]));
-            }
+            for (int w = 0; w < kWords; ++w)
+                pnext[w] = load_path(paths + static_cast<long long>(w) * rows + row);
         }
-    } else {  // descent: the dependent walk and the leaf reads, no column
-        int ps = 0;
-        for (int g = 0; g < G; ++g) ps += p[g];
-        const unsigned key = static_cast<unsigned>(warp_sum(ps));
-        for (int t = 0; t < T; ++t) {
-            unsigned j = 0;
-            for (int d = 0; d < D; ++d) {
-                const unsigned c = mix32(key ^ static_cast<unsigned>(t) * 0x9E3779B1u
-                                         ^ static_cast<unsigned>(d) * 0x85EBCA6Bu ^ j) >> 31;
-                j += c << d;
+        for (int t0 = 0; t0 < T; t0 += kRankTrees) {
+            const int* rec[kRankTrees];
+            unsigned h[kRankTrees];  // the given path's leaf, or descent's tree key
+            unsigned part[kRankTrees];
+            int n[kRankTrees];
+#pragma unroll
+            for (int k = 0; k < kRankTrees; ++k) {
+                // tail slots repeat the last tree and are not summed
+                const unsigned t = static_cast<unsigned>(min(t0 + k, T - 1));
+                rec[k] = records + static_cast<long long>(t) * N;
+                part[k] = 0;
+                n[k] = 0;
+                if constexpr (Mode == kDescent) h[k] = mix32(t * kC1 + kC2);
             }
-            acc += static_cast<unsigned>(__float_as_int(leaf[t * L + j]));
+            if constexpr (Mode == kDescent) {
+                for (int d = 0; d < D; ++d) {
+                    // every chain's shared read before any is used, as kernel
+                    // B's record loads are
+                    int lane[kRankTrees], k12[kRankTrees], diff[kRankTrees];
+#pragma unroll
+                    for (int k = 0; k < kRankTrees; ++k) {
+                        const unsigned g = (h[k] ^ static_cast<unsigned>(n[k])) * kC3;
+                        lane[k] = static_cast<int>(__umulhi(g, span));
+                        k12[k] = static_cast<int>((g >> 8) & 0x7FFF) - 16384;
+                    }
+#pragma unroll
+                    for (int k = 0; k < kRankTrees; ++k)
+                        diff[k] = tahoe_rank_diff<kPairs>(own, lane[k], k12[k]);
+#pragma unroll
+                    for (int k = 0; k < kRankTrees; ++k)
+                        n[k] += (diff[k] >= 0 ? 2 : 1) << d;
+                }
+            } else {
+                const long long g1 = (t0 + kRankTrees) >> 3;  // the next group's word
+#pragma unroll
+                for (int w = 0; w < kWords; ++w) {
+                    const unsigned long long p = pnext[w];
+                    pnext[w] = t0 + kRankTrees < T
+                        ? load_path(paths + (g1 + w) * rows + row) : 0ull;
+#pragma unroll
+                    for (int b = 0; b < 8; ++b)
+                        h[8 * w + b] = static_cast<unsigned>(p >> (8 * b)) & 0xFFu;
+                }
+                if constexpr (Mode != kPaths) {
+                    // every record of the group's walks is known: all D x
+                    // kRankTrees loads are issued before any is used
+                    int r[kPathLevels][kRankTrees];
+#pragma unroll
+                    for (int d = 0; d < kPathLevels; ++d)
+#pragma unroll
+                        for (int k = 0; k < kRankTrees; ++k)
+                            r[d][k] = d < D ? __ldg(rec[k] + (1 << d) - 1 + (h[k] & ((1u << d) - 1u)))
+                                            : 0;
+#pragma unroll
+                    for (int d = 0; d < kPathLevels; ++d) {
+                        if (d >= D) break;
+                        if constexpr (Mode == kStream) {
+#pragma unroll
+                            for (int k = 0; k < kRankTrees; ++k) part[k] ^= static_cast<unsigned>(r[d][k]);
+                        } else {
+                            int diff[kRankTrees];
+#pragma unroll
+                            for (int k = 0; k < kRankTrees; ++k)
+                                diff[k] = tahoe_rank_record_diff<kPairs>(own, r[d][k]);
+#pragma unroll
+                            for (int k = 0; k < kRankTrees; ++k)
+                                n[k] += (diff[k] >= 0 ? 2 : 1) << d;
+                        }
+                    }
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < kRankTrees; ++k) {
+                if (t0 + k >= T) continue;
+                const int j = Mode == kDescent ? n[k] - N : static_cast<int>(h[k]);
+                if constexpr (Mode == kPaths) {
+                    acc += static_cast<unsigned>(j);
+                } else {
+                    if constexpr (Mode != kStream) part[k] = static_cast<unsigned>(n[k] - N);
+                    acc += part[k] + __float_as_uint(
+                        leaf[static_cast<long long>(t0 + k) * (N + 1) + j]);
+                }
+            }
         }
     }
-    if (lane == 0) out[row] = static_cast<int>(acc);
+    out[row0 + threadIdx.x] = static_cast<int>(acc);
+}
+
+template <int Mode, bool kPairs>
+cudaError_t launch_walk(const int8_t* planes, int rows, int G, const int* records,
+                        int T, int D, const float* leaf,
+                        const unsigned long long* paths, int* out,
+                        cudaStream_t stream) {
+    const int block = tahoe_rank_block_rows(G, kPairs);
+    const size_t smem = static_cast<size_t>(block) * 4 * tahoe_rank_row_words(G, kPairs);
+    cudaError_t err = tahoe_grant_smem(probe_walk_kernel<Mode, kPairs>, smem);
+    if (err != cudaSuccess) return err;
+    const long long grid = (static_cast<long long>(rows) + block - 1) / block;
+    probe_walk_kernel<Mode, kPairs><<<static_cast<unsigned>(grid), block, smem, stream>>>(
+        planes, rows, G, records, T, D, leaf, paths, out);
+    return cudaGetLastError();
+}
+
+template <int Mode>
+int launch_walk_mode(const int8_t* planes, int rows, int G, const int* records,
+                     int T, int D, const float* leaf, const void* paths, int* out,
+                     cudaStream_t stream) {
+    // the path modes read a path's leaf as a byte: D <= 8
+    if (G < 1 || G > kRankMaxGroups || T < 1 || D < 0 || D > 30 ||
+        (reads_paths(Mode) &&
+         (D > 8 || paths == nullptr || reinterpret_cast<uintptr_t>(paths) % 8)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto* p = static_cast<const unsigned long long*>(paths);
+    return static_cast<int>(
+        G <= kRankMaxPairGroups
+            ? launch_walk<Mode, true>(planes, rows, G, records, T, D, leaf, p, out, stream)
+            : launch_walk<Mode, false>(planes, rows, G, records, T, D, leaf, p, out, stream));
 }
 
 }  // namespace
@@ -409,26 +482,27 @@ TAHOE_EXPORT int tahoe_probe_int8(const int* x, int M, const int8_t* w,
 }
 
 TAHOE_EXPORT int tahoe_probe_overhead(const int8_t* planes, int rows, int G,
-                                      const int8_t* mats, int T, int D,
+                                      const int* records, int T, int D,
+                                      const float* leaf, const void* paths,
                                       int mode, int* out, cudaStream_t stream) {
     if (rows == 0) return 0;
-    if (G < 1 || G > kMaxGroups || mode < 0 || mode > 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const long long grid = (32LL * rows + 255) / 256;
-    probe_overhead_kernel<<<static_cast<unsigned>(grid), 256, 0, stream>>>(
-        planes, rows, G, mats, T, D, mode, out);
-    return static_cast<int>(cudaGetLastError());
+    if (mode == 0)
+        return launch_walk_mode<kNoop>(planes, rows, G, records, T, D, leaf, paths, out, stream);
+    if (mode == 1)
+        return launch_walk_mode<kStream>(planes, rows, G, records, T, D, leaf, paths, out, stream);
+    if (mode == 2)
+        return launch_walk_mode<kPaths>(planes, rows, G, records, T, D, leaf, paths, out, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 TAHOE_EXPORT int tahoe_probe_rank_parts(const int8_t* planes, int rows, int G,
-                                        const int8_t* mats, int T, int D,
-                                        const float* leaf, int mode, int* out,
-                                        cudaStream_t stream) {
+                                        const int* records, int T, int D,
+                                        const float* leaf, const void* paths,
+                                        int mode, int* out, cudaStream_t stream) {
     if (rows == 0) return 0;
-    if (G < 1 || G > kMaxGroups || mode < 0 || mode > 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const long long grid = (32LL * rows + 255) / 256;
-    probe_rank_parts_kernel<<<static_cast<unsigned>(grid), 256, 0, stream>>>(
-        planes, rows, G, mats, T, D, leaf, mode, out);
-    return static_cast<int>(cudaGetLastError());
+    if (mode == 0)
+        return launch_walk_mode<kDot>(planes, rows, G, records, T, D, leaf, paths, out, stream);
+    if (mode == 1)
+        return launch_walk_mode<kDescent>(planes, rows, G, records, T, D, leaf, paths, out, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }

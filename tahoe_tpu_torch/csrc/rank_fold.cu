@@ -35,109 +35,59 @@
 // The walk j += (diff >= 0) << d runs as a node index n += (1 + cond) << d
 // from the root.
 //
-// What bounds it on the H100: per visited node, a dependent 4-byte load
-// (SUSY-class: 0.51 MB of records, L1/L2-resident; a block's trees in
-// flight touch a few KB) and the shared-memory read behind it, then a few
-// integer operations; the chain is D deep per tree, and a row is one thread,
-// so 65,536 rows give ~16 warps an SM to hide it. The design reads no
-// column (SUSY-class: 0.51 MB of records against 16.3 MB of int8 columns)
-// and keeps kTrees = 8 independent chains a thread (no warp shuffle
-// serialises them; 8 ran faster than 4 or 16). Leaf values are summed in
-// double in tree order and rounded once to f32, so the margins are the same
-// on every run and bit-identical to the fused kernel's (rank_fused.cu),
-// which sums in the same order.
+// What bounds it on the H100 (the walk probes, probes.cu; PERF.md): per
+// visited node a dependent 4-byte load (SUSY-class: 0.51 MB of records) and
+// the shared-memory read behind it, then a few integer operations. At
+// 65,536 SUSY-class rows (two blocks, 16 warps an SM) mostly the record
+// loads' throughput: the same walk with every load of a group issued at
+// once takes 0.91-0.98x the time, the record loads alone 0.65-0.72x (the
+// probes' path words, which this kernel does not read, taken out or left
+// in); at 16,384 rows (8 warps an SM) the dependence costs a third. The design reads no column (SUSY-class: 0.51 MB
+// of records against 16.3 MB of int8 columns) and keeps kRankTrees = 8
+// independent chains a thread (no warp shuffle serialises them; 8 ran faster
+// than 4 or 16). Leaf values are summed in double in tree order and rounded
+// once to f32, so the margins are the same on every run and bit-identical to
+// the fused kernel's (rank_fused.cu), which sums in the same order.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxGroups = 16;         // compiler.RANK_MAX_GROUPS
-constexpr int kLaneQl = 30;            // compiler.RANK_LANE_QL - RANK_LANE_QH
-// Both choices were measured (PERF.md); scripts/kernel_ab.py rebuilds this
-// file alone with other values to measure them again.
-#ifndef TAHOE_RANK_TREES
-#define TAHOE_RANK_TREES 8
-#endif
-#ifndef TAHOE_RANK_PAIR_GROUPS
-#define TAHOE_RANK_PAIR_GROUPS 1
-#endif
-constexpr int kTrees = TAHOE_RANK_TREES;              // trees in flight per thread
-constexpr int kMaxPairGroups = TAHOE_RANK_PAIR_GROUPS;  // stage v up to this many groups
-constexpr int kMaxRows = 256;          // rows a block, at most
-constexpr int kSmemTarget = 96 * 1024; // rows a block while they fit this
-
-// Shared-memory words of one staged row: v as int16 over lanes [0, 128G]
-// (v[128G] = 0), or the bytes with 32 zero bytes past lane 128G; both odd.
-__host__ __device__ constexpr int row_words(int G, bool pairs) {
-    return pairs ? 64 * G + 1 : 32 * G + 9;
-}
-
+// The block, the row staging and the per-visit body are common.cuh's
+// (tahoe_rank_*), shared with the probes that take this walk apart.
 template <bool kPairs>
 __global__ void rank_fold_kernel(const int8_t* __restrict__ planes, int rows,
                                  int G, const int* __restrict__ records, int T,
                                  int D, const float* __restrict__ leaf,
                                  float* __restrict__ out) {
     extern __shared__ int smem_words[];
-    const int lanes = 128 * G;
-    const int stride = row_words(G, kPairs);
     const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
     const int nrows = static_cast<int>(min(static_cast<long long>(blockDim.x),
                                            rows - row0));
-    if constexpr (kPairs) {
-        // word w of a row holds v[2w] | v[2w + 1] << 16; p past the row is 0
-        const int8_t* src = planes + row0 * lanes;
-        for (int i = threadIdx.x; i < nrows * stride; i += blockDim.x) {
-            const int r = i / stride;
-            const int l = 2 * (i - r * stride);
-            const int8_t* p = src + static_cast<long long>(r) * lanes;
-            int v0 = 0, v1 = 0;
-            if (l < lanes) {
-                v0 = 127 * p[l] + (l + kLaneQl < lanes ? p[l + kLaneQl] : 0);
-                v1 = 127 * p[l + 1] + (l + 1 + kLaneQl < lanes ? p[l + 1 + kLaneQl] : 0);
-            }
-            smem_words[i] = (v0 & 0xFFFF) | (v1 << 16);
-        }
-    } else {
-        const int words = lanes / 4;
-        const int* src = reinterpret_cast<const int*>(planes) + row0 * words;
-        for (int i = threadIdx.x; i < nrows * stride; i += blockDim.x) {
-            const int r = i / stride;
-            const int w = i - r * stride;
-            smem_words[i] = w < words ? src[r * words + w] : 0;
-        }
-    }
+    tahoe_rank_stage<kPairs>(smem_words, planes, row0, nrows, G);
     __syncthreads();
     if (static_cast<int>(threadIdx.x) >= nrows) return;
 
-    const int* own = smem_words + threadIdx.x * stride;
-    const short* v = reinterpret_cast<const short*>(own);
-    const int8_t* p = reinterpret_cast<const int8_t*>(own);
+    const int* own = smem_words + threadIdx.x * tahoe_rank_row_words(G, kPairs);
     const int N = (1 << D) - 1;  // nodes per tree; node n = 2^d - 1 + j
     double acc = 0.0;
-    for (int t0 = 0; t0 < T; t0 += kTrees) {
-        const int* rec[kTrees];
-        int n[kTrees];
+    for (int t0 = 0; t0 < T; t0 += kRankTrees) {
+        const int* rec[kRankTrees];
+        int n[kRankTrees];
 #pragma unroll
-        for (int k = 0; k < kTrees; ++k) {
+        for (int k = 0; k < kRankTrees; ++k) {
             // tail slots repeat the last tree and are not summed
             rec[k] = records + static_cast<long long>(min(t0 + k, T - 1)) * N;
             n[k] = 0;
         }
         for (int d = 0; d < D; ++d) {
 #pragma unroll
-            for (int k = 0; k < kTrees; ++k) {
-                const int r = __ldg(rec[k] + n[k]);
-                const int lane = r & 0xFFF;
-                int diff;
-                if constexpr (kPairs) {
-                    diff = v[lane] + (r >> 12);
-                } else {
-                    diff = 127 * p[lane] + p[lane + kLaneQl] + (r >> 12);
-                }
+            for (int k = 0; k < kRankTrees; ++k) {
+                const int diff = tahoe_rank_record_diff<kPairs>(own, __ldg(rec[k] + n[k]));
                 n[k] += (diff >= 0 ? 2 : 1) << d;
             }
         }
 #pragma unroll
-        for (int k = 0; k < kTrees; ++k)
+        for (int k = 0; k < kRankTrees; ++k)
             if (t0 + k < T)
                 acc += static_cast<double>(
                     leaf[static_cast<long long>(t0 + k) * (N + 1) + n[k] - N]);
@@ -149,9 +99,8 @@ template <bool kPairs>
 cudaError_t launch(const int8_t* planes, int rows, int G, const int* records,
                    int T, int D, const float* leaf, float* out,
                    cudaStream_t stream) {
-    const int row_bytes = 4 * row_words(G, kPairs);
-    const int block = max(32, min(kMaxRows, (kSmemTarget / row_bytes) & ~31));
-    const size_t smem = static_cast<size_t>(block) * row_bytes;
+    const int block = tahoe_rank_block_rows(G, kPairs);
+    const size_t smem = static_cast<size_t>(block) * 4 * tahoe_rank_row_words(G, kPairs);
     cudaError_t err = tahoe_grant_smem(rank_fold_kernel<kPairs>, smem);
     if (err != cudaSuccess) return err;
     const long long grid = (static_cast<long long>(rows) + block - 1) / block;
@@ -167,10 +116,20 @@ TAHOE_EXPORT int tahoe_rank_fold(const int8_t* planes, int rows, int G,
                                  const float* leaf, float* out,
                                  cudaStream_t stream) {
     if (rows == 0) return 0;
-    if (G < 1 || G > kMaxGroups || T < 1 || D < 0 || D > 30)
+    if (G < 1 || G > kRankMaxGroups || T < 1 || D < 0 || D > 30)
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
-        G <= kMaxPairGroups
+        G <= kRankMaxPairGroups
             ? launch<true>(planes, rows, G, records, T, D, leaf, out, stream)
             : launch<false>(planes, rows, G, records, T, D, leaf, out, stream));
+}
+
+// Kernel B's launch shape at G plane groups as this build sizes it: rows a
+// block and staged words a row (ops/rank_kernel.py rank_block_rows and
+// rank_row_words reckon the default build's; tests/test_torch_cuda.py holds
+// them to this).
+TAHOE_EXPORT void tahoe_rank_launch_shape(int G, int* block_rows, int* row_words) {
+    const bool pairs = G <= kRankMaxPairGroups;
+    *block_rows = tahoe_rank_block_rows(G, pairs);
+    *row_words = tahoe_rank_row_words(G, pairs);
 }

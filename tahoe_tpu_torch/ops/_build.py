@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (the counterpart of ops/mosaic.py).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes``. The build
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+at once, and linked into ONE shared library with a plain C interface,
+loaded with ``ctypes``. The build
 happens at first use, into ``build/tahoe_tpu_torch/`` under the checkout,
 and its file name carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is reused. Nothing here runs when the
@@ -60,22 +61,47 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernel library if its hashed file is missing; return it.
 
-    The compiler's register/shared-memory report (-Xptxas -v) is kept beside
-    the library as ``<lib>.log``."""
+    Each source is compiled by its own nvcc, all at once, then the objects
+    are linked into one library. The compiler's register/shared-memory
+    report (-Xptxas -v) is kept beside the library as ``<lib>.log``."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    Path(str(path) + ".log").write_text(proc.stdout + proc.stderr)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        try:
+            for src in sorted(CSRC.glob("*.cu")):
+                cmd = [_nvcc(), *compile_flags, "-c", "-o",
+                       os.path.join(objdir, src.stem + ".o"), str(src)]
+                jobs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            log = []
+            for cmd, proc in jobs:
+                out = proc.communicate()[0]
+                log.append(out)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+            objs = sorted(str(p) for p in Path(objdir).glob("*.o"))
+            cmd = [_nvcc(), "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{proc.stdout}\n{proc.stderr}")
+        except BaseException:
+            # no compiler outlives the build or writes into objdir as it goes
+            for _, job in jobs:
+                job.kill()
+                job.wait()
+                job.stdout.close()
+            os.unlink(tmp)
+            raise
+    Path(str(path) + ".log").write_text("".join(log))
     os.replace(tmp, path)  # atomic: a concurrent process never sees half a file
     return path
 

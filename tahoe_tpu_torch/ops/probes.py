@@ -1,11 +1,31 @@
 """Probe kernels (csrc/probes.cu) and their plain PyTorch versions.
 
-They measure in parts, on the card, the column walk that kernel B
-(csrc/rank_fold.cu) ran before it read node records, and whether
+They measure in parts, on the card, the record walk that kernel B
+(csrc/rank_fold.cu) runs, on kernel B's own launch and inputs, and whether
 in-kernel int8 products are exact, for tahoe_tpu_torch/scripts/
 {int8_cast_probe,overhead_bench,unit_bench}.py. Each entry point has a plain
 version that computes the same integers, and the card's results are held to
 it exactly. The port's engines never call them.
+
+The walk's four modes (``walk_probe``; csrc/probes.cu states the arithmetic)
+each write one int32 a row, all sums mod 2^32: S, the sum of the row's
+staged words (kernel B's staging: int16 pair values at one plane group, the
+bytes past it), plus per tree a part and the f32 bits of one leaf j.
+
+- ``noop`` (tahoe_probe_overhead mode 0): S alone;
+- ``stream`` (mode 1): part = the XOR of the D records on the path to the
+  leaf j given for each (row, tree) (``paths``, ``rank_kernel.walk_paths``:
+  the real walk's, so that the loads are kernel B's own);
+- ``paths`` (mode 2): S plus each given j, with no record and no leaf read:
+  what reading the path words costs ``stream`` and ``dot``, which kernel B
+  does not pay;
+- ``dot`` (tahoe_probe_rank_parts mode 0): part = sum of cond_d << d, kernel
+  B's visit body (``rank_kernel.record_conds``) at the same path's nodes;
+  on the real walk that is j again;
+- ``descent`` (mode 1): kernel B's dependent walk n += (1 + cond) << d with
+  node n of tree t read from no record: g = (key_t ^ n) * C3 mod 2^32,
+  key_t = mix32(t * C1 + C2), lane = (g * (128G + 1)) >> 32,
+  k = ((g >> 8) & 0x7FFF) - 16384; part = j, the leaf it reaches.
 """
 from __future__ import annotations
 
@@ -14,7 +34,12 @@ import ctypes
 import torch
 
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
-from tahoe_tpu_torch.ops.rank_kernel import PLAIN_CHUNK_BYTES, _int32_matmul
+from tahoe_tpu_torch.ops.rank_kernel import (
+    RANK_PAIR_GROUPS,
+    _int32_matmul,
+    pair_values,
+    record_conds,
+)
 from tahoe_tpu_torch.ops.rank_transform import LANE
 
 PROBE_INT8 = CudaKernel(
@@ -24,26 +49,29 @@ PROBE_INT8 = CudaKernel(
     source="tahoe_tpu_torch/csrc/probes.cu",
     replaces="scripts/int8_cast_probe.py:52",
 )
+# both walk probes take kernel B's arguments, the paths and a mode
+_WALK_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_void_p]
 PROBE_OVERHEAD = CudaKernel(
-    "tahoe_probe_overhead",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "tahoe_probe_overhead", _WALK_ARGS,
     source="tahoe_tpu_torch/csrc/probes.cu",
     replaces="scripts/overhead_bench.py:138",
 )
 PROBE_RANK_PARTS = CudaKernel(
-    "tahoe_probe_rank_parts",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_void_p],
+    "tahoe_probe_rank_parts", _WALK_ARGS,
     source="tahoe_tpu_torch/csrc/probes.cu",
     replaces="scripts/unit_bench.py:203",
 )
 
 INT8_MODES = ("store", "dot_lhs_dp4a", "dot_lhs_mma", "scratch_dot_dp4a",
               "scratch_dot_mma")
-OVERHEAD_MODES = ("noop", "stream")
+OVERHEAD_MODES = ("noop", "stream", "paths")
 RANK_PARTS_MODES = ("dot", "descent")
+WALK_MODES = OVERHEAD_MODES + RANK_PARTS_MODES
+PATH_MODES = ("stream", "paths", "dot")  # the modes that read ``paths``
+# the descent's hash constants (csrc/probes.cu)
+C1, C2, C3 = 0x9E3779B1, 0x85EBCA6B, 0x2C1B3C6D
 INT8_WIDTH = 128  # the probe's contraction and output widths
 
 MASK32 = 0xFFFFFFFF
@@ -107,121 +135,98 @@ def int8_probe(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 # ------------------------------------------------------- kernel B parts --
-def _check_rank_operands(planes, mats, depth):
+def staged_sum(planes: torch.Tensor) -> torch.Tensor:
+    """S per row, [R] int64 mod 2^32: the sum of the row's words as kernel B
+    stages them. At <= RANK_PAIR_GROUPS groups word w is v[2w] | v[2w + 1]
+    << 16 (``pair_values``, int16 each); past them the plane words, then
+    zeros."""
+    if planes.shape[1] // LANE > RANK_PAIR_GROUPS:
+        words = planes.contiguous().view(torch.int32).to(torch.int64)
+        return words.sum(dim=1) & MASK32
+    v = pair_values(planes).to(torch.int64) & 0xFFFF   # lanes [0, 128G]
+    v = torch.nn.functional.pad(v, (0, 1))             # word 64G's high half
+    return ((v[:, 0::2] | (v[:, 1::2] << 16)).sum(dim=1)) & MASK32
+
+
+def walk_probe_plain(planes: torch.Tensor, records: torch.Tensor,
+                     leaf: torch.Tensor, depth: int, mode: str,
+                     paths: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of both walk probes (the module docstring), [R] int32;
+    ``stream``, ``paths`` and ``dot`` take ``paths``
+    (``rank_kernel.walk_paths``)."""
+    _mode(mode, WALK_MODES)
+    if mode in PATH_MODES and paths is None:
+        raise ValueError(f"mode {mode} takes the walks' paths")
+    R, dev = planes.shape[0], planes.device
+    T, N = records.shape[0], (1 << depth) - 1
+    acc = staged_sum(planes)
+    if mode == "noop":
+        return _to_int32(acc)
+    tree = torch.arange(T, device=dev)
+    v = pair_values(planes)
+    bits = leaf.contiguous().view(torch.int32).to(torch.int64) & MASK32
+    if mode == "descent":
+        key = mix32((tree * C1 + C2) & MASK32)[None, :]
+        n = torch.zeros(R, T, dtype=torch.int64, device=dev)
+        for d in range(depth):
+            g = ((key ^ n) * C3) & MASK32
+            lane = (g * v.shape[1]) >> 32
+            k = ((g >> 8) & 0x7FFF) - 16384
+            n = n + ((1 + (torch.gather(v, 1, lane) + k >= 0).long()) << d)
+        part = j = n - N
+    else:
+        j = paths.transpose(0, 1).reshape(R, -1)[:, :T].long()
+        if mode == "paths":
+            return _to_int32(acc + j.sum(dim=1))
+        part = torch.zeros(R, T, dtype=torch.int64, device=dev)
+        for d in range(depth):
+            node = (1 << d) - 1 + (j & ((1 << d) - 1))
+            if mode == "stream":
+                part = part ^ (records[tree, node].to(torch.int64) & MASK32)
+            else:
+                part = part + (record_conds(v, records, node).long() << d)
+    acc = acc + (part + bits[tree, j]).sum(dim=1)
+    return _to_int32(acc)
+
+
+def walk_probe_cuda(planes: torch.Tensor, records: torch.Tensor,
+                    leaf: torch.Tensor, depth: int, mode: str,
+                    paths: torch.Tensor | None = None) -> torch.Tensor:
+    """The walk probe of ``mode`` on the card: ``noop``, ``stream`` and
+    ``paths`` are tahoe_probe_overhead's, ``dot`` and ``descent``
+    tahoe_probe_rank_parts'."""
+    _mode(mode, WALK_MODES)
     dev = planes.device
     check_operand(planes, "planes", torch.int8, dev, 2)
-    check_operand(mats, "mats", torch.int8, dev, 3)
-    K = planes.shape[1]
+    check_operand(records, "records", torch.int32, dev, 2)
+    check_operand(leaf, "leaf", torch.float32, dev, 2)
+    R, K = planes.shape
+    T = records.shape[0]
     if K % LANE or not 1 <= K // LANE <= 16:
         raise ValueError(f"planes width {K} is not 128 x 1..16 groups")
-    if mats.shape[1:] != ((1 << depth) - 1, K):
-        raise ValueError(f"mats {tuple(mats.shape)} do not match depth {depth} "
-                         f"and planes width {K}")
-    return dev, K // LANE
-
-
-def _xor_all(words: torch.Tensor) -> int:
-    """XOR of every element of an int32 tensor, as a value < 2^32."""
-    v = words.reshape(-1).to(torch.int64) & MASK32
-    while v.numel() > 1:
-        if v.numel() % 2:
-            v = torch.cat([v, v.new_zeros(1)])
-        v = v[0::2] ^ v[1::2]
-    return int(v[0]) if v.numel() else 0
-
-
-def overhead_probe_plain(planes: torch.Tensor, mats: torch.Tensor, depth: int,
-                         mode: str) -> torch.Tensor:
-    """Plain version of tahoe_probe_overhead: each row's plane-byte sum
-    (``noop``), XOR every word of the columns at node 2^d - 1 of each level
-    of each tree (``stream``), as int32."""
-    m = _mode(mode, OVERHEAD_MODES)
-    s = planes.to(torch.int64).sum(dim=1)
-    if m == 1 and depth:
-        nodes = [(1 << d) - 1 for d in range(depth)]
-        s = (s & MASK32) ^ _xor_all(mats[:, nodes, :].contiguous().view(torch.int32))
-    return _to_int32(s)
-
-
-def overhead_probe_cuda(planes: torch.Tensor, mats: torch.Tensor, depth: int,
-                        mode: str) -> torch.Tensor:
-    dev, G = _check_rank_operands(planes, mats, depth)
-    out = torch.empty(planes.shape[0], dtype=torch.int32, device=dev)
-    PROBE_OVERHEAD.launch(dev, ptr(planes), planes.shape[0], G, ptr(mats),
-                          mats.shape[0], depth, _mode(mode, OVERHEAD_MODES),
-                          ptr(out))
+    if (T < 1 or records.shape[1] != (1 << depth) - 1
+            or leaf.shape != (T, 1 << depth)):
+        raise ValueError(f"tables {tuple(records.shape)} / {tuple(leaf.shape)} "
+                         f"do not match depth {depth}")
+    if mode in PATH_MODES:
+        if paths is None:
+            raise ValueError(f"mode {mode} takes the walks' paths")
+        check_operand(paths, "paths", torch.uint8, dev, 3)
+        if paths.shape != (-(-T // 8), R, 8) or depth > 8:
+            raise ValueError(f"paths {tuple(paths.shape)} do not match {R} rows "
+                             f"of {T} trees of depth {depth} <= 8")
+    overhead = mode in OVERHEAD_MODES
+    kernel = PROBE_OVERHEAD if overhead else PROBE_RANK_PARTS
+    index = _mode(mode, OVERHEAD_MODES if overhead else RANK_PARTS_MODES)
+    out = torch.empty(R, dtype=torch.int32, device=dev)
+    kernel.launch(dev, ptr(planes), R, K // LANE, ptr(records), T, depth,
+                  ptr(leaf), None if mode not in PATH_MODES else ptr(paths),
+                  index, ptr(out))
     return out
 
 
-def overhead_probe(planes, mats, depth, mode):
+def walk_probe(planes, records, leaf, depth, mode, paths=None):
     """The probe kernel on a CUDA tensor, its plain version on a CPU tensor."""
     if planes.device.type == "cpu":
-        return overhead_probe_plain(planes, mats, depth, mode)
-    return overhead_probe_cuda(planes, mats, depth, mode)
-
-
-def probe_paths(rows: torch.Tensor, trees: int) -> torch.Tensor:
-    """The ``dot`` probe's path hash h per (row, tree), [R, T] int64: node
-    j_d = h & (2^d - 1) of level d."""
-    t = torch.arange(trees, dtype=torch.int64, device=rows.device)
-    r = (rows.to(torch.int64) * 0x9E3779B1) & MASK32
-    return mix32(r[:, None] ^ ((t * 0x85EBCA6B) & MASK32)[None, :])
-
-
-def rank_parts_probe_plain(planes: torch.Tensor, mats: torch.Tensor,
-                           leaf: torch.Tensor, depth: int,
-                           mode: str) -> torch.Tensor:
-    """Plain version of tahoe_probe_rank_parts, as int32 (sums mod 2^32).
-
-    ``dot``: the sum over trees and levels of planes . column(j_d);
-    ``descent``: the sum over trees of the final leaf's f32 bits, after the
-    walk j += (mix32(key ^ t*C1 ^ d*C2 ^ j) >> 31) << d with key the sum of
-    the row's plane words."""
-    m = _mode(mode, RANK_PARTS_MODES)
-    R, K = planes.shape
-    T = mats.shape[0]
-    dev = planes.device
-    if m == 0:
-        total = torch.zeros(R, dtype=torch.int64, device=dev)
-        chunk = max(1, PLAIN_CHUNK_BYTES // max(1, 4 * T * K))
-        t = torch.arange(T, device=dev)
-        for r0 in range(0, R, chunk):
-            p = planes[r0:r0 + chunk].to(torch.int32)[:, None, :]
-            h = probe_paths(torch.arange(r0, r0 + p.shape[0], device=dev), T)
-            for d in range(depth):
-                node = (1 << d) - 1 + (h & ((1 << d) - 1))          # [r, T]
-                cols = mats[t[None, :], node].to(torch.int32)        # [r, T, K]
-                total[r0:r0 + p.shape[0]] += (p * cols).sum(
-                    dim=(1, 2), dtype=torch.int64)
-        return _to_int32(total)
-    words = planes.contiguous().view(torch.int32).to(torch.int64)
-    key = words.sum(dim=1) & MASK32                                  # [R]
-    t = torch.arange(T, dtype=torch.int64, device=dev)
-    tc = (t * 0x9E3779B1) & MASK32
-    j = torch.zeros(R, T, dtype=torch.int64, device=dev)
-    for d in range(depth):
-        c = mix32(key[:, None] ^ tc[None, :] ^ ((d * 0x85EBCA6B) & MASK32) ^ j) >> 31
-        j = j + (c << d)
-    bits = leaf.contiguous().view(torch.int32).to(torch.int64)[t[None, :], j]
-    return _to_int32(bits.sum(dim=1))
-
-
-def rank_parts_probe_cuda(planes: torch.Tensor, mats: torch.Tensor,
-                          leaf: torch.Tensor, depth: int,
-                          mode: str) -> torch.Tensor:
-    dev, G = _check_rank_operands(planes, mats, depth)
-    check_operand(leaf, "leaf", torch.float32, dev, 2)
-    if leaf.shape != (mats.shape[0], 1 << depth):
-        raise ValueError(f"leaf {tuple(leaf.shape)} does not match mats")
-    out = torch.empty(planes.shape[0], dtype=torch.int32, device=dev)
-    PROBE_RANK_PARTS.launch(dev, ptr(planes), planes.shape[0], G, ptr(mats),
-                            mats.shape[0], depth, ptr(leaf),
-                            _mode(mode, RANK_PARTS_MODES), ptr(out))
-    return out
-
-
-def rank_parts_probe(planes, mats, leaf, depth, mode):
-    """The probe kernel on a CUDA tensor, its plain version on a CPU tensor."""
-    if planes.device.type == "cpu":
-        return rank_parts_probe_plain(planes, mats, leaf, depth, mode)
-    return rank_parts_probe_cuda(planes, mats, leaf, depth, mode)
+        return walk_probe_plain(planes, records, leaf, depth, mode, paths)
+    return walk_probe_cuda(planes, records, leaf, depth, mode, paths)

@@ -70,6 +70,7 @@ from tahoe_tpu_torch.forest.quantize import (
 )
 from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
+from tahoe_tpu_torch.ops.fold_kernel import _wavefronts
 from tahoe_tpu_torch.ops.rank_transform import (
     LANE,
     TABLE_ALIGN,
@@ -109,6 +110,16 @@ FUSE_MIN_THRESHOLDS = 256
 # the plain version folds a chunk of rows at a time; this bounds the bytes of
 # one chunk's widest level (int32 diffs + the f32 fold frontier)
 PLAIN_CHUNK_BYTES = 256 << 20
+
+# kernel B's block and staging (csrc/common.cuh): int16 pair values up to
+# TAHOE_RANK_PAIR_GROUPS plane groups, the bytes past them; rows a block as
+# many whole warps as fit kRankSmemTarget, at most kRankMaxRows. The default
+# build's values: a rebuild with other -D values (scripts/kernel_ab.py b)
+# sizes otherwise; tests/test_torch_cuda.py holds these to the library's
+# tahoe_rank_launch_shape.
+RANK_PAIR_GROUPS = 1
+RANK_SMEM_TARGET = 96 * 1024
+RANK_MAX_ROWS = 256
 
 
 def rank_virtual_cols(forest: ForestSpec) -> int:
@@ -354,6 +365,124 @@ def rank_margins_plain(planes: torch.Tensor, mats: torch.Tensor,
     if not out:
         return torch.zeros(0, dtype=torch.float32, device=planes.device)
     return torch.cat(out)
+
+
+def rank_row_words(groups: int) -> int:
+    """Shared-memory words of one row staged by kernel B (csrc/common.cuh
+    tahoe_rank_row_words): the int16 pair values over lanes [0, 128G], or
+    the bytes and 32 zero bytes past them; both odd."""
+    return 64 * groups + 1 if groups <= RANK_PAIR_GROUPS else 32 * groups + 9
+
+
+def rank_block_rows(groups: int) -> int:
+    """Rows (threads) of one kernel-B block (tahoe_rank_block_rows)."""
+    fit = RANK_SMEM_TARGET // (4 * rank_row_words(groups)) & ~31
+    return max(32, min(RANK_MAX_ROWS, fit))
+
+
+def pair_values(planes: torch.Tensor) -> torch.Tensor:
+    """[R, 128G + 1] int32: v[lane] = 127 * p[lane] + p[lane + 30], p zero
+    past the row, so v[128G] (a pass-through node's lane) is 0."""
+    p = F.pad(planes.to(torch.int32), (0, RANK_LANE_QL - RANK_LANE_QH + 1))
+    K = planes.shape[1]
+    return RANK_BASE * p[:, :K + 1] + p[:, RANK_LANE_QL - RANK_LANE_QH:][:, :K + 1]
+
+
+def record_conds(v: torch.Tensor, records: torch.Tensor,
+                 nodes: torch.Tensor) -> torch.Tensor:
+    """Kernel B's visit body (csrc/common.cuh tahoe_rank_record_diff) at
+    the nodes ``nodes`` [R, T] (node n of tree t) of rows with pair values
+    ``v`` (``pair_values``): cond = v[lane] + k >= 0, lane = r & 0xFFF and
+    k = r >> 12 of the node's record r. [R, T] bool."""
+    r = records[torch.arange(records.shape[0], device=records.device), nodes]
+    lane = (r & RECORD_LANE_MASK).long()
+    return torch.gather(v, 1, lane) + (r >> RECORD_LANE_BITS) >= 0
+
+
+def rank_walk(planes: torch.Tensor, records: torch.Tensor,
+              depth: int) -> torch.Tensor:
+    """The nodes kernel B visits, [D + 1, R, T] int64: level d's node n of
+    each (row, tree), n += (1 + cond) << d from the root; the last entry is
+    the leaf j each walk reaches."""
+    v = pair_values(planes)
+    n = torch.zeros(planes.shape[0], records.shape[0], dtype=torch.int64,
+                    device=planes.device)
+    out = []
+    for d in range(depth):
+        out.append(n)
+        n = n + ((1 + record_conds(v, records, n).long()) << d)
+    out.append(n - ((1 << depth) - 1))
+    return torch.stack(out)
+
+
+def walk_paths(planes: torch.Tensor, records: torch.Tensor,
+               depth: int) -> torch.Tensor:
+    """The leaf j of every (row, tree) walk, as the walk probes take it
+    (ops/probes.py): [ceil(T / 8), R, 8] uint8, tree 8g + b at [g, row, b]
+    (tail bytes 0); depth <= 8."""
+    if depth > 8:
+        raise ValueError(f"a walk's leaf takes a byte up to depth 8; got {depth}")
+    j = rank_walk(planes, records, depth)[-1]
+    j = F.pad(j, (0, -records.shape[0] % 8)).to(torch.uint8)
+    return j.view(planes.shape[0], -1, 8).transpose(0, 1).contiguous()
+
+
+def rank_wavefronts(planes: torch.Tensor, t: RankTables,
+                    rows: int = 2048) -> dict:
+    """Kernel B's L1 traffic per warp-visit (a warp's 32 rows at one
+    (tree, level)), reckoned from the real walks of the first ``rows`` rows
+    (whole warps): the 128-byte lines and 32-byte sectors its 32 record
+    loads touch, and the shared-memory wavefronts of its reads of the staged
+    rows (one read of the pair value, or two of the bytes) at kernel B's
+    row stride, in its block. Means over every warp-visit, and per level."""
+    R = min(rows, planes.shape[0]) // 32 * 32
+    walk = rank_walk(planes[:R], t.records, t.depth)
+    T, N = t.records.shape
+    dev = planes.device
+    tree = torch.arange(T, device=dev)
+    slot = torch.arange(R, device=dev) % rank_block_rows(t.groups)
+    counts = []
+    for d in range(t.depth):
+        n = walk[d]
+        lane = (t.records[tree, n] & RECORD_LANE_MASK).long()
+        counts.append(warp_visit_counts((tree * N)[None, :] + n, lane,
+                                        slot[:, None].expand(R, T), t.groups))
+    per_level = {k: [float(c[k].double().mean()) for c in counts]
+                 for k in ("lines", "sectors", "wavefronts")}
+    return {"rows": R, "stride_words": rank_row_words(t.groups),
+            "block_rows": rank_block_rows(t.groups),
+            "per_warp_visit": {k: sum(v) / max(len(v), 1)
+                               for k, v in per_level.items()},
+            "per_level": per_level}
+
+
+def warp_visit_counts(words: torch.Tensor, lanes: torch.Tensor,
+                      slots: torch.Tensor, groups: int) -> dict:
+    """For visits [R, ...] whose rows go 32 to a warp: the record loads'
+    word offsets ``words``, the lanes read, and each row's slot in its
+    block -> per warp-visit [R / 32, ...] the distinct 128-byte lines and
+    32-byte sectors of the record loads (records 4 bytes each, from an
+    aligned base) and the shared-memory wavefronts of the staged-row reads
+    (``fold_kernel._wavefronts`` at kernel B's row stride)."""
+    def warps(a):  # [R, ...] -> [..., R / 32, 32]
+        a = a.reshape(a.shape[0] // 32, 32, -1).permute(2, 0, 1)
+        return a.reshape(*words.shape[1:], words.shape[0] // 32, 32)
+
+    w, lane = warps(words), warps(lanes)
+    base = warps(slots) * rank_row_words(groups)
+    if groups <= RANK_PAIR_GROUPS:
+        wave = _wavefronts(base + lane // 2)
+    else:
+        wave = (_wavefronts(base + lane // 4)
+                + _wavefronts(base + (lane + RANK_LANE_QL - RANK_LANE_QH) // 4))
+    return {"lines": _distinct(w // 32), "sectors": _distinct(w // 8),
+            "wavefronts": wave}
+
+
+def _distinct(a: torch.Tensor) -> torch.Tensor:
+    """Distinct values along the last axis."""
+    s = a.sort(dim=-1).values
+    return 1 + (s[..., 1:] != s[..., :-1]).sum(dim=-1)
 
 
 def rank_margins_cuda(planes: torch.Tensor, records: torch.Tensor,

@@ -1,7 +1,7 @@
 """Probe: the port's kernels against other builds of them, on one card.
 
     python -m tahoe_tpu_torch.scripts.kernel_ab a OTHER.cu [--rounds 7]
-    python -m tahoe_tpu_torch.scripts.kernel_ab b [--rounds 5]
+    python -m tahoe_tpu_torch.scripts.kernel_ab b [OTHER.cu] [--rounds 5]
     python -m tahoe_tpu_torch.scripts.kernel_ab sparse OTHER.cu [--rounds 5]
     python -m tahoe_tpu_torch.scripts.kernel_ab deep OTHER.cu [--rounds 5]
     python -m tahoe_tpu_torch.scripts.kernel_ab c OTHER.cu [--rounds 5]
@@ -20,7 +20,11 @@ same [F, K] table) are timed in turn; both kernels' planes must equal
 ``TAHOE_RANK_TREES`` (trees in flight a thread: 4, 8, 16) and
 ``TAHOE_RANK_PAIR_GROUPS`` (0: the byte staging at every group count; 16:
 the int16 pair staging at every one), timed in rounds beside this tree's
-kernel B; every build's margins must equal kernel B's bit for bit.
+kernel B; every build's margins must equal kernel B's bit for bit. With
+OTHER.cu, an earlier ``csrc/rank_fold.cu`` (with the ``common.cuh`` it
+includes beside it) is built alone and runs in the same rounds, held to the
+same margins, and each kernel's SASS is compared with this tree's
+(``sass_same``: a ``-cubin`` build of each source, ``cuobjdump -sass``).
 
 ``sparse``: OTHER.cu is an earlier ``csrc/sparse_rank.cu``, one 16-byte
 record a node (``tahoe_sparse_rank(planes, rows, G, records, roots, T,
@@ -187,6 +191,39 @@ def build_alone(builds: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {builds[name][0]}:\n{log}")
     return {name: ctypes.CDLL(str(lib)) for name, lib in libs.items()}
+
+
+def sass_same(a: Path, b: Path) -> dict:
+    """Kernel name -> whether sources ``a`` and ``b``, each compiled alone
+    to a cubin with this tree's flags, give the same SASS instructions (the
+    addresses and the anonymous namespace's hash left out)."""
+    import re
+    import shutil
+    import tempfile
+
+    from tahoe_tpu_torch.ops import _build
+
+    dump = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    kernels = []
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for i, src in enumerate((a, b)):
+            cubin = str(Path(tmp) / f"{i}.cubin")
+            subprocess.run([_build._nvcc(), *flags, "-cubin", "-o", cubin, str(src)],
+                           check=True, capture_output=True)
+            text = subprocess.run([dump, "-sass", cubin], check=True,
+                                  capture_output=True, text=True).stdout
+            funcs, name = {}, None
+            for line in text.splitlines():
+                m = re.match(r"\s*Function : (\S+)", line)
+                if m:
+                    name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_", "", m.group(1))
+                    funcs[name] = []
+                elif name and (m := re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?)\s*;", line)):
+                    funcs[name].append(m.group(1))
+            kernels.append(funcs)
+    return {n: kernels[0].get(n) == kernels[1].get(n)
+            for n in sorted(set(kernels[0]) | set(kernels[1]))}
 
 
 def cases(with_sixteen: bool):
@@ -792,8 +829,11 @@ def main() -> int:
         libs = build_alone({
             f"trees{n}_{'pairs' if g else 'bytes'}": (
                 src, [f"-DTAHOE_RANK_TREES={n}", f"-DTAHOE_RANK_PAIR_GROUPS={g}"])
-            for n in TREES for g in PAIR_GROUPS})
+            for n in TREES for g in PAIR_GROUPS}
+            | ({"other": (args.other.resolve(), [])} if args.other else {}))
         res = run_b(libs, args.rounds or 5)
+        if args.other:
+            res["sass_same_as_other"] = sass_same(src, args.other.resolve())
     elif args.mode == "sparse":
         src = _build.CSRC / "sparse_rank.cu"
         levels, builds = {}, {}
@@ -835,7 +875,8 @@ def main() -> int:
     else:
         res = run_route(args.rounds or 5)
     if args.mode in ("a", "b"):
-        ok = all(all(c["exact"].values()) for c in res.values())
+        ok = all(all(c["exact"].values()) for n, c in res.items()
+                 if n != "sass_same_as_other")
     else:
         ok = all(c["ok"] for c in res.values())
     print(json.dumps({"mode": args.mode, "card": card_line(),

@@ -1,34 +1,40 @@
-"""Probe: the column walk's dot and descent apart, and the int8 tensor-core
-rate.
+"""Probe: kernel B's visit without the walk's dependence, its dependent walk
+without the record loads, and the int8 tensor-core rate.
 
     python -m tahoe_tpu_torch.scripts.unit_bench
 
-The H100 counterpart of scripts/unit_bench.py's ``variant_margins`` and its
-MXU-rate chains. On the SUSY-class forest at 65,536 rows, with the launch
-of the column walk kernel B ran before it read node records and four trees
-in flight (csrc/probes.cu ``tahoe_probe_rank_parts``):
+The H100 counterpart of scripts/unit_bench.py's ``variant_margins``
+("matmul": the level products without the selects; "fold": the selects
+without the products) and its MXU-rate chains. On the SUSY-class forest at
+16,384 and 65,536 rows, on kernel B's own launch (csrc/probes.cu
+``tahoe_probe_rank_parts``):
 
-- ``dot``: every visited column read whole, __dp4a and the warp sum, along
-  a root-to-leaf path hashed from (row, tree) that does not wait on the
-  conditions: the walk without its dependence;
-- ``descent``: the dependent walk j += cond << d, cond a hash of the row's
-  plane-word sum, the tree, the level and j, no column read, then the leaf:
-  the walk without its loads and dots.
+- ``dot``: kernel B's record loads on the real walk's path given in
+  advance, as the ``stream`` mode of overhead_bench, and kernel B's own
+  visit body on each (the shared read at the record's lane, diff and
+  diff >= 0), all of a group's loads issued before any is used: the whole
+  visit without the dependence. Against kernel B, what the dependence
+  costs;
+- ``descent``: kernel B's dependent walk n += (1 + cond) << d over the
+  staged row, kRankTrees chains in flight, each node's lane and k hashed
+  from (tree, node) with no record loaded, then the leaf: the walk without
+  its global loads. Against kernel B, what the load in the chain costs.
 
-Each is held to its plain version exactly and timed (median of 20 calls,
-CUDA events) beside kernel B (over its records) and the fused kernel on
-the same rows. The yardstick for the int8 tensor-core rate is one library
-call, torch._int_mm, at M = 1024, K = 128, N = 32768 and at K = 2048,
-N = 8192 (scripts/unit_bench.py:89-119), with B row-major and
-column-major; no engine of the port calls it. Prints one JSON line.
+Each is held to its plain version exactly and timed by device time beside
+kernel B in alternating rounds (``walk_parts``), with its share of kernel
+B's time; the fused kernel (CUDA events) beside them at 65,536 rows. The
+yardstick for the int8 tensor-core rate is one library call,
+torch._int_mm, at M = 1024, K = 128, N = 32768 and at K = 2048, N = 8192
+(scripts/unit_bench.py:89-119), with B row-major and column-major; no
+engine of the port calls it. Prints one JSON line.
 """
 from __future__ import annotations
 
 import sys
 
-from tahoe_tpu_torch.scripts import main, susy_rank_engine, susy_rows
+from tahoe_tpu_torch.scripts import main, susy_rank_engine, susy_rows, walk_parts
 
-ROWS = 65536
+ROWS = (16384, 65536)
 INT_MM_SHAPES = ((1024, 128, 32768), (1024, 2048, 8192))
 
 
@@ -36,34 +42,18 @@ def run(device, rows=ROWS) -> dict:
     import numpy as np
     import torch
 
-    from tahoe_tpu_torch.ops.probes import (
-        RANK_PARTS_MODES, rank_parts_probe_cuda, rank_parts_probe_plain)
-    from tahoe_tpu_torch.ops.rank_kernel import (
-        rank_margins_cuda, rank_margins_fused_cuda)
+    from tahoe_tpu_torch.ops.probes import RANK_PARTS_MODES
+    from tahoe_tpu_torch.ops.rank_kernel import rank_margins_fused_cuda
     from tahoe_tpu_torch.utils.profiling import cuda_median_ms
 
     eng = susy_rank_engine(device, fuse_transform=True)
     t = eng.tables
-    data = susy_rows(rows, seed=1)
-    x = t.rows(data, eng.raw_missing)
-    planes = eng.transform(data)
-    out = {"card": torch.cuda.get_device_name(device), "rows": rows,
-           "rank_fold_ms": cuda_median_ms(
-               lambda: rank_margins_cuda(planes, t.records, t.leaf, t.depth)),
+    x = t.rows(susy_rows(max(rows), seed=1), eng.raw_missing)
+    res = walk_parts(eng, RANK_PARTS_MODES, rows)
+    out = {"card": torch.cuda.get_device_name(device), "rows": res,
+           "rank_fused_rows": max(rows),
            "rank_fused_ms": cuda_median_ms(lambda: rank_margins_fused_cuda(
                x, t.thresholds, t.counts, t.fused_records, t.leaf, t.depth))}
-    for mode in RANK_PARTS_MODES:
-        got = rank_parts_probe_cuda(planes, t.mats, t.leaf, t.depth, mode)
-        plain = rank_parts_probe_plain(planes, t.mats, t.leaf, t.depth, mode)
-        out[mode] = {
-            "exact": bool(torch.equal(got, plain)),
-            "max_abs_err": int((got.long() - plain.long()).abs().max()),
-            "ms": cuda_median_ms(lambda: rank_parts_probe_cuda(
-                planes, t.mats, t.leaf, t.depth, mode)),
-            "plain_ms": cuda_median_ms(lambda: rank_parts_probe_plain(
-                planes, t.mats, t.leaf, t.depth, mode), warmup=1, iters=3),
-        }
-        out[mode]["share_of_rank_fold"] = out[mode]["ms"] / out["rank_fold_ms"]
     rng = np.random.default_rng(0)
     for m, k, n in INT_MM_SHAPES:
         a = torch.as_tensor(rng.integers(-3, 3, (m, k)).astype(np.int8), device=device)
@@ -74,7 +64,8 @@ def run(device, rows=ROWS) -> dict:
             ms = cuda_median_ms(lambda: torch._int_mm(a, bb))
             out[f"int_mm_{m}x{k}x{n}_{layout}"] = {
                 "ms": ms, "tops": 2 * m * k * n / ms / 1e9}
-    out["all_exact"] = all(out[m]["exact"] for m in RANK_PARTS_MODES)
+    out["all_exact"] = all(r[m]["exact"] for r in res.values()
+                           for m in RANK_PARTS_MODES)
     return out
 
 

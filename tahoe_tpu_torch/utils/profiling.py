@@ -57,3 +57,15 @@ def cuda_device_ms(fn: Callable[[], object], *, warmup: int = 3,
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def alternating(fns: dict, *, rounds: int = 5, calls: int = 20) -> dict:
+    """Device ms a call of each fn (``cuda_device_ms`` over ``calls``
+    calls), in ``rounds`` rounds that take the fns in turn, so that a drift
+    of the card's clock falls on all of them alike; name -> (median of the
+    rounds, the rounds)."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(cuda_device_ms(fn, calls=calls))
+    return {name: (statistics.median(v), v) for name, v in times.items()}

@@ -6,6 +6,8 @@ tests/conftest.py (which imports jax) is left out:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +15,7 @@ import torch
 from tahoe_tpu_torch import ORACLE_ATOL, Forest, GpuLimits, Output, Strategy
 from tahoe_tpu_torch.forest import compiler, quantize, synthetic, train
 from tahoe_tpu_torch.forest.sparse import SparseGatherEngine
-from tahoe_tpu_torch.ops._build import ptr
+from tahoe_tpu_torch.ops._build import library, ptr
 from tahoe_tpu_torch.ops.bucketed import (
     DepthBucketedFoldEngine,
     DepthBucketedRankEngine,
@@ -48,10 +50,8 @@ from tahoe_tpu_torch.ops.probes import (
     RANK_PARTS_MODES,
     int8_probe_cuda,
     int8_probe_plain,
-    overhead_probe_cuda,
-    overhead_probe_plain,
-    rank_parts_probe_cuda,
-    rank_parts_probe_plain,
+    walk_probe_cuda,
+    walk_probe_plain,
 )
 from tahoe_tpu_torch.ops.rank_kernel import (
     RANK_FOLD,
@@ -61,7 +61,10 @@ from tahoe_tpu_torch.ops.rank_kernel import (
     rank_margins_cuda,
     rank_margins_fused_cuda,
     rank_margins_fused_plain,
+    rank_block_rows,
     rank_margins_plain,
+    rank_row_words,
+    walk_paths,
 )
 from tahoe_tpu_torch.ops.rank_transform import (
     RANK_PLANES,
@@ -588,33 +591,54 @@ def test_probe_int8_kernel(dev, mode):
 
 
 def _probe_tables(dev, cols):
+    """Rank tables of 1, 2 or 16 plane groups (18, 45, 480 columns) and the
+    planes of 1,500 rows: no multiple of kernel B's block (256 rows; 32 at
+    sixteen groups)."""
     forest = synthetic.generate_forest(50, 8, cols, leaf_prob=0.05, seed=cols)
     eng = RankFoldEngine(forest, device=dev)
     t = eng.tables
+    assert t.groups == {18: 1, 45: 2, 480: 16}[cols]
     return eng.transform(_data(1500, cols, cols + 1)), t
 
 
-@pytest.mark.parametrize("cols", [18, 45])
+@pytest.mark.parametrize("cols", [18, 45, 480])
 @pytest.mark.parametrize("mode", OVERHEAD_MODES)
 def test_probe_overhead_kernel(dev, mode, cols):
     planes, t = _probe_tables(dev, cols)
+    paths = walk_paths(planes, t.records, t.depth)
     before = PROBE_OVERHEAD.launches
-    got = overhead_probe_cuda(planes, t.mats, t.depth, mode)
+    got = walk_probe_cuda(planes, t.records, t.leaf, t.depth, mode, paths)
     torch.cuda.synchronize()
     assert PROBE_OVERHEAD.launches == before + 1
-    assert torch.equal(got, overhead_probe_plain(planes, t.mats, t.depth, mode))
+    assert torch.equal(got, walk_probe_plain(planes, t.records, t.leaf, t.depth,
+                                             mode, paths))
 
 
-@pytest.mark.parametrize("cols", [18, 45])
+@pytest.mark.parametrize("cols", [18, 45, 480])
 @pytest.mark.parametrize("mode", RANK_PARTS_MODES)
 def test_probe_rank_parts_kernel(dev, mode, cols):
     planes, t = _probe_tables(dev, cols)
+    paths = walk_paths(planes, t.records, t.depth)
     before = PROBE_RANK_PARTS.launches
-    got = rank_parts_probe_cuda(planes, t.mats, t.leaf, t.depth, mode)
+    got = walk_probe_cuda(planes, t.records, t.leaf, t.depth, mode, paths)
     torch.cuda.synchronize()
     assert PROBE_RANK_PARTS.launches == before + 1
-    assert torch.equal(got, rank_parts_probe_plain(planes, t.mats, t.leaf,
-                                                   t.depth, mode))
+    assert torch.equal(got, walk_probe_plain(planes, t.records, t.leaf, t.depth,
+                                             mode, paths))
+
+
+def test_rank_block_reckoning_matches_the_library(dev):
+    """ops/rank_kernel.py's copy of kernel B's block sizing (rows a block,
+    staged words a row) is the built library's at every group count."""
+    fn = library().tahoe_rank_launch_shape
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    for groups in range(1, 17):
+        block, words = ctypes.c_int(), ctypes.c_int()
+        fn(groups, ctypes.byref(block), ctypes.byref(words))
+        assert (block.value, words.value) == (rank_block_rows(groups),
+                                              rank_row_words(groups)), groups
 
 
 @pytest.mark.parametrize("rows", [1, 31, 65537])
@@ -654,7 +678,8 @@ def test_redesigned_kernels_at_row_counts(dev, rows):
 def test_launchers_capture_in_a_cuda_graph(dev):
     """The launchers that grant shared memory (kernels A and B, the fused
     kernel on SUSY-class tables, kernel C in its dual, sign and non-ge
-    forms, the deep kernel in its sign and non-ge forms, the sparse kernel)
+    forms, the deep kernel in its sign and non-ge forms, the sparse kernel,
+    both walk probes in every mode at two plane groups, past 48 KB a block)
     give inside a CUDA graph what they give outside
     it: no attribute call falls in the capture. Kernel C's forms take the
     whole opt-in budget back to back, the sign form the smaller, so that a
@@ -697,6 +722,8 @@ def test_launchers_capture_in_a_cuda_graph(dev):
     st = sparse.tables
     assert st.groups >= 12  # 32-row blocks of staged bytes, past 48 KB
     sp = sparse.transform(_data(4096, 480, 70))
+    wp, wt = _probe_tables(dev, 45)
+    wpaths = walk_paths(wp, wt.records, wt.depth)
     calls = {
         "rank_transform": lambda: rank_planes_cuda(x, rt.thresholds, rt.counts),
         "rank_fold": lambda: rank_margins_cuda(planes, rt.records, rt.leaf, rt.depth),
@@ -713,6 +740,9 @@ def test_launchers_capture_in_a_cuda_graph(dev):
                                                   nonge_launch),
         "sparse_rank": lambda: sparse_margins_cuda(sp, st.slots, st.roots.shape[0],
                                                    st.steps),
+        "probe_overhead, probe_rank_parts": lambda: torch.stack([
+            walk_probe_cuda(wp, wt.records, wt.leaf, wt.depth, mode, wpaths)
+            for mode in OVERHEAD_MODES + RANK_PARTS_MODES]),
     }
     for name, fn in calls.items():
         want = fn()

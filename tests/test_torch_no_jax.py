@@ -10,11 +10,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "tahoe_tpu_torch"
 
 SCRIPT = r"""
 import sys
+
+import pytest
 import numpy as np
 import tahoe_tpu_torch
 from tahoe_tpu_torch import Forest, Strategy
@@ -116,3 +120,35 @@ def test_cuda_sources_build_without_fast_math():
         assert bad not in flags
     for path in (PORT / "csrc").glob("*.cu"):
         assert "cudaGetLastError" in path.read_text(), path
+
+
+def test_failed_build_stops_every_compiler(tmp_path, monkeypatch):
+    """One nvcc fails while another still runs: build() raises the failing
+    compiler's error only after the other is killed and reaped, and leaves
+    neither a library nor its object directory behind."""
+    from tahoe_tpu_torch.ops import _build
+
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("")
+    (csrc / "b.cu").write_text("")
+    pid_file = tmp_path / "b.pid"
+    nvcc = tmp_path / "nvcc"
+    # a.cu fails once b.cu's compiler has started; b.cu's never ends
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        'case "$*" in\n'
+        f'  *a.cu*) while [ ! -s {pid_file} ]; do sleep 0.05; done\n'
+        '          echo "a.cu: error: broken"; exit 1 ;;\n'
+        f'  *) echo $$ > {pid_file}; exec sleep 300 ;;\n'
+        "esac\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", out)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    with pytest.raises(RuntimeError, match="a.cu: error: broken"):
+        _build.build()
+    pid = int(pid_file.read_text())
+    with pytest.raises(ProcessLookupError):
+        os.kill(pid, 0)  # killed and reaped, not left running
+    assert list(out.iterdir()) == []
