@@ -65,7 +65,16 @@ Phases, each of which exits non-zero when it fails:
    and its bound; stream and dot also less the path words' own cost,
    paths - noop), beside kernel B's L1 lines, sectors and shared wavefronts a
    warp-visit reckoned from the walks of 2,048 rows
-   (ops/rank_kernel.py rank_wavefronts) and the SM cycles a warp-visit.
+   (ops/rank_kernel.py rank_wavefronts) and the SM cycles a warp-visit;
+14. the CLI protocol (tahoe_tpu_torch/cli.py) in-process on make_fixtures'
+   susy_like pair (10,000 rows), with live calibration and 10 timed epochs
+   a round: every strategy runs correct or is skipped with a reason, and
+   every kernel of the engines that ran launched (counts set to 0 before
+   the CLI, read after; the calibration's own launches are not counted);
+   one JSON line of the model's pick, the measured best, each strategy's
+   us/sample and build seconds. A misprediction is printed, not failed;
+15. scripts/bench.py's main in-process (65,536 rows), its JSON line, which
+   must hold max_err_vs_oracle <= ORACLE_ATOL.
 
 Phases 6-12 run 65,536 rows each (phase 11's second forest 4,096) against
 the numpy oracle at ORACLE_ATOL,
@@ -90,6 +99,8 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
+import io as pyio
 import json
 import os
 import statistics
@@ -185,7 +196,10 @@ def main() -> int:
     from tahoe_tpu_torch.ops.sparse_kernel import (
         SPARSE_RANK, SparseRankEngine, record_depths, sparse_block_walk,
         sparse_leaves_plain, sparse_margins_cuda, sparse_margins_plain)
-    from tahoe_tpu_torch.scripts import int8_cast_probe, overhead_bench, unit_bench
+    from tahoe_tpu_torch import cli
+    from tahoe_tpu_torch.engine import autotune
+    from tahoe_tpu_torch.scripts import (
+        bench, int8_cast_probe, make_fixtures, overhead_bench, unit_bench)
     from tahoe_tpu_torch.utils.profiling import (
         alternating, cuda_device_ms, cuda_median_ms)
 
@@ -922,6 +936,83 @@ def main() -> int:
               + f"; fused {cycles(results['probe_rank_parts']['rank_fused_ms']):.3f}"
               f" (CUDA events) ({card})")
     del rt, unfused, planes
+
+    # -- 14. the CLI protocol on the card -------------------------------------
+    def engine_kernels(eng):
+        """The kernels an engine launches on the card."""
+        if isinstance(eng, FoldKernelEngine):
+            return {name_of(eng.kernel)}
+        if isinstance(eng, RankFoldEngine):
+            return {"rank_fused"} if eng.fused else {"rank_transform", "rank_fold"}
+        if isinstance(eng, SparseRankEngine):
+            return {"rank_transform", "sparse_rank"}
+        if isinstance(eng, DepthBucketedRankEngine):
+            return {"rank_transform", "rank_fold"}
+        if isinstance(eng, DepthBucketedFoldEngine):
+            return set().union(*(engine_kernels(e) for e in eng.sub))
+        return set()  # the plain torch engines
+
+    t14 = time.perf_counter()
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model_path, data_path = make_fixtures.write_fixture(tmp, "susy_like")
+        for k in all_kernels.values():
+            k.launches = 0
+        rc = cli.main([model_path, data_path, "--epochs", "10"], report=report)
+        counts = {n: k.launches for n, k in all_kernels.items()}
+        f = Forest.from_files(model_path, data_path, device="cuda")
+    if "results" not in report:
+        fail("[14] the CLI enumerated no strategy")
+    results, predicted = report["results"], report["predicted"]
+    picked = set()
+    for s, r in results.items():
+        if r.error or (r.ran and not r.correct):
+            fail(f"[14] {s.name}: {r.error or f'max |pred - oracle| {r.max_err}'}")
+        if r.ran:
+            picked |= engine_kernels(f.engine(s))
+            f.drop_engines()
+        elif not r.skipped_reason:
+            fail(f"[14] {s.name} neither ran nor was skipped with a reason")
+    unlaunched = sorted(n for n in picked if counts[n] < 1)
+    if rc != 0 or unlaunched:
+        fail(f"[14] CLI exit {rc}; kernels of the enumerated engines that did "
+             f"not launch: {unlaunched} (launches {counts})")
+    best = autotune.best_strategy(results)
+    print(json.dumps({
+        "phase": 14, "rows": 10000, "predicted": predicted.name,
+        "measured_best": best.name, "model_correct": predicted == best,
+        "strategies": {s.name: ({"us_per_sample": r.us_per_sample,
+                                 "band": r.us_band, "build_s": r.build_s,
+                                 "max_err": r.max_err} if r.ran
+                                else {"skipped": r.skipped_reason})
+                       for s, r in results.items()},
+        "predicted_us": {s.name: c.total * 1e6 / 10000
+                         for s, c in report["costs"].items() if c},
+        "launches": {n: c for n, c in counts.items() if c},
+        "card": card}))
+    if predicted != best:
+        print(f"[14] the model picked {predicted.name}, the enumeration measured "
+              f"{best.name} the fastest: a finding, not a failure")
+    print(f"[14] the CLI protocol on susy_like, 10,000 rows, in "
+          f"{time.perf_counter() - t14:.1f} s; kernels launched: "
+          f"{sorted(picked)} ({card})")
+    del f, results, report
+
+    # -- 15. the headline bench ---------------------------------------------
+    t15 = time.perf_counter()
+    out = pyio.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main([])
+    text = out.getvalue().strip()
+    print(text)
+    try:
+        line = json.loads(text.splitlines()[-1])
+    except (IndexError, ValueError):
+        fail(f"[15] bench printed no JSON line: {text[-500:]}")
+    err = line.get("max_err_vs_oracle")
+    if rc != 0 or err is None or not err <= ORACLE_ATOL:
+        fail(f"[15] bench exit {rc}, max_err_vs_oracle {err}")
+    print(f"[15] bench in {time.perf_counter() - t15:.1f} s ({card})")
 
     for name, checks in record.items():
         print(f"[record] {name}: " + "; ".join(

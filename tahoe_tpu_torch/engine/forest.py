@@ -72,10 +72,7 @@ class Forest:
         num_cols = None
         missing = float("nan")
         if data_path is not None and os.path.exists(data_path):
-            with open(data_path) as f:
-                f.readline()
-                num_cols = int(f.readline())
-                missing = float(f.readline())
+            _, num_cols, missing = peek_data_header(data_path)
         spec = io.load_model(model_path, output=output, global_bias=global_bias,
                              threshold=threshold, missing=missing,
                              num_cols=num_cols)
@@ -96,15 +93,20 @@ class Forest:
     def feasible(self, strategy: Strategy) -> Optional[str]:
         return feasibility.check(strategy, self.spec, self.limits)
 
-    def engine(self, strategy: Strategy):
-        """Build (or fetch) the engine realizing a strategy."""
-        if strategy in self._engines:
-            return self._engines[strategy]
+    def engine(self, strategy: Strategy, *, fuse_transform: bool = False):
+        """Build (or fetch) the engine realizing a strategy.
+        ``fuse_transform`` is RankFoldEngine's (RANK_MXU only)."""
+        key = (strategy, fuse_transform)
+        if key in self._engines:
+            return self._engines[key]
         reason = self.feasible(strategy)
         if reason is not None:
             raise ValueError(f"strategy {strategy.name} infeasible: {reason}")
+        if fuse_transform and strategy != Strategy.RANK_MXU:
+            raise ValueError(f"fuse_transform is RANK_MXU's; not {strategy.name}'s")
         if strategy == Strategy.RANK_MXU:
-            eng = RankFoldEngine(self.spec, device=self.device)
+            eng = RankFoldEngine(self.spec, device=self.device,
+                                 fuse_transform=fuse_transform)
         elif strategy == Strategy.DEPTH_BUCKETED:
             eng = make_depth_bucketed_engine(self.spec, device=self.device)
         elif strategy == Strategy.SPARSE:
@@ -122,8 +124,12 @@ class Forest:
             eng = FoldKernelEngine(
                 self.spec, device=self.device,
                 whole_forest=strategy == Strategy.VMEM_FOREST)
-        self._engines[strategy] = eng
+        self._engines[key] = eng
         return eng
+
+    def drop_engines(self) -> None:
+        """Forget every built engine, so that its tables can be freed."""
+        self._engines.clear()
 
     def predict(self, rows, strategy: Strategy = Strategy.SPLIT_FOREST):
         """Predictions [R] f32 on ``device``."""
@@ -133,3 +139,13 @@ class Forest:
         """The numpy CPU golden model (ops/oracle.py, the port's copy of the
         JAX package's)."""
         return oracle.predict(self.spec, np.asarray(rows, np.float32))
+
+
+def peek_data_header(path: str) -> tuple[int, int, float]:
+    """(rows, num_cols, missing sentinel) from the header of a data file in
+    the reference text format (tahoe_tpu/engine/forest.py:176)."""
+    with open(path, "r") as f:
+        rows = int(f.readline())
+        cols = int(f.readline())
+        missing = float(f.readline())
+    return rows, cols, missing

@@ -573,6 +573,15 @@ def rank_margins_fused(x: torch.Tensor, t: RankTables) -> torch.Tensor:
                                    t.leaf, t.depth)
 
 
+def fuse_admits(q: RankQuantizedForest) -> bool:
+    """Whether ``fuse_transform`` fuses on a quantized forest: the JAX gate
+    (rank_kernel.py:807-814) less its TPU grid conditions. One plane group
+    (<= 30 virtual features) already rules out the v2 transform's other
+    arm, more than 128 virtual features (:1043)."""
+    return (rank_groups(q.spec.num_cols) == 1
+            and q.max_ranks > FUSE_MIN_THRESHOLDS)
+
+
 class RankFoldEngine:
     """Rank-quantize a forest and run it through kernels A and B, or the
     fused kernel.
@@ -599,13 +608,7 @@ class RankFoldEngine:
                                   prequantized=prequantized)
         self.q = self.tables.q
         self.groups = self.tables.groups
-        # the JAX gate (rank_kernel.py:807-814) less its TPU grid conditions;
-        # one plane group (<= 30 virtual features) already rules out the
-        # v2 transform's other arm, more than 128 virtual features (:1043)
-        self.fused = bool(
-            fuse_transform
-            and self.groups == 1
-            and self.q.max_ranks > FUSE_MIN_THRESHOLDS)
+        self.fused = bool(fuse_transform and fuse_admits(self.q))
         self.num_trees = forest.num_trees
         self.output = forest.output
         self.global_bias = forest.global_bias

@@ -3,14 +3,20 @@
 Replaces the JAX package's chained-slope timing (utils/profiling.py,
 bench.py:68-86), which existed because the remote TPU runtime acknowledged a
 call before running it. On a local GPU an event pair around each call,
-read after one synchronize, gives the device time of that call.
+read after one synchronize, gives the time of that call on the card, the
+host's issue time included where the card waits on it; ``median_ms`` is
+that on ``cuda`` and the host's clock on ``cpu``, and ``cuda_device_ms``
+the device time alone.
 """
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable
 
 import torch
+
+from tahoe_tpu_torch.config import resolve_device
 
 
 def cuda_median_ms(fn: Callable[[], object], *, warmup: int = 3,
@@ -31,6 +37,27 @@ def cuda_median_ms(fn: Callable[[], object], *, warmup: int = 3,
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def median_ms(fn: Callable[[], object], device, *, warmup: int = 3,
+              iters: int = 20) -> float:
+    """Median wall milliseconds of ``fn()`` a call on ``device``: on
+    ``cuda`` ``cuda_median_ms``, whose event pair around each call also
+    counts the host's time to issue it once the card waits on the host, as
+    an end-to-end time must; on ``cpu`` ``time.perf_counter`` around each
+    call. A ``cuda`` device without a card raises (resolve_device)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            return cuda_median_ms(fn, warmup=warmup, iters=iters)
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def cuda_device_ms(fn: Callable[[], object], *, warmup: int = 3,

@@ -25,6 +25,7 @@ from tahoe_tpu_torch.ops.bucketed import (
 from tahoe_tpu_torch.ops.fold_kernel import FOLD, FOLD_DEEP, FOLD_DEEP_SIGN, FOLD_SIGN
 from tahoe_tpu_torch.ops.rows import canonicalize_rows
 from tahoe_tpu_torch.ops.transform import apply_output_transform
+from tahoe_tpu_torch.scripts.run_sweep import shape_by_name
 
 # every ported strategy but DEPTH_BUCKETED, which needs mixed tree depths
 PORTED = (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST, Strategy.RANK_MXU)
@@ -209,24 +210,25 @@ def test_depth_bucketed_through_the_facade(tmp_path, cols, variant):
     assert "uniform" in uniform.feasible(Strategy.DEPTH_BUCKETED)
 
 
-# sweep families (scripts/run_sweep.py SHAPES): (trees, depth, cols, active,
-# the kernel fold_plan takes, measured the faster on the H100: PERF.md
-# section 6)
+# sweep families (the port's scripts/run_sweep.py SHAPES), each with the
+# kernel fold_plan takes, measured the faster on the H100 (PERF.md section 6)
 SWEEP_SHAPES = {
-    "susy_like": (500, 8, 18, None, FOLD),
-    "allstate_like": (250, 8, 130, None, FOLD_SIGN),
-    "cup98_like": (150, 8, 479, 300, FOLD_SIGN),
-    "gisette_like": (100, 6, 5000, 120, FOLD_SIGN),
-    "mnist_like": (100, 6, 400, None, FOLD_SIGN),
-    "deep13_like": (80, 13, 24, None, FOLD_DEEP),
-    "deep15_like": (30, 15, 16, None, FOLD_DEEP),
-    "stumps_like": (800, 3, 10, None, FOLD),
+    "susy_like": FOLD,
+    "allstate_like": FOLD_SIGN,
+    "cup98_like": FOLD_SIGN,
+    "gisette_like": FOLD_SIGN,
+    "mnist_like": FOLD_SIGN,
+    "deep13_like": FOLD_DEEP,
+    "deep15_like": FOLD_DEEP,
+    "stumps_like": FOLD,
 }
 
 
 @pytest.mark.parametrize("name", sorted(SWEEP_SHAPES))
 def test_split_forest_feasible_where_jax_is(name):
-    trees, depth, cols, active, kernel = SWEEP_SHAPES[name]
+    shape = shape_by_name(name)
+    trees, depth, cols = shape[1:4]
+    active = shape[6]["active"] if len(shape) > 6 else None
     spec = synthetic.generate_forest(trees, depth, cols, active_cols=active,
                                      seed=1)
     f = Forest(_port(spec), device="cpu")
@@ -236,7 +238,7 @@ def test_split_forest_feasible_where_jax_is(name):
     live = jax_feasibility.fold_cols(_jax(f.spec))[0]
     assert eng.tables.num_cols == live
     assert eng.form == ("dual" if live <= 64 else "sign")
-    assert eng.kernel is kernel
+    assert eng.kernel is SWEEP_SHAPES[name]
 
 
 def test_depth_bucketed_feasible_where_jax_is():

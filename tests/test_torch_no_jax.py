@@ -27,7 +27,11 @@ from tahoe_tpu_torch.ops import bucketed, fold_kernel, rank_kernel, rank_transfo
 from tahoe_tpu_torch.ops import gather_engine, oracle, probes, sparse_kernel  # noqa
 from tahoe_tpu_torch.ops import tensor_engine  # noqa
 from tahoe_tpu_torch.scripts import int8_cast_probe, overhead_bench, unit_bench  # noqa
-from tahoe_tpu_torch.utils import profiling  # noqa
+from tahoe_tpu_torch.utils import debug, profiling  # noqa
+from tahoe_tpu_torch import cli  # noqa
+from tahoe_tpu_torch.engine import autotune  # noqa
+from tahoe_tpu_torch.perf_model import calibrate, model  # noqa
+from tahoe_tpu_torch.scripts import bench, make_fixtures, run_sweep  # noqa
 
 forest = synthetic.generate_forest(9, 4, 6, leaf_prob=0.1, seed=1)
 data = synthetic.generate_data(32, 6, missing_prob=0.1, seed=2)
@@ -60,6 +64,11 @@ assert fused.fused
 assert np.array_equal(fused.predict(rows).numpy(),
                       rank_kernel.RankFoldEngine(susy, device="cpu")
                       .predict(rows).numpy())
+# the selection path: the model's pick, then the enumeration's verdicts
+best, costs = model.choose_strategy(forest, 32, calibrate.Calibration.default())
+res = autotune.enumerate_strategies(forest, data, device="cpu", warmup=0,
+                                    epochs=1, verbose=False)
+assert res[best].ran and all(r.correct for r in res.values() if r.ran)
 leaked = sorted(m for m in sys.modules
                 if m in ("jax", "jaxlib", "tahoe_tpu")
                 or m.startswith(("jax.", "jaxlib.", "tahoe_tpu.")))
