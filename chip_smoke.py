@@ -7,7 +7,9 @@ Phases, each of which exits non-zero when it fails:
 
 1. the card's name and power limit;
 2. build the CUDA kernels from the checkout (into build/tahoe_tpu_torch/),
-   printing ptxas's registers per kernel, kernel B's on a line of its own;
+   printing ptxas's registers per kernel, kernel B's on a line of its own,
+   and holding the registers perf_model/model.py counts to the runtime's
+   (cudaFuncGetAttributes);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the SUSY-class main path (500 trees, depth 8, 18 features, 65,536
    rows, 2% missing), with both median times from CUDA events; kernel A,
@@ -74,7 +76,21 @@ Phases, each of which exits non-zero when it fails:
    one JSON line of the model's pick, the measured best, each strategy's
    us/sample and build seconds. A misprediction is printed, not failed;
 15. scripts/bench.py's main in-process (65,536 rows), its JSON line, which
-   must hold max_err_vs_oracle <= ORACLE_ATOL.
+   must hold max_err_vs_oracle <= ORACLE_ATOL;
+16. sharded inference (parallel/): on a one-rank NCCL group, mesh (1, 1),
+   the sharded fold and rank engines on the SUSY-class forest and the
+   sparse one on phase 10's rf_deep18-class forest, 65,536 rows each, bit
+   for bit the unsharded engines and within ORACLE_ATOL of the oracle, each
+   engine's kernels launched; the host issue and event time of one NCCL
+   all_reduce of 65,536 f32; then two ranks on the one card over gloo
+   (scripts/run_multiproc.py), meshes (1, 2) and (2, 1), the fold and rank
+   engines on SUSY-class: every shard's margins bit-equal to an unsharded
+   engine on its trees, every rank's predictions within ORACLE_ATOL, and
+   every kernel of a rank's engine launched in that rank (a correctness
+   run: two ranks on one card time no multi-GPU figure);
+17. the native text loader (forest/native_io.py): the SUSY-class model and
+   65,536 x 18 rows written with io.save_model / io.save_data, read through
+   the C++ parser and the numpy parser, bit-equal, with both load times.
 
 Phases 6-12 run 65,536 rows each (phase 11's second forest 4,096) against
 the numpy oracle at ORACLE_ATOL,
@@ -202,6 +218,7 @@ def main() -> int:
         bench, int8_cast_probe, make_fixtures, overhead_bench, unit_bench)
     from tahoe_tpu_torch.utils.profiling import (
         alternating, cuda_device_ms, cuda_median_ms)
+    from tahoe_tpu_torch.perf_model.model import KERNEL_REGISTERS
 
     dev = torch.device("cuda", 0)
     # the main path's kernels: RANK_MXU's kernels A and B, and the fold
@@ -239,6 +256,16 @@ def main() -> int:
         fail("no ptxas report for kernel B (rank_fold_kernel) in the build log")
     print(f"[2] kernel B (rank_fold_kernel, pair and byte stagings): "
           f"{' / '.join(kernel_b_regs)} registers")
+    # the registers the performance model counts, against the runtime's
+    regs = {key: _build.registers(*key) for key in KERNEL_REGISTERS}
+    drift = {key: (KERNEL_REGISTERS[key], got) for key, got in regs.items()
+             if got != KERNEL_REGISTERS[key]}
+    if drift:
+        fail(f"[2] registers a thread drifted from perf_model/model.py "
+             f"KERNEL_REGISTERS ((model, cudaFuncGetAttributes)): {drift}")
+    print(f"[2] registers a thread of the {len(regs)} kernel instances the model "
+          f"prices agree with cudaFuncGetAttributes: "
+          + ", ".join(f"{k[0][6:-10]}{list(k[1:])} {v}" for k, v in regs.items()))
 
     # -- 3. kernels vs plain versions at SUSY shapes -----------------------
     forest = synthetic.susy_class_forest(seed=0)
@@ -752,7 +779,8 @@ def main() -> int:
     counts = run_path("10", f, Strategy.SPARSE, deep_rows, want,
                       {"rank_transform", "sparse_rank"})
     launches["sparse_rank"] = counts["sparse_rank"]
-    del f, eng, st, x, planes, deep18
+    deep18_want = want  # phase 16 shards this forest again
+    del f, eng, st, x, planes
 
     wide = synthetic.generate_forest(40, 6, 3 * 480, seed=23)
     wide_rows = synthetic.generate_data(ROWS, 3 * 480, missing_prob=0.02, seed=12)
@@ -1013,6 +1041,145 @@ def main() -> int:
     if rc != 0 or err is None or not err <= ORACLE_ATOL:
         fail(f"[15] bench exit {rc}, max_err_vs_oracle {err}")
     print(f"[15] bench in {time.perf_counter() - t15:.1f} s ({card})")
+
+    # -- 16. sharded inference ----------------------------------------------
+    t16 = time.perf_counter()
+    import torch.distributed as dist
+
+    from tahoe_tpu_torch.ops.bucketed import subset_trees
+    from tahoe_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from tahoe_tpu_torch.parallel.sharded import (
+        ShardedForestEngine, ShardedRankEngine, ShardedSparseEngine)
+    from tahoe_tpu_torch.scripts import run_multiproc
+
+    by_symbol = {k.symbol: n for n, k in all_kernels.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) a one-rank NCCL group, mesh (1, 1): each sharded engine bit for
+        # bit the unsharded one, and within ORACLE_ATOL of the oracle
+        init_distributed(f"file://{tmp}/rendezvous", 1, 0, backend="nccl",
+                         device="cuda")
+        grid = make_mesh(1, 1, device="cuda")
+        for label, sharded_cls, plain_cls, spec, rows_np, want in (
+                ("fold", ShardedForestEngine, FoldKernelEngine, forest, data,
+                 susy_want),
+                ("rank", ShardedRankEngine, RankFoldEngine, forest, data, susy_want),
+                ("sparse", ShardedSparseEngine, SparseRankEngine, deep18,
+                 deep_rows, deep18_want)):
+            rows_d = torch.as_tensor(rows_np, device=dev)
+            ref = plain_cls(spec, device=dev)
+            ref_pred = ref.predict(rows_d)
+            eng = sharded_cls(spec, grid)
+            for k in all_kernels.values():
+                k.launches = 0
+            got = eng.predict(rows_d)
+            torch.cuda.synchronize()
+            counts = {n: k.launches for n, k in all_kernels.items() if k.launches}
+            need = engine_kernels(ref)
+            if need - set(counts):
+                fail(f"[16] sharded {label}: kernels {sorted(need - set(counts))} "
+                     f"did not launch ({counts})")
+            if not torch.equal(got, ref_pred):
+                fail(f"[16] sharded {label} on (1, 1) differs from the unsharded "
+                     f"engine by {float((got - ref_pred).abs().max())}")
+            err = float(np.abs(got.cpu().numpy() - want).max())
+            if err > ORACLE_ATOL:
+                fail(f"[16] sharded {label}: max |pred - oracle| {err}")
+            us = cuda_median_ms(lambda: eng.predict(rows_d)) * 1e3 / ROWS
+            us_ref = cuda_median_ms(lambda: ref.predict(rows_d)) * 1e3 / ROWS
+            print(f"[16] NCCL (1, 1) {label}: {spec.num_trees} trees, depth "
+                  f"{spec.depth}, {ROWS} rows; bit-equal to the unsharded engine, "
+                  f"max |pred - oracle| {err}; launches {counts}; {us:.6f} us/sample "
+                  f"(unsharded {us_ref:.6f}) ({card})")
+            del ref, eng, rows_d
+        buf = torch.ones(ROWS, device=dev)
+        for _ in range(5):
+            dist.all_reduce(buf)
+        issue = []
+        for _ in range(50):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            issue.append((time.perf_counter() - t0) * 1e6)
+        event_ms = cuda_median_ms(lambda: dist.all_reduce(buf))
+        print(f"[16] one NCCL all_reduce of {ROWS} f32 on a one-rank group: host "
+              f"issue {statistics.median(issue):.2f} us (median of 50), event time "
+              f"{event_ms * 1e3:.2f} us (median of 20) ({card})")
+        dist.destroy_process_group()
+        del deep18
+
+        # (b) two ranks on the one card over gloo (NCCL refuses two ranks on
+        # one card), meshes (1, 2) and (2, 1): each shard bit for bit an
+        # unsharded engine on its trees, the sum within ORACLE_ATOL, and
+        # every kernel of each rank's engine launched in that rank
+        t0 = time.perf_counter()
+        reports = run_multiproc.launch(
+            forest, data, nprocs=2, workdir=os.path.join(tmp, "gloo"),
+            meshes=[(1, 2), (2, 1)], engines=["fold", "rank"], device="cuda",
+            backend="gloo", timeout=600)
+        t_ranks = time.perf_counter() - t0
+        summary = run_multiproc.check(forest, data, reports, dev, want=susy_want)
+        need = {}
+        for rep in reports:
+            for res in rep["results"]:
+                # the kernels the unsharded engine on the rank's trees runs
+                key = (res["engine"], *res["trees"])
+                if key not in need:
+                    cls = FoldKernelEngine if res["engine"] == "fold" else RankFoldEngine
+                    need[key] = engine_kernels(cls(subset_trees(
+                        forest, np.arange(*res["trees"])), device=dev))
+                got = {by_symbol[s] for s in res["launches"]}
+                if need[key] - got:
+                    fail(f"[16] gloo rank {rep['rank']} {res['engine']} "
+                         f"{res['mesh']}: kernels {sorted(need[key] - got)} "
+                         f"did not launch ({res['launches']})")
+        for key, s16 in summary.items():
+            if not (s16["correct"] and s16["shards_bit_equal"]):
+                fail(f"[16] gloo {key}: {s16}")
+            print(f"[16] gloo {key}: every shard bit-equal to an unsharded engine "
+                  f"on its trees, max |pred - oracle| {s16['max_err']}; launches "
+                  f"by rank {s16['launches']}")
+    print(f"[16] two gloo ranks on one card (correctness only, not a multi-GPU "
+          f"figure): {t_ranks:.1f} s for both meshes; phase 16 in "
+          f"{time.perf_counter() - t16:.1f} s ({card})")
+
+    # -- 17. the native text loader -------------------------------------------
+    from tahoe_tpu_torch.forest import native_io
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model_path = os.path.join(tmp, "model.txt")
+        data_path = os.path.join(tmp, "data.txt")
+        io.save_model(model_path, forest)
+        io.save_data(data_path, data, float("nan"))
+        if not native_io.available():
+            fail(f"[17] the native loader did not build: {native_io.build_error()}")
+
+        def timed(fn):
+            out, ts = None, []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = fn()
+                ts.append(time.perf_counter() - t0)
+            return out, statistics.median(ts)
+
+        spec_np, t_model_np = timed(lambda: io.load_model(model_path, num_cols=18))
+        spec_nat, t_model_nat = timed(lambda: native_io.load_spec(model_path,
+                                                                  num_cols=18))
+        (rows_np, miss_np), t_data_np = timed(lambda: io.load_data(data_path))
+        (rows_nat, miss_nat), t_data_nat = timed(lambda: native_io.load_data(data_path))
+        for name in ("values", "weights", "fids", "def_left", "is_leaf", "exchange"):
+            a, b = getattr(spec_np, name), getattr(spec_nat, name)
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                fail(f"[17] the native loader's model {name} differs from the numpy "
+                     f"parser's")
+        if (rows_np.tobytes() != rows_nat.tobytes() or rows_np.shape != rows_nat.shape
+                or not (np.isnan(miss_np) and np.isnan(miss_nat))):
+            fail("[17] the native loader's rows differ from the numpy parser's")
+        print(f"[17] SUSY-class model ({forest.num_trees} trees, "
+              f"{os.path.getsize(model_path)} bytes) and {ROWS} x 18 rows "
+              f"({os.path.getsize(data_path)} bytes), bit-equal through both "
+              f"parsers; load, median of 3: model numpy {t_model_np:.3f} s, native "
+              f"{t_model_nat:.3f} s; data numpy {t_data_np:.3f} s, native "
+              f"{t_data_nat:.3f} s (host; {card})")
 
     for name, checks in record.items():
         print(f"[record] {name}: " + "; ".join(

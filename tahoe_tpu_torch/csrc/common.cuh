@@ -47,6 +47,17 @@ static inline cudaError_t tahoe_grant_smem(Kernel* kernel, size_t bytes) {
     return tahoe_grant_smem_fn(reinterpret_cast<const void*>(kernel), bytes);
 }
 
+// A kernel's registers a thread as the runtime reports them
+// (cudaFuncGetAttributes). perf_model/model.py keeps them as constants to
+// count the blocks an SM holds; chip_smoke.py holds those to these.
+template <typename Kernel>
+static inline int tahoe_kernel_registers(Kernel* kernel, int* regs) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+    if (err == cudaSuccess) *regs = a.numRegs;
+    return static_cast<int>(err);
+}
+
 // The fold's node forms (ops/fold_kernel.py module docstring), as the
 // kernels read them from a block's 10-bit code field (ops/fold_kernel.py
 // block_codes): the dual and sign forms' codes as they are, the non-ge

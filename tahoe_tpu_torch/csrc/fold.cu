@@ -320,3 +320,18 @@ TAHOE_EXPORT int tahoe_fold_nonge(const float* x, int rows, int W, const int* ta
     return launch_fold<kNonGe>(x, rows, W, table, T, D, rows_per_block, tile_trees,
                                smem_bytes, out, stream);
 }
+
+// Registers a thread of the instance of kernel C for ``form`` (0 dual, 1
+// sign, 2 non-ge) with or without its batched block loads.
+TAHOE_EXPORT int tahoe_fold_registers(int form, int batch, int* regs) {
+    if (form == kDual)
+        return batch ? tahoe_kernel_registers(fold_kernel<kDual, true>, regs)
+                     : tahoe_kernel_registers(fold_kernel<kDual, false>, regs);
+    if (form == kSign)
+        return batch ? tahoe_kernel_registers(fold_kernel<kSign, true>, regs)
+                     : tahoe_kernel_registers(fold_kernel<kSign, false>, regs);
+    if (form == kNonGe)
+        return batch ? tahoe_kernel_registers(fold_kernel<kNonGe, true>, regs)
+                     : tahoe_kernel_registers(fold_kernel<kNonGe, false>, regs);
+    return static_cast<int>(cudaErrorInvalidValue);
+}

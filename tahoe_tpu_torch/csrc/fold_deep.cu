@@ -241,3 +241,19 @@ TAHOE_EXPORT int tahoe_fold_deep_nonge(const float* x, int rows, int W,
     return launch_deep<kNonGe>(x, rows, W, blocks, leaf, T, D, rows_per_block,
                                lanes, smem_bytes, out, stream);
 }
+
+// Registers a thread of the deep kernel for ``form`` (0 dual, 1 sign, 2
+// non-ge) at ``lanes`` threads a row.
+TAHOE_EXPORT int tahoe_fold_deep_registers(int form, int lanes, int* regs) {
+    if (lanes != 1 && lanes != 2) return static_cast<int>(cudaErrorInvalidValue);
+    if (form == kDual)
+        return lanes == 1 ? tahoe_kernel_registers(fold_deep_kernel<kDual>, regs)
+                          : tahoe_kernel_registers(fold_deep_pair_kernel<kDual>, regs);
+    if (form == kSign)
+        return lanes == 1 ? tahoe_kernel_registers(fold_deep_kernel<kSign>, regs)
+                          : tahoe_kernel_registers(fold_deep_pair_kernel<kSign>, regs);
+    if (form == kNonGe)
+        return lanes == 1 ? tahoe_kernel_registers(fold_deep_kernel<kNonGe>, regs)
+                          : tahoe_kernel_registers(fold_deep_pair_kernel<kNonGe>, regs);
+    return static_cast<int>(cudaErrorInvalidValue);
+}

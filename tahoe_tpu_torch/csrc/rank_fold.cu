@@ -133,3 +133,9 @@ TAHOE_EXPORT void tahoe_rank_launch_shape(int G, int* block_rows, int* row_words
     *block_rows = tahoe_rank_block_rows(G, pairs);
     *row_words = tahoe_rank_row_words(G, pairs);
 }
+
+// Registers a thread of kernel B with its int16 pair staging or its bytes.
+TAHOE_EXPORT int tahoe_rank_fold_registers(int pairs, int* regs) {
+    return pairs ? tahoe_kernel_registers(rank_fold_kernel<true>, regs)
+                 : tahoe_kernel_registers(rank_fold_kernel<false>, regs);
+}

@@ -211,3 +211,10 @@ TAHOE_EXPORT int tahoe_sparse_rank(const int8_t* planes, int rows, int G,
             ? launch<true>(planes, rows, G, slots, T, steps, out, stream)
             : launch<false>(planes, rows, G, slots, T, steps, out, stream));
 }
+
+// Registers a thread of the sparse kernel with its int16 pair staging or its
+// bytes.
+TAHOE_EXPORT int tahoe_sparse_rank_registers(int pairs, int* regs) {
+    return pairs ? tahoe_kernel_registers(sparse_rank_kernel<true>, regs)
+                 : tahoe_kernel_registers(sparse_rank_kernel<false>, regs);
+}

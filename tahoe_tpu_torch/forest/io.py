@@ -18,8 +18,8 @@ Data file (reference parser: BaseTahoeTest.h:354-402 generate_data_from_file):
 
 The port's own copy of tahoe_tpu/forest/io.py's numpy parser and writers,
 the reference-of-record for the format, held to the original by
-tests/test_torch_host_layer.py. The JAX package's ctypes C++ loader
-(tahoe_tpu/forest/native_io.py) is not ported yet (ROADMAP Queue 1 item 11).
+tests/test_torch_host_layer.py. The faster C++ parser of the same formats
+is forest/native_io.py, held to this one bit for bit.
 """
 from __future__ import annotations
 

@@ -141,6 +141,20 @@ class CudaKernel:
         self.launches += 1
 
 
+def registers(export: str, *args: int) -> int:
+    """Registers a thread of one kernel instance, as the runtime reports
+    them (cudaFuncGetAttributes), through the library's ``export`` query
+    (``tahoe_*_registers``) and its integer arguments."""
+    out = ctypes.c_int()
+    fn = getattr(library(), export)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    rc = fn(*args, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"{export}{args}: CUDA error {rc}")
+    return out.value
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

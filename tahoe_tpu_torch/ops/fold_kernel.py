@@ -174,7 +174,7 @@ def fold_tables(spec: ForestSpec, *, device: torch.device,
     if lev.depth > MAX_DENSE_DEPTH:
         raise NotImplementedError(
             f"dense fold supports depth <= {MAX_DENSE_DEPTH}; got {lev.depth} "
-            f"(deeper forests are SPARSE's: ROADMAP Queue 1 item 7)")
+            f"(deeper forests are SPARSE's: ops/sparse_kernel.py)")
     if form == "nonge":
         thr_l = lev.thresh
         code_l = [f.astype(np.int32)
@@ -623,10 +623,12 @@ class FoldKernelEngine:
     placement) and raises when the forest does not fit one block."""
 
     def __init__(self, forest: ForestSpec, *, device, ge_mode: bool = True,
-                 whole_forest: bool = False):
+                 whole_forest: bool = False, tables: FoldTables | None = None):
         self.device = resolve_device(device)
-        self.tables = t = fold_tables(forest, device=self.device,
-                                      ge_mode=ge_mode)
+        # ``tables``: ``forest``'s, or one tree shard of them
+        # (parallel/sharded.py), already on the device
+        self.tables = t = (fold_tables(forest, device=self.device, ge_mode=ge_mode)
+                           if tables is None else tables)
         self.form = t.form
         self.missing = forest.missing
         self.depth = t.depth
@@ -635,7 +637,7 @@ class FoldKernelEngine:
         self.global_bias = forest.global_bias
         self.threshold = forest.threshold
         limits = GpuLimits.for_device(self.device)
-        self.launch = fold_plan(t.form, t.width, t.depth, self.num_trees,
+        self.launch = fold_plan(t.form, t.width, t.depth, t.leaf.shape[0],
                                 limits, whole_forest=whole_forest)
         if self.launch is None:
             what = "the whole forest's" if whole_forest else "one tree's"

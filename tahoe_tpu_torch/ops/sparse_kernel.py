@@ -75,7 +75,10 @@ from tahoe_tpu_torch.forest.compiler import (
     RANK_MAX_COLS,
     RANK_MAX_GROUPS,
 )
-from tahoe_tpu_torch.forest.quantize import quantized_spec_for_engines
+from tahoe_tpu_torch.forest.quantize import (
+    RankQuantizedForest,
+    quantized_spec_for_engines,
+)
 from tahoe_tpu_torch.forest.sparse import SparseForest, from_dense
 from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
@@ -360,9 +363,16 @@ class SparseTables(RankInput):
 
 
 def sparse_tables(spec: ForestSpec, band: int | None = None, *,
-                  device: torch.device) -> SparseTables:
-    """Compile ``spec`` for the sparse kernel (sparse_kernel.py:415-443)."""
-    q, gather = rank_quantize(spec, band)
+                  device: torch.device,
+                  prequantized: tuple[RankQuantizedForest, np.ndarray | None]
+                  | None = None) -> SparseTables:
+    """Compile ``spec`` for the sparse kernel (sparse_kernel.py:415-443).
+
+    ``prequantized`` = (q, gather), as rank_kernel.rank_tables takes it: a
+    tree subset of a forest quantized once, so that every subset shares one
+    kernel-A transform (parallel/sharded.py's tree shards)."""
+    q, gather = (prequantized if prequantized is not None
+                 else rank_quantize(spec, band))
     fields = rank_input(q, gather, device=device)
     sf = from_dense(quantized_spec_for_engines(q))
     records, _ = sparse_records(sf)
@@ -382,10 +392,18 @@ class SparseRankEngine:
     kernel A and the sparse kernel (Strategy.SPARSE where the rank planes
     take the forest)."""
 
-    def __init__(self, forest: ForestSpec, *, device, band: int | None = None):
+    def __init__(self, forest: ForestSpec, *, device, band: int | None = None,
+                 prequantized: tuple[RankQuantizedForest, np.ndarray | None,
+                                     float] | None = None):
         self.device = resolve_device(device)
+        # ``prequantized`` = (q, gather, raw sentinel), as RankFoldEngine
+        # takes it
         self.raw_missing = forest.missing
-        self.tables = sparse_tables(forest, band, device=self.device)
+        if prequantized is not None:
+            q, gather, self.raw_missing = prequantized
+            prequantized = (q, gather)
+        self.tables = sparse_tables(forest, band, device=self.device,
+                                    prequantized=prequantized)
         self.q = self.tables.q
         self.groups = self.tables.groups
         self.num_trees = forest.num_trees

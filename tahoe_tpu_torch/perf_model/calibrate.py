@@ -54,6 +54,11 @@ CAL_ROWS = 416 << 10
 CAL_WAVES = 2
 # kernel C's tile of trees in the calibration (and half of it)
 C_TILE = 16
+# kernel C's least time with its block loads batched, by measure() on an
+# NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6); the default's
+# other values are the committed sweep's run
+BATCH_FLOOR_NS = 26.582030529555464
+BATCH_FLOOR_US = 2.5857998856476376
 # the deep kernel's calibration forests: its own depth range (12-15)
 DEEP_DEPTH = 12
 DEEP_TREES = (8, 64)
@@ -72,6 +77,11 @@ class Calibration:
     fold_c_floor_ns: float
     fold_c_floor_us: float
     fold_c_tile_us: float
+    # kernel C's least time where it batches its block loads (one block
+    # takes more than half an SM's shared memory, csrc/fold.cu): per (tree,
+    # level) and a launch
+    fold_c_batch_floor_ns: float
+    fold_c_batch_floor_us: float
     # the deep kernel (csrc/fold_deep.cu), the same but tiles
     fold_deep_ns: float
     fold_deep_row_ns: float
@@ -122,6 +132,8 @@ class Calibration:
             fold_c_floor_ns=29.976897556999965,
             fold_c_floor_us=2.583113632031849,
             fold_c_tile_us=0.30010007321834564,
+            fold_c_batch_floor_ns=BATCH_FLOOR_NS,
+            fold_c_batch_floor_us=BATCH_FLOOR_US,
             fold_deep_ns=0.0014450037166610751,
             fold_deep_row_ns=0.03524192489285835,
             fold_deep_floor_ns=61.29286096741756,
@@ -189,7 +201,8 @@ def measure(device="cuda") -> Calibration:
         SPARSE_RANK, sparse_margins_cuda, sparse_tables)
     from tahoe_tpu_torch.ops.tensor_engine import TensorEngine
     from tahoe_tpu_torch.perf_model.model import (
-        blocks_per_sm, rank_b_geometry, sparse_geometry)
+        KERNEL_REGISTERS, blocks_per_sm, rank_b_geometry, register_query,
+        sparse_geometry)
     from tahoe_tpu_torch.utils.profiling import cuda_device_ms, cuda_median_ms
 
     dev = resolve_device(device)
@@ -245,7 +258,9 @@ def measure(device="cuda") -> Calibration:
 
         fold_c = list(descent(lambda i, n: fold_margins_cuda(
             xs[i][:n], tabs[i], c_table[i], c_launch(i, C_TILE)), c_rows,
-            blocks_per_sm(c_launch(1, C_TILE).smem_bytes, c_rows, limits)))
+            blocks_per_sm(c_launch(1, C_TILE).smem_bytes, c_rows, limits,
+                          KERNEL_REGISTERS[register_query(
+                              tabs[1].form, c_launch(1, C_TILE), limits)])))
         # a tile of trees waited on: the larger forest in tiles of half the
         # size, at one block an SM; the floor's slope less the tiles it
         # waited on
@@ -256,9 +271,23 @@ def measure(device="cuda") -> Calibration:
         full = ms(lambda: fold_margins_cuda(xs[1][:n_f], tabs[1], c_table[1],
                                             c_launch(1, C_TILE)))
         fold_c_tile_us = max(0.0, (half - full) * 1e3 / tiles[1])
-        fold_c[2] = max(0.0, fold_c[2] - fold_c_tile_us * 1e3
-                        * (tiles[1] - tiles[0]) / ((CAL_TREES[1] - CAL_TREES[0]) * D))
-        fold_c[3] = max(0.0, fold_c[3] - fold_c_tile_us * tiles[0])
+
+        def less_tiles(floor, base):
+            """A floor's slope and intercept less the tiles it waited on."""
+            return (max(0.0, floor - fold_c_tile_us * 1e3 * (tiles[1] - tiles[0])
+                        / ((CAL_TREES[1] - CAL_TREES[0]) * D)),
+                    max(0.0, base - fold_c_tile_us * tiles[0]))
+
+        fold_c[2], fold_c[3] = less_tiles(fold_c[2], fold_c[3])
+        # the same floor with the block loads batched: the same launch given
+        # more than half an SM's shared memory
+        batch_smem = max(c_launch(1, C_TILE).smem_bytes, limits.smem_half_sm + 16)
+        fb = [ms(lambda i=i: fold_margins_cuda(
+            xs[i][:n_f], tabs[i], c_table[i],
+            c_launch(i, C_TILE)._replace(smem_bytes=batch_smem))) * 1e6
+            for i in range(2)]
+        b_floor, b_base = _slope(fb[0], fb[1], *[t * D for t in CAL_TREES])
+        fold_c_batch = less_tiles(b_floor, b_base * 1e-3)
         del xs, c_table, tabs
         # the deep kernel on forests of its own depth (its tables outgrow
         # L1 as a depth-8 forest's do not)
@@ -273,7 +302,9 @@ def measure(device="cuda") -> Calibration:
         fold_deep = descent(lambda i, n: fold_deep_cuda(
             xs[i][:n], tabs[i], blocks[i], d_launch), d_launch.rows_per_block,
             blocks_per_sm(d_launch.smem_bytes,
-                          d_launch.rows_per_block * d_launch.lanes, limits),
+                          d_launch.rows_per_block * d_launch.lanes, limits,
+                          KERNEL_REGISTERS[register_query(tabs[0].form, d_launch,
+                                                          limits)]),
             [t * DEEP_DEPTH for t in DEEP_TREES])
         del xs, blocks, tabs
 
@@ -378,6 +409,8 @@ def measure(device="cuda") -> Calibration:
     return Calibration(
         fold_c_ns=fold_c[0], fold_c_row_ns=fold_c[1], fold_c_floor_ns=fold_c[2],
         fold_c_floor_us=fold_c[3], fold_c_tile_us=fold_c_tile_us,
+        fold_c_batch_floor_ns=fold_c_batch[0],
+        fold_c_batch_floor_us=fold_c_batch[1],
         fold_deep_ns=fold_deep[0], fold_deep_row_ns=fold_deep[1],
         fold_deep_floor_ns=fold_deep[2], fold_deep_floor_us=fold_deep[3],
         rank_fold_ns=rank_fold[0], rank_fold_bytes_ns=rank_fold_bytes_ns,

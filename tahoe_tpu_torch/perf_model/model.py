@@ -11,9 +11,12 @@ engines, not the TPU's:
   slot, plus its ns per row (staging, paid once a launch). A launch runs in
   waves of blocks (``occupancy``), each the larger of one block's least
   time (a thread's chain of steps: where rows are too few to fill the card,
-  it binds; kernel C also waits on each tile of trees) and the throughput of
-  the blocks an SM holds at once (``blocks_per_sm``). ``fold_plan`` says
-  which fold kernel serves a forest, its block and VMEM_FOREST's one tile;
+  it binds; kernel C also waits on each tile of trees, and where one block
+  fills an SM it batches its loads, at a floor of its own) and the
+  throughput of the blocks an SM holds at once (``blocks_per_sm``: shared
+  memory, threads and registers), each still waiting on its tiles.
+  ``fold_plan`` says which fold kernel serves a forest, its block and
+  VMEM_FOREST's one tile;
 - **sparse**: the sparse kernel walks each tree of the pruned pool, a warp
   as deep as its deepest row: the trees' reachable depths, not 2^D;
 - **kernel A**: rows x virtual features, once for RANK_MXU, DEPTH_BUCKETED's
@@ -48,6 +51,7 @@ from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops.bucketed import plan_buckets
 from tahoe_tpu_torch.ops.fold_kernel import (
     MAX_DUAL_COLS,
+    DeepLaunch,
     FoldLaunch,
     fold_leveled,
     fold_plan,
@@ -55,6 +59,7 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     tree_bytes,
 )
 from tahoe_tpu_torch.ops.rank_kernel import (
+    RANK_PAIR_GROUPS,
     rank_block_rows,
     rank_row_words,
     rank_virtual_cols,
@@ -76,6 +81,30 @@ CALL_OPS = 2
 SM_THREADS, SM_BLOCKS = 2048, 32
 # bytes a row a chunk: the gather tiers' and TensorEngine's own sizing
 GATHER_ROW_BYTES, SELECT_ROW_BYTES = 48, 32
+# an SM's registers, granted a warp at a time in units of REGISTER_UNIT
+SM_REGISTERS, REGISTER_UNIT = 65536, 256
+# the fold forms' index in the library's register queries (csrc/common.cuh
+# NodeForm)
+FORM_INDEX = {"dual": 0, "sign": 1, "nonge": 2}
+# the sparse kernel stages int16 pairs up to this many plane groups
+# (csrc/sparse_rank.cu TAHOE_SPARSE_PAIR_GROUPS)
+SPARSE_PAIR_GROUPS = 1
+# registers a thread of each kernel instance the model prices, keyed by the
+# library's register query (``register_query`` and its siblings): ptxas -v
+# and cudaFuncGetAttributes on an NVIDIA H100 80GB HBM3 (700.00 W), the
+# kernels of commit 9148f4a; chip_smoke.py phase 2 fails when the library
+# reads otherwise. None binds a launch of today's: kernel C's batched
+# instances take more than half an SM's shared memory anyway
+KERNEL_REGISTERS = {
+    ("tahoe_fold_registers", 0, 0): 34, ("tahoe_fold_registers", 0, 1): 79,
+    ("tahoe_fold_registers", 1, 0): 32, ("tahoe_fold_registers", 1, 1): 99,
+    ("tahoe_fold_registers", 2, 0): 39, ("tahoe_fold_registers", 2, 1): 80,
+    ("tahoe_fold_deep_registers", 0, 1): 48, ("tahoe_fold_deep_registers", 0, 2): 70,
+    ("tahoe_fold_deep_registers", 1, 1): 48, ("tahoe_fold_deep_registers", 1, 2): 70,
+    ("tahoe_fold_deep_registers", 2, 1): 48, ("tahoe_fold_deep_registers", 2, 2): 72,
+    ("tahoe_rank_fold_registers", 0): 40, ("tahoe_rank_fold_registers", 1): 40,
+    ("tahoe_sparse_rank_registers", 0): 56, ("tahoe_sparse_rank_registers", 1): 56,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,11 +146,41 @@ def occupancy(rows: int, rows_per_block: int, blocks_per_sm: int,
     return [blocks_per_sm] * full + ([rest] if rest else [])
 
 
-def blocks_per_sm(smem_bytes: int, threads: int, limits: GpuLimits) -> int:
-    """Blocks of ``threads`` threads and ``smem_bytes`` of shared memory one
-    SM holds at once (registers are not counted)."""
+def blocks_per_sm(smem_bytes: int, threads: int, limits: GpuLimits,
+                  registers: int) -> int:
+    """Blocks of ``threads`` threads, ``registers`` a thread and
+    ``smem_bytes`` of shared memory one SM holds at once."""
     by_smem = limits.smem_per_sm // (smem_bytes + limits.SMEM_RESERVED_PER_BLOCK)
-    return max(1, min(by_smem, SM_THREADS // threads, SM_BLOCKS))
+    warp_regs = -(-registers * 32 // REGISTER_UNIT) * REGISTER_UNIT
+    by_regs = SM_REGISTERS // warp_regs // -(-threads // 32)
+    return max(1, min(by_smem, by_regs, SM_THREADS // threads, SM_BLOCKS))
+
+
+def fold_batches(smem_bytes: int, limits: GpuLimits = GpuLimits()) -> bool:
+    """Whether kernel C batches its block loads: where one block takes more
+    than half an SM's shared memory (csrc/fold.cu TAHOE_FOLD_BATCH 1)."""
+    return 2 * (smem_bytes + limits.SMEM_RESERVED_PER_BLOCK) > limits.smem_per_sm
+
+
+def register_query(form: str, launch: FoldLaunch | DeepLaunch,
+                   limits: GpuLimits = GpuLimits()) -> tuple:
+    """The library's register query (export, arguments) of the fold
+    kernel instance that runs ``launch`` in ``form``: KERNEL_REGISTERS'
+    key."""
+    if isinstance(launch, FoldLaunch):
+        return ("tahoe_fold_registers", FORM_INDEX[form],
+                int(fold_batches(launch.smem_bytes, limits)))
+    return ("tahoe_fold_deep_registers", FORM_INDEX[form], launch.lanes)
+
+
+def rank_register_query(groups: int) -> tuple:
+    """Kernel B's register query at ``groups`` plane groups."""
+    return ("tahoe_rank_fold_registers", int(groups <= RANK_PAIR_GROUPS))
+
+
+def sparse_register_query(groups: int) -> tuple:
+    """The sparse kernel's register query at ``groups`` plane groups."""
+    return ("tahoe_sparse_rank_registers", int(groups <= SPARSE_PAIR_GROUPS))
 
 
 def _descent_s(unit: float, row: float, floor: float, floor_us: float,
@@ -131,11 +190,13 @@ def _descent_s(unit: float, row: float, floor: float, floor_us: float,
     """A descent kernel of ``chain`` (tree, level) steps a row, in waves of
     blocks: a wave takes the larger of one block's least time (its thread's
     ``floor_chain`` and ``waits_us``; what binds where an SM holds one block)
-    and the throughput of the blocks an SM runs at once."""
+    and the throughput of the blocks an SM runs at once, each of which still
+    waits ``waits_us`` on its tiles (svhn-class, PERF.md section 6: two
+    blocks an SM took their tile waits beside their descents)."""
     floor_chain = chain if floor_chain is None else floor_chain
     least = floor * floor_chain + (floor_us + waits_us) * 1e3
-    per_row = row + unit * chain
-    return sum(max(least, at_once * rows_per_block * limits.sm_count * per_row)
+    per_block = rows_per_block * limits.sm_count * (row + unit * chain) + waits_us * 1e3
+    return sum(max(least, at_once * per_block)
                for at_once in occupancy(rows, rows_per_block, per_sm,
                                         limits.sm_count)) * 1e-9
 
@@ -148,13 +209,16 @@ def _fold_kernel_s(form: str, width: int, depth: int, trees: int, rows: int,
     a row block."""
     plan = fold_plan(form, width, depth, trees, limits, whole_forest=whole_forest)
     chain = trees * depth
+    regs = KERNEL_REGISTERS[register_query(form, plan, limits)]
     if isinstance(plan, FoldLaunch):
         tiles = -(-trees // plan.tile_trees)
         rpb = plan.rows_per_block
+        floor = ((cal.fold_c_batch_floor_ns, cal.fold_c_batch_floor_us)
+                 if fold_batches(plan.smem_bytes, limits)
+                 else (cal.fold_c_floor_ns, cal.fold_c_floor_us))
         compute = _descent_s(
-            cal.fold_c_ns, cal.fold_c_row_ns, cal.fold_c_floor_ns,
-            cal.fold_c_floor_us, rows, chain, rpb,
-            blocks_per_sm(plan.smem_bytes, rpb, limits), limits,
+            cal.fold_c_ns, cal.fold_c_row_ns, *floor, rows, chain, rpb,
+            blocks_per_sm(plan.smem_bytes, rpb, limits, regs), limits,
             waits_us=cal.fold_c_tile_us * (tiles - 1))
         moved = rows * (width + 1) * 4 + -(-rows // rpb) * trees * tree_bytes(depth)
         return max(compute, moved / (cal.hbm_gbps * 1e9))
@@ -162,7 +226,7 @@ def _fold_kernel_s(form: str, width: int, depth: int, trees: int, rows: int,
     return _descent_s(cal.fold_deep_ns, cal.fold_deep_row_ns,
                       cal.fold_deep_floor_ns, cal.fold_deep_floor_us, rows,
                       chain, plan.rows_per_block,
-                      blocks_per_sm(plan.smem_bytes, threads, limits), limits,
+                      blocks_per_sm(plan.smem_bytes, threads, limits, regs), limits,
                       chain / plan.lanes)
 
 
@@ -176,14 +240,16 @@ def _rank_a_s(vcols: int, rows: int, cal: Calibration) -> float:
 def rank_b_geometry(groups: int, limits: GpuLimits) -> tuple[int, int]:
     """(rows a block, blocks an SM) of kernel B (csrc/common.cuh)."""
     rpb = rank_block_rows(groups)
-    return rpb, blocks_per_sm(rpb * 4 * rank_row_words(groups), rpb, limits)
+    return rpb, blocks_per_sm(rpb * 4 * rank_row_words(groups), rpb, limits,
+                              KERNEL_REGISTERS[rank_register_query(groups)])
 
 
 def sparse_geometry(groups: int, limits: GpuLimits) -> tuple[int, int]:
     """(rows a block, blocks an SM) of the sparse kernel, which stages its
     rows as kernel B does (csrc/sparse_rank.cu)."""
     rpb = SPARSE_BLOCK_ROWS
-    return rpb, blocks_per_sm(rpb * 4 * rank_row_words(groups), rpb, limits)
+    return rpb, blocks_per_sm(rpb * 4 * rank_row_words(groups), rpb, limits,
+                              KERNEL_REGISTERS[sparse_register_query(groups)])
 
 
 def _rank_b_s(groups: int, depth: int, trees: int, rows: int,

@@ -808,3 +808,38 @@ def test_fold_deep_nonge_kernel(dev, depth):
         torch.cuda.synchronize()
         assert FOLD_DEEP_NONGE.launches == before + 1
         assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+
+
+def test_register_queries_match_the_model(dev):
+    """perf_model/model.py's registers a thread of every kernel instance it
+    prices are the runtime's (cudaFuncGetAttributes); a bad query raises."""
+    from tahoe_tpu_torch.ops._build import registers
+    from tahoe_tpu_torch.perf_model.model import KERNEL_REGISTERS
+
+    got = {key: registers(*key) for key in KERNEL_REGISTERS}
+    assert got == KERNEL_REGISTERS
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        registers("tahoe_fold_registers", 3, 0)
+
+
+@pytest.mark.parametrize("kind", ["fold", "rank", "sparse"])
+def test_sharded_engines_on_one_process(dev, kind):
+    """A (1, 1) grid without a process group on the card: each sharded
+    engine runs its unsharded engine's kernels and predicts bit for bit as
+    it does; a 13-tree forest keeps every kernel's tree count odd."""
+    from tahoe_tpu_torch.parallel.mesh import make_mesh
+    from tahoe_tpu_torch.parallel import sharded
+
+    spec = synthetic.generate_forest(13, 6, 20, leaf_prob=0.1, seed=41)
+    rows = torch.as_tensor(_data(1000, 20, 42), device=dev)
+    cls, ref = {"fold": (sharded.ShardedForestEngine, FoldKernelEngine),
+                "rank": (sharded.ShardedRankEngine, RankFoldEngine),
+                "sparse": (sharded.ShardedSparseEngine, SparseRankEngine)}[kind]
+    grid = make_mesh(1, 1, device="cuda")
+    eng = cls(spec, grid)
+    assert eng.device == dev
+    before = {k: k.launches for k in (RANK_PLANES, RANK_FOLD, SPARSE_RANK,
+                                      *FOLD_KERNELS.values(), *DEEP_KERNELS.values())}
+    got = eng.predict(rows)
+    assert sum(k.launches - n for k, n in before.items()) >= 1
+    assert torch.equal(got, ref(spec, device=dev).predict(rows))

@@ -32,6 +32,11 @@ from tahoe_tpu_torch import cli  # noqa
 from tahoe_tpu_torch.engine import autotune  # noqa
 from tahoe_tpu_torch.perf_model import calibrate, model  # noqa
 from tahoe_tpu_torch.scripts import bench, make_fixtures, run_sweep  # noqa
+from tahoe_tpu_torch.scripts import check_sweep_model, sweep_summary  # noqa
+from tahoe_tpu_torch.scripts import pair_time, run_multiproc, run_scaling  # noqa
+from tahoe_tpu_torch.parallel import mesh, sharded  # noqa
+from tahoe_tpu_torch.perf_model import scaling  # noqa
+from tahoe_tpu_torch.forest import io, native_io  # noqa
 
 forest = synthetic.generate_forest(9, 4, 6, leaf_prob=0.1, seed=1)
 data = synthetic.generate_data(32, 6, missing_prob=0.1, seed=2)
@@ -69,6 +74,16 @@ best, costs = model.choose_strategy(forest, 32, calibrate.Calibration.default())
 res = autotune.enumerate_strategies(forest, data, device="cpu", warmup=0,
                                     epochs=1, verbose=False)
 assert res[best].ran and all(r.correct for r in res.values() if r.ran)
+# a tree-sharded engine on a one-rank grid, the scaling model, the loader
+grid = mesh.make_mesh(1, 1, device="cpu")
+assert np.array_equal(sharded.ShardedRankEngine(forest, grid).predict(data).numpy(),
+                      f.predict(data, Strategy.RANK_MXU).numpy())
+assert scaling.predict_scaling(forest, 32, n_model=2).psum_bytes == 128
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    io.save_data(tmp + "/d.txt", data, float("nan"))
+    assert np.array_equal(native_io.load_data(tmp + "/d.txt")[0].view(np.int32),
+                          io.load_data(tmp + "/d.txt")[0].view(np.int32))
 leaked = sorted(m for m in sys.modules
                 if m in ("jax", "jaxlib", "tahoe_tpu")
                 or m.startswith(("jax.", "jaxlib.", "tahoe_tpu.")))

@@ -10,9 +10,10 @@ import dataclasses
 
 import pytest
 
-from tahoe_tpu_torch import Forest, Output, Strategy
+from tahoe_tpu_torch import Forest, GpuLimits, Output, Strategy
 from tahoe_tpu_torch.forest import synthetic
 from tahoe_tpu_torch.forest.train import train_forest
+from tahoe_tpu_torch.ops.fold_kernel import fold_leveled, fold_plan, row_width
 from tahoe_tpu_torch.perf_model import model
 from tahoe_tpu_torch.perf_model.calibrate import Calibration
 from tahoe_tpu_torch.scripts.run_sweep import family_spec, shape_by_name
@@ -69,13 +70,15 @@ def test_orders_measured_pairs(name, faster, slower):
 
 # measured winners on the H100 at 65,536 rows, every kernel strategy
 # enumerated (PERF.md section 6: run_sweep on make_fixtures' pairs);
-# a set where the two run one launch. svhn is not pinned: VMEM_FOREST ran
-# 10% ahead of SPLIT_FOREST there, and the model prices it the other way
+# a set where the two run one launch. svhn: VMEM_FOREST 0.0731 ms against
+# SPLIT_FOREST 0.0807 in three sweeps (0.06895 against 0.07638 device ms,
+# scripts/pair_time.py)
 PINS = [
     ("susy_like", {Strategy.SPLIT_FOREST}),
     ("cup98_like", {Strategy.SPLIT_FOREST}),
     ("trained_mix_like", {Strategy.RANK_MXU}),
     ("stumps_like", {Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST}),
+    ("svhn_like", {Strategy.VMEM_FOREST}),
 ]
 
 
@@ -85,6 +88,47 @@ def test_predicts_measured_best(name, want):
     best, costs = model.choose_strategy(spec, ROWS, Calibration.default())
     assert best in want, {s.name: (c.total if c else None)
                           for s, c in costs.items()}
+
+
+def test_registers_bound_the_blocks_an_sm_holds():
+    """65,536 registers an SM, granted a warp at a time in units of 256:
+    256-thread blocks at 128 registers fit two, at 136 one; every kernel
+    instance the model prices on the sweep's families has its count."""
+    limits = GpuLimits()
+    assert model.blocks_per_sm(1024, 256, limits, 128) == 2
+    assert model.blocks_per_sm(1024, 256, limits, 136) == 1
+    assert model.blocks_per_sm(1024, 256, limits, 32) == model.SM_THREADS // 256
+    for name in FEASIBILITY_FAMILIES + ["svhn_like", "deep12_like"]:
+        spec = family_spec(shape_by_name(name))
+        lev, _, form = fold_leveled(spec)
+        for whole in (False, True):
+            plan = fold_plan(form, row_width(form, lev.num_cols), lev.depth,
+                             spec.num_trees, limits, whole_forest=whole)
+            if plan is not None:
+                assert model.register_query(form, plan) in model.KERNEL_REGISTERS
+    for groups in (1, 2, 16):
+        assert model.rank_register_query(groups) in model.KERNEL_REGISTERS
+        assert model.sparse_register_query(groups) in model.KERNEL_REGISTERS
+
+
+def test_kernel_c_batched_and_tiled_as_measured():
+    """svhn-class at 65,536 rows (PERF.md section 6): VMEM_FOREST's
+    one block an SM batches its block loads, at the batched floor;
+    SPLIT_FOREST's two blocks an SM wait on 19 tiles each in their wave."""
+    spec = family_spec(shape_by_name("svhn_like"))
+    lev, _, form = fold_leveled(spec)
+    w = row_width(form, lev.num_cols)
+    vmem = fold_plan(form, w, lev.depth, spec.num_trees, GpuLimits(),
+                     whole_forest=True)
+    split = fold_plan(form, w, lev.depth, spec.num_trees, GpuLimits())
+    assert model.fold_batches(vmem.smem_bytes)
+    assert not model.fold_batches(split.smem_bytes)
+    cal = Calibration.default()
+    assert cal.fold_c_batch_floor_ns < cal.fold_c_floor_ns
+    costs = {s: model.predict_cost(s, spec, ROWS, cal)
+             for s in (Strategy.VMEM_FOREST, Strategy.SPLIT_FOREST)}
+    assert (costs[Strategy.VMEM_FOREST].device_s
+            < 0.95 * costs[Strategy.SPLIT_FOREST].device_s)
 
 
 def test_more_launches_raise_the_host_term():
