@@ -90,7 +90,29 @@ Phases, each of which exits non-zero when it fails:
    run: two ranks on one card time no multi-GPU figure);
 17. the native text loader (forest/native_io.py): the SUSY-class model and
    65,536 x 18 rows written with io.save_model / io.save_data, read through
-   the C++ parser and the numpy parser, bit-equal, with both load times.
+   the C++ parser and the numpy parser, bit-equal, with both load times;
+18. one dispatch a predict (ops/graphed.py: a CUDA graph a shape): every
+   engine of phases 4-12 and 16 (the same forests and rows; a sharded
+   engine's own engine on its shard), at the phase's rows and at 2,000
+   (mnist's sweep rows): its graphed predict, margins and, where it has
+   one, predict_planes bit-equal to the un-graphed ``_*_impl``, predict
+   within ORACLE_ATOL of the oracle, a repeated call at a shape making no
+   new capture and a second shape one more, two results at one shape not
+   aliased, a replay counting the eager call's launches, and by the
+   profiler (path_time.profile_kernels), on every path of csrc's kernels,
+   one replay of its predict running on the card the kernels of csrc one
+   eager call runs, as many times, and as many as it counted; printed (not
+   failed), one JSON line a path and row count: eager and graphed
+   us/sample by CUDA events, the graphed predict's device time, the host's
+   issue time of one replay on an idle card and the capture's seconds.
+   Then scripts/pair_time.py through the graphed predicts (VMEM_FOREST
+   against SPLIT_FOREST on gisette, stumps, ijcnn, mnist, cifar and letter
+   at their sweep rows, by event and by device time) and the time of an
+   eager launch through a kernel's ctypes wrapper (path_time.py).
+
+Every phase's predicts go through the graph layer, so phases 4-17's launch
+counts are those of replays (a capture counts what one eager call does;
+phase 18 holds a replay's count against the kernels the card ran).
 
 Phases 6-12 run 65,536 rows each (phase 11's second forest 4,096) against
 the numpy oracle at ORACLE_ATOL,
@@ -119,6 +141,7 @@ import contextlib
 import io as pyio
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -219,6 +242,7 @@ def main() -> int:
     from tahoe_tpu_torch.utils.profiling import (
         alternating, cuda_device_ms, cuda_median_ms)
     from tahoe_tpu_torch.perf_model.model import KERNEL_REGISTERS
+    from tahoe_tpu_torch.ops import oracle
 
     dev = torch.device("cuda", 0)
     # the main path's kernels: RANK_MXU's kernels A and B, and the fold
@@ -271,6 +295,10 @@ def main() -> int:
     forest = synthetic.susy_class_forest(seed=0)
     data = synthetic.generate_data(ROWS, 18, missing_prob=0.02, seed=1)
     record = {}
+    # phase 18's engines: (label, engine, its graphed methods, rows, spec,
+    # the oracle's predictions of the rows or None, timed calls)
+    dispatch = []
+    BOTH = ("predict", "margins")
 
     # the bounds: bytes each input read once and each output written once;
     # operations as the inputs need them (a descent's visited nodes)
@@ -419,6 +447,10 @@ def main() -> int:
         launches = {n: k.launches for n, k in kernels.items()}
         if min(launches.values()) < 1:
             fail(f"{tag}: a kernel was not launched on the main path: {launches}")
+        dispatch.append((f"{tag} SPLIT_FOREST", f.engine(Strategy.SPLIT_FOREST),
+                         BOTH, rows, f.spec, want, 20))
+        dispatch.append((f"{tag} RANK_MXU", eng, BOTH + ("predict_planes",), rows,
+                         f.spec, want, 20))
         # the planes against the numpy reference transform, on a slice
         n_ref = min(len(rows), 4096)
         xr = rows[:n_ref]
@@ -479,6 +511,9 @@ def main() -> int:
         err = float(np.abs(got - want).max())
         if err > ORACLE_ATOL:
             fail(f"[{tag}] {strategy.name}: max |pred - oracle| {err} > {ORACLE_ATOL}")
+        dispatch.append((f"{tag} {f.spec.num_trees} trees, depth {f.spec.depth}, "
+                         f"{f.spec.num_cols} columns: {strategy.name}",
+                         f.engine(strategy), BOTH, rows_np, f.spec, want, iters))
         ms = cuda_median_ms(lambda: f.predict(rows_d, strategy), iters=iters)
         print(f"[{tag}] {strategy.name}: max |pred - oracle| {err} (tolerance "
               f"{ORACLE_ATOL}), {ms * 1e3 / len(rows_np):.6f} us/sample over "
@@ -622,11 +657,13 @@ def main() -> int:
                               f.predict_oracle(deep_rows), {own}))
         del f, eng, x
 
-    d12 = FoldKernelEngine(synthetic.generate_forest(100, 12, 28, seed=1),
-                           device=dev)
-    x = d12.canonicalize(torch.as_tensor(
-        synthetic.generate_data(ROWS, 28, missing_prob=0.01, seed=6), device=dev))
+    d12_spec = synthetic.generate_forest(100, 12, 28, seed=1)
+    d12 = FoldKernelEngine(d12_spec, device=dev)
+    d12_rows = synthetic.generate_data(ROWS, 28, missing_prob=0.01, seed=6)
+    x = d12.canonicalize(torch.as_tensor(d12_rows, device=dev))
     both_folds("7", d12, x, note=False)
+    dispatch.append(("7 100 trees, depth 12, 28 columns: FoldKernelEngine", d12,
+                     BOTH, d12_rows, d12_spec, None, 20))
     del d12, x
 
     # 8. VMEM_FOREST, stumps-class: the whole forest in one tile
@@ -849,6 +886,7 @@ def main() -> int:
     if {n for n, c in counts.items() if c} != {"rank_fused"}:
         fail(f"[12] the fused path launched {counts}, expected only rank_fused")
     launches["rank_fused"] = counts["rank_fused"]
+    dispatch.append(("12 RANK_MXU fused", fused, BOTH, data, forest, susy_want, 20))
     if not torch.equal(pred, unfused.predict(rows_d)):
         fail("[12] fused predictions are not bit-equal to the unfused engine's")
     got = pred.cpu().numpy()
@@ -1084,6 +1122,8 @@ def main() -> int:
             err = float(np.abs(got.cpu().numpy() - want).max())
             if err > ORACLE_ATOL:
                 fail(f"[16] sharded {label}: max |pred - oracle| {err}")
+            dispatch.append((f"16 sharded {label} (1, 1): its shard's engine",
+                             eng.engine, BOTH, rows_np, spec, want, 20))
             us = cuda_median_ms(lambda: eng.predict(rows_d)) * 1e3 / ROWS
             us_ref = cuda_median_ms(lambda: ref.predict(rows_d)) * 1e3 / ROWS
             print(f"[16] NCCL (1, 1) {label}: {spec.num_trees} trees, depth "
@@ -1180,6 +1220,120 @@ def main() -> int:
               f"parsers; load, median of 3: model numpy {t_model_np:.3f} s, native "
               f"{t_model_nat:.3f} s; data numpy {t_data_np:.3f} s, native "
               f"{t_data_nat:.3f} s (host; {card})")
+
+    # -- 18. one dispatch a predict -------------------------------------------
+    from tahoe_tpu_torch.scripts import pair_time
+    from tahoe_tpu_torch.scripts.path_time import profile_kernels, wrapper_launch_us
+
+    t18 = time.perf_counter()
+    SWEEP_ROWS = 2000
+
+    def counted(fn):
+        """``fn()`` with every count set to 0 before it; its result and the
+        kernels it launched."""
+        for k in all_kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: k.launches for n, k in all_kernels.items() if k.launches}
+
+    ours = re.compile(r"^(void )?\(anonymous namespace\)::")  # csrc's kernels
+
+    def ran(fn):
+        """The kernels of csrc one ``fn()`` ran on the card, by the
+        profiler: name -> count."""
+        seen = profile_kernels(fn, 1)
+        if not seen:
+            fail("[18] the profiler recorded no device event")
+        return {n: c for n, (c, _) in seen.items() if ours.match(n)}
+
+    # the profiler holds csrc's kernels only: the replay adds copies of
+    # torch's, and their counts in the profile differed by one kernel of
+    # 1,298 and of 42,386 in two runs where both sides run the same Python.
+    # Once this phase had timed the plain torch engines' paths (graphs of
+    # tens of thousands of kernels), a profile came back empty in two runs,
+    # so their paths come last
+    plain = ("GatherEngine", "TensorEngine", "SparseGatherEngine")
+    dispatch.sort(key=lambda d: type(d[1]).__name__ in plain)
+    profiled = 0
+    for label, eng, methods, rows_np, spec, want, iters in dispatch:
+        for n in (len(rows_np), SWEEP_ROWS):
+            x = torch.as_tensor(rows_np[:n], device=dev)
+            want_n = (want[:n] if want is not None
+                      else oracle.predict(spec, rows_np[:n]) if n == SWEEP_ROWS
+                      else None)
+            line = {"phase": 18, "path": label, "rows": n}
+            for method in methods:
+                g, impl = getattr(eng, f"_{method}"), getattr(eng, f"_{method}_impl")
+                call = getattr(eng, method)
+                inp = eng.transform(x) if method == "predict_planes" else x
+                key = tuple(inp.shape)
+                eager, eager_counts = counted(lambda: impl(inp))
+                keys = set(g.graphs)
+                first = call(inp)
+                captured = g.graphs.get(key)
+                r1, counts = counted(lambda: call(inp))
+                r2 = call(inp)
+                torch.cuda.synchronize()
+                where = f"[18] {label}, {n} rows, {method}"
+                if captured is None or set(g.graphs) != keys | {key} or g.graphs[key] is not captured:
+                    fail(f"{where}: graphs {sorted(keys)} -> {sorted(g.graphs)}; "
+                         f"one capture at {key} expected")
+                if not all(torch.equal(r, eager) for r in (first, r1, r2)):
+                    fail(f"{where}: the graphed result differs from _{method}_impl's")
+                if r1.data_ptr() == r2.data_ptr() or first.data_ptr() == r1.data_ptr():
+                    fail(f"{where}: two results at one shape share storage")
+                if counts != eager_counts:
+                    fail(f"{where}: a replay counted {counts}, the eager call "
+                         f"{eager_counts}")
+                # what the card ran, on each path of csrc's kernels: one
+                # replay of its predict runs the kernels of csrc one eager
+                # call runs, as many as it counted
+                if method != "margins" and eager_counts:
+                    ran_eager, ran_graph = ran(lambda: impl(inp)), ran(lambda: call(inp))
+                    if ran_graph != ran_eager or sum(ran_graph.values()) != sum(counts.values()):
+                        fail(f"{where}: a replay ran {ran_graph} on the card, the "
+                             f"eager call {ran_eager}; its counts {counts}")
+                    profiled += 1
+                if method != "margins" and want_n is not None:
+                    got = r1.cpu().numpy()
+                    err = float(np.abs(got - want_n).max())
+                    if got.shape != want_n.shape or not np.isfinite(got).all() or err > ORACLE_ATOL:
+                        fail(f"{where}: max |pred - oracle| {err} > {ORACLE_ATOL}")
+                    line[f"{method}_max_err"] = err
+                if method != "predict":
+                    continue
+                line.update(
+                    eager_us_per_sample=cuda_median_ms(lambda: impl(inp), iters=iters) * 1e3 / n,
+                    graphed_us_per_sample=cuda_median_ms(lambda: call(inp), iters=iters) * 1e3 / n,
+                    device_us_per_sample=cuda_device_ms(
+                        lambda: call(inp), warmup=1, calls=20 if iters >= 20 else 2) * 1e3 / n,
+                    replay_host_ms=host_ms(lambda: call(inp), iters),
+                    capture_s=g.graphs[key].seconds, launches=counts)
+            line.update(graphs={m: len(getattr(eng, f"_{m}").graphs) for m in methods},
+                        card=card)
+            print(json.dumps(line))
+    # fault 2's pairs (one launch, one table), mnist's and cifar's (fault
+    # 4) and letter's, graphed: event time against device time in the same
+    # rounds
+    for fam in ("gisette_like", "stumps_like", "ijcnn_like", "mnist_like",
+                "cifar_like", "letter_like"):
+        res = pair_time.run(dev, fam)
+        print(json.dumps({"phase": 18, "pair_time": fam, "rows": res["rows"],
+                          **{k: v for k, v in res.items() if k.endswith("_ratio")},
+                          "strategies": {
+                              s: {k: v["median"] for k, v in r.items()
+                                  if isinstance(v, dict) and "median" in v}
+                              for s, r in res["strategies"].items()},
+                          "card": res["card"]}))
+    print(f"[18] eager launches through a kernel's ctypes wrapper, 200 back "
+          f"to back between two events: {wrapper_launch_us(dev):.2f} us a launch; "
+          f"phase 18 in "
+          f"{time.perf_counter() - t18:.1f} s ({card})")
+    print(f"[18] by the profiler, a replay ran the kernels of csrc its eager call "
+          f"ran, as many as it counted, on all {profiled} predicts of their paths "
+          f"({card})")
+    del dispatch
 
     for name, checks in record.items():
         print(f"[record] {name}: " + "; ".join(

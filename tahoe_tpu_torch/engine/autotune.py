@@ -12,7 +12,10 @@ each call times it (utils/profiling.median_ms), the host's issue time
 included, as a user's call sees it. The rounds take the engines in turn
 (PERF.md section 6: on a shared host a slow spell of the host lasts
 seconds). The oracle runs once per data set, not once per strategy, and
-every engine is dropped once the rounds are done.
+every engine is dropped once the rounds are done. A predict is one CUDA
+graph replay (ops/graphed.py): its capture falls in the warm-up calls, as
+a jit's compile does, and the timed rounds time replays; ``build_s`` is the
+engine's build alone.
 """
 from __future__ import annotations
 
@@ -216,8 +219,8 @@ def _round_calls(call, dev: torch.device, warmup: int, epochs: int) -> int:
 
 
 def _release(forest: Forest) -> None:
-    """Drop the forest's engines and free what they held: no table
-    outlives the enumeration in device memory."""
+    """Drop the forest's engines and free what they held: no table and no
+    CUDA graph outlives the enumeration in device memory."""
     forest.drop_engines()
     gc.collect()
     if forest.device.type == "cuda":

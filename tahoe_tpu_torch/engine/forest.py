@@ -16,6 +16,9 @@ The counterpart of tahoe_tpu/engine/forest.py, serving all eight strategies:
   TENSOR         -> TensorEngine("onehot") on the leveled forest
 
 The last three are plain torch, as they are plain XLA in the JAX package.
+Every engine's predict is one CUDA graph replay a shape on ``cuda``
+(ops/graphed.py), as a JAX engine's is one jit executable: the first call
+at a row count captures it, every later one replays it.
 The compiled and leveled layouts are built on first use, only for the
 strategies that read them: at depth 18 a complete-tree layout holds 10^8
 nodes. The device is an explicit argument: on ``cpu`` the engines run the
@@ -37,7 +40,7 @@ from tahoe_tpu_torch.forest.sparse import SparseGatherEngine, from_dense
 from tahoe_tpu_torch.forest.spec import ForestSpec, LeveledForest
 from tahoe_tpu_torch.ops.bucketed import make_depth_bucketed_engine
 from tahoe_tpu_torch.ops.fold_kernel import FoldKernelEngine
-from tahoe_tpu_torch.ops import oracle
+from tahoe_tpu_torch.ops import graphed, oracle
 from tahoe_tpu_torch.ops.gather_engine import GatherEngine
 from tahoe_tpu_torch.ops.rank_kernel import RankFoldEngine
 from tahoe_tpu_torch.ops.sparse_kernel import SparseRankEngine
@@ -128,7 +131,10 @@ class Forest:
         return eng
 
     def drop_engines(self) -> None:
-        """Forget every built engine, so that its tables can be freed."""
+        """Forget every built engine and free its CUDA graphs, so that its
+        tables and the graphs' pools can be freed."""
+        for eng in self._engines.values():
+            graphed.release(eng)
         self._engines.clear()
 
     def predict(self, rows, strategy: Strategy = Strategy.SPLIT_FOREST):

@@ -27,9 +27,9 @@ import torch
 from tahoe_tpu_torch.config import MISSING_EPS, Output, resolve_device
 from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops.gather_engine import IS_LEAF, node_cond, node_flags
+from tahoe_tpu_torch.ops.graphed import GraphedEngine
 from tahoe_tpu_torch.ops.oracle import apply_output_transform_np
-from tahoe_tpu_torch.ops.rows import map_row_chunks
-from tahoe_tpu_torch.ops.transform import apply_output_transform
+from tahoe_tpu_torch.ops.rows import map_row_chunks, stage_rows
 
 __all__ = ["SparseForest", "SparseGatherEngine", "from_dense",
            "predict_margins_np", "predict_np"]
@@ -148,13 +148,16 @@ def predict_np(sf: SparseForest, data: np.ndarray) -> np.ndarray:
     )
 
 
-class SparseGatherEngine:
+class SparseGatherEngine(GraphedEngine):
     """A CSR pool on ``device`` and its level-synchronous gather descent."""
 
     def __init__(self, sf: SparseForest, *, device):
         self.device = resolve_device(device)
         self.sf = sf
         self.num_trees = sf.num_trees
+        self.output = sf.output
+        self.global_bias = sf.global_bias
+        self.threshold = sf.threshold
         dev = self.device
         self.values = torch.as_tensor(sf.values, device=dev)
         self.fids = torch.as_tensor(sf.fids, device=dev)
@@ -162,6 +165,9 @@ class SparseGatherEngine:
             node_flags(sf.def_left, sf.is_leaf, sf.exchange), device=dev)
         self.left_idx = torch.as_tensor(sf.left_idx, dtype=torch.int64, device=dev)
         self.roots = torch.as_tensor(sf.tree_roots, dtype=torch.int64, device=dev)
+        # one CUDA graph a shape on the card (ops/graphed.py), as the JAX
+        # engine jits _predict_impl
+        self._graph()
 
     def _margins_chunk(self, x: torch.Tensor) -> torch.Tensor:
         curr = self.roots.expand(x.shape[0], self.num_trees)
@@ -173,11 +179,8 @@ class SparseGatherEngine:
                                self.left_idx[curr] + cond)
         return self.values[curr].sum(dim=1)
 
-    def margins(self, rows) -> torch.Tensor:
-        x = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
-        return map_row_chunks(self._margins_chunk, x, 48 * self.num_trees)
+    def _stage(self, rows, out: torch.Tensor | None = None) -> torch.Tensor:
+        return stage_rows(rows, device=self.device, out=out)
 
-    def predict(self, rows) -> torch.Tensor:
-        sf = self.sf
-        return apply_output_transform(self.margins(rows), sf.num_trees,
-                                      sf.output, sf.global_bias, sf.threshold)
+    def _margins_staged(self, x: torch.Tensor) -> torch.Tensor:
+        return map_row_chunks(self._margins_chunk, x, 48 * self.num_trees)

@@ -114,12 +114,19 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+# every CudaKernel, in the order they were made (ops/graphed.py reads and
+# sets back their counts around a capture)
+KERNELS: list = []
+
+
 class CudaKernel:
     """One C launcher of the kernel library, with its launch count.
 
     ``launches`` counts successful launches and nothing else: the plain
     PyTorch versions never touch it, so a run that reads it after driving the
-    main path sees whether that path went through the kernel."""
+    main path sees whether that path went through the kernel. A replayed
+    CUDA graph launches from no Python; ops/graphed.py adds its launches to
+    these counts. Each one registers itself in ``KERNELS``."""
 
     def __init__(self, symbol: str, argtypes: list, *, source: str,
                  replaces: str):
@@ -128,14 +135,26 @@ class CudaKernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self._fn = None
+        KERNELS.append(self)
 
-    def launch(self, device: torch.device, *args) -> None:
+    def _bind(self):
+        """The C launcher, its argument and result types set once."""
         fn = getattr(library(), self.symbol)
         fn.argtypes = [*self.argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fn(*args, stream)
+        self._fn = fn
+        return fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        fn = self._fn or self._bind()
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
+            rc = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+        else:  # the launcher runs on the current device's stream
+            with torch.cuda.device(index):
+                rc = fn(*args, torch.cuda.current_stream(index).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc}")
         self.launches += 1

@@ -37,8 +37,9 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     MAX_NONGE_COLS,
     FoldKernelEngine,
 )
+from tahoe_tpu_torch.ops.graphed import GraphedEngine
 from tahoe_tpu_torch.ops.rank_kernel import RankFoldEngine, rank_margins
-from tahoe_tpu_torch.ops.transform import apply_output_transform
+from tahoe_tpu_torch.ops.rows import stage_rows
 
 
 def plan_buckets(depths: np.ndarray, max_buckets: int = 4,
@@ -95,7 +96,7 @@ def subset_trees(spec: ForestSpec, idx: np.ndarray) -> ForestSpec:
     )
 
 
-class _Bucketed:
+class _Bucketed(GraphedEngine):
     """What both variants share: the sum over buckets, plus the stumps'
     constant margin, and the output transform."""
 
@@ -106,6 +107,10 @@ class _Bucketed:
         self.global_bias = spec.global_bias
         self.threshold = spec.threshold
         self.stumps_margin = 0.0
+        # one CUDA graph a shape on the card (ops/graphed.py) holds every
+        # bucket's launches and their sum, as the JAX engine jits
+        # _predict_impl
+        self._graph()
 
     def _sum(self, rows: int, per_bucket) -> torch.Tensor:
         margins = None
@@ -115,10 +120,12 @@ class _Bucketed:
             margins = torch.zeros(rows, dtype=torch.float32, device=self.device)
         return margins + float(np.float32(self.stumps_margin))
 
-    def predict(self, rows) -> torch.Tensor:
-        return apply_output_transform(self.margins(rows), self.num_trees,
-                                      self.output, self.global_bias,
-                                      self.threshold)
+    def _stage(self, rows, out: torch.Tensor | None = None) -> torch.Tensor:
+        """The rows every bucket shares, staged once (the first bucket's
+        step; f32 rows as they are for a forest of stumps)."""
+        if self.sub:
+            return self.sub[0]._stage(rows, out)
+        return stage_rows(rows, device=self.device, out=out)
 
     @property
     def bucket_plan(self) -> List[Tuple[int, int]]:
@@ -151,10 +158,10 @@ class DepthBucketedFoldEngine(_Bucketed):
             self.sub.append(FoldKernelEngine(sub, device=self.device,
                                              ge_mode=self.ge_mode))
 
-    def margins(self, rows) -> torch.Tensor:
+    def _margins_staged(self, x: torch.Tensor) -> torch.Tensor:
         if not self.sub:
-            return self._sum(len(rows), ())
-        x = self.sub[0].canonicalize(rows)
+            return self._sum(x.shape[0], ())
+        x = self.sub[0].finish(x)
         return self._sum(x.shape[0], (e.margins_rows(x) for e in self.sub))
 
 
@@ -187,8 +194,9 @@ class DepthBucketedRankEngine(_Bucketed):
         """Raw rows -> int8 planes (kernel A), once for every bucket."""
         return self.sub[0].transform(rows)
 
-    def margins(self, rows) -> torch.Tensor:
-        planes = self.transform(rows)
+    def _margins_staged(self, x: torch.Tensor) -> torch.Tensor:
+        sub = self.sub[0]
+        planes = sub.tables.planes_staged(x, sub.raw_missing)
         return self._sum(planes.shape[0], (rank_margins(planes, e.tables)
                                            for e in self.sub))
 

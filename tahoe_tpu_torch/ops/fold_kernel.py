@@ -48,8 +48,8 @@ from tahoe_tpu_torch.config import GpuLimits, resolve_device
 from tahoe_tpu_torch.forest.compiler import compact_leveled, ge_normalize, levelize
 from tahoe_tpu_torch.forest.spec import ForestSpec, LeveledForest
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
-from tahoe_tpu_torch.ops.rows import canonicalize_rows
-from tahoe_tpu_torch.ops.transform import apply_output_transform
+from tahoe_tpu_torch.ops.graphed import GraphedEngine
+from tahoe_tpu_torch.ops.rows import finish_rows, stage_rows
 
 # the dual-lane form's feature cap: [x, -x] within the fold's 128 lanes
 MAX_DUAL_COLS = 64
@@ -615,7 +615,7 @@ def fold_deep_cuda(x: torch.Tensor, t: FoldTables, blocks: torch.Tensor,
     return out
 
 
-class FoldKernelEngine:
+class FoldKernelEngine(GraphedEngine):
     """Compile a forest into fold tables and run kernel C or the deep kernel.
 
     ``ge_mode=False`` asks for the non-ge form; ``whole_forest=True`` stages
@@ -651,13 +651,24 @@ class FoldKernelEngine:
         # kernel C's trees of blocks and leaves
         self.blocks = deep_blocks(t) if deep else None
         self.c_table = None if deep else fold_c_table(t)
+        # one CUDA graph a shape on the card (ops/graphed.py), as the JAX
+        # engine jits _predict_impl
+        self._graph()
+
+    def _stage(self, rows, out: torch.Tensor | None = None) -> torch.Tensor:
+        """Raw rows [R, C] -> their used columns, f32 on the device (into
+        ``out`` when given): the step of ``canonicalize`` that reads them."""
+        return stage_rows(rows, device=self.device,
+                          col_index=self.tables.col_index, out=out)
+
+    def finish(self, x: torch.Tensor) -> torch.Tensor:
+        """Staged rows -> the kernel's rows (ops/rows.py finish_rows)."""
+        return finish_rows(x, self.missing, dual=self.form == "dual")
 
     def canonicalize(self, rows) -> torch.Tensor:
         """Raw rows [R, C] -> [R, width] f32 (``[x, -x]`` lanes in the dual
         form), missing as NaN."""
-        return canonicalize_rows(rows, self.missing, device=self.device,
-                                 col_index=self.tables.col_index,
-                                 dual=self.form == "dual")
+        return self.finish(self._stage(rows))
 
     def margins_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Margins of canonicalized rows: the plain version on a CPU tensor,
@@ -668,10 +679,5 @@ class FoldKernelEngine:
             return fold_deep_cuda(x, self.tables, self.blocks, self.launch)
         return fold_margins_cuda(x, self.tables, self.c_table, self.launch)
 
-    def margins(self, rows) -> torch.Tensor:
-        return self.margins_rows(self.canonicalize(rows))
-
-    def predict(self, rows) -> torch.Tensor:
-        return apply_output_transform(self.margins(rows), self.num_trees,
-                                      self.output, self.global_bias,
-                                      self.threshold)
+    def _margins_staged(self, x: torch.Tensor) -> torch.Tensor:
+        return self.margins_rows(self.finish(x))

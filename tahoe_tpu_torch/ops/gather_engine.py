@@ -21,8 +21,8 @@ import torch
 
 from tahoe_tpu_torch.config import resolve_device
 from tahoe_tpu_torch.forest.spec import ForestSpec
-from tahoe_tpu_torch.ops.rows import map_row_chunks, missing_mask
-from tahoe_tpu_torch.ops.transform import apply_output_transform
+from tahoe_tpu_torch.ops.graphed import GraphedEngine
+from tahoe_tpu_torch.ops.rows import map_row_chunks, missing_mask, stage_rows
 
 # node flag bits, as in the JAX engines
 DEF_LEFT, IS_LEAF, EXCHANGE = 1, 2, 4
@@ -46,7 +46,7 @@ def node_cond(x: torch.Tensor, missing: float, fid: torch.Tensor,
     return cond ^ ((flags & EXCHANGE) != 0)
 
 
-class GatherEngine:
+class GatherEngine(GraphedEngine):
     """Node-major tables of one forest on ``device`` and a level-synchronous
     gather descent."""
 
@@ -67,6 +67,9 @@ class GatherEngine:
         self.fids = as_dev(forest.fids.astype(np.int32))
         self.flags = as_dev(node_flags(forest.def_left, forest.is_leaf,
                                        forest.exchange))
+        # one CUDA graph a shape on the card (ops/graphed.py), as the JAX
+        # engine jits _predict_impl
+        self._graph()
 
     def _margins_chunk(self, x: torch.Tensor) -> torch.Tensor:
         curr = torch.zeros(x.shape[0], self.num_trees, dtype=torch.int64,
@@ -78,12 +81,9 @@ class GatherEngine:
             curr = torch.where((flags & IS_LEAF) != 0, curr, 2 * curr + 1 + cond)
         return self.values.gather(0, curr).sum(dim=1)
 
-    def margins(self, rows) -> torch.Tensor:
-        x = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
+    def _stage(self, rows, out: torch.Tensor | None = None) -> torch.Tensor:
+        return stage_rows(rows, device=self.device, out=out)
+
+    def _margins_staged(self, x: torch.Tensor) -> torch.Tensor:
         # per row and tree: the int64 index, the gathered node and its row value
         return map_row_chunks(self._margins_chunk, x, 48 * self.num_trees)
-
-    def predict(self, rows) -> torch.Tensor:
-        return apply_output_transform(self.margins(rows), self.num_trees,
-                                      self.output, self.global_bias,
-                                      self.threshold)

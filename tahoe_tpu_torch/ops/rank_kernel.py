@@ -70,6 +70,7 @@ from tahoe_tpu_torch.forest.quantize import (
 )
 from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
+from tahoe_tpu_torch.ops.graphed import GraphedEngine, graphed
 from tahoe_tpu_torch.ops.fold_kernel import _wavefronts
 from tahoe_tpu_torch.ops.rank_transform import (
     LANE,
@@ -78,8 +79,7 @@ from tahoe_tpu_torch.ops.rank_transform import (
     rank_planes_plain,
     threshold_table,
 )
-from tahoe_tpu_torch.ops.rows import canonicalize_rows
-from tahoe_tpu_torch.ops.transform import apply_output_transform
+from tahoe_tpu_torch.ops.rows import finish_rows, stage_rows
 
 RANK_FOLD = CudaKernel(
     "tahoe_rank_fold",
@@ -180,15 +180,24 @@ class RankInput:
     def groups(self) -> int:
         return rank_groups(self.q.spec.num_cols)
 
+    def stage(self, rows, out: torch.Tensor | None = None) -> torch.Tensor:
+        """Raw rows [R, C] -> their source columns [R, F_v] f32 on the
+        device (into ``out`` when given): the step that reads them."""
+        return stage_rows(rows, device=self.thresholds.device,
+                          col_index=self.col_index, out=out)
+
     def rows(self, rows, raw_missing: float) -> torch.Tensor:
         """Raw rows [R, C] -> kernel A's input [R, F_v] f32, NaN = missing."""
-        return canonicalize_rows(rows, raw_missing, device=self.thresholds.device,
-                                 col_index=self.col_index)
+        return finish_rows(self.stage(rows), raw_missing)
+
+    def planes_staged(self, x: torch.Tensor, raw_missing: float) -> torch.Tensor:
+        """Staged rows (``stage``) -> int8 planes [R, 128*G] (kernel A)."""
+        return rank_planes(finish_rows(x, raw_missing), self.thresholds,
+                           self.counts)
 
     def planes(self, rows, raw_missing: float) -> torch.Tensor:
         """Raw rows [R, C] -> int8 planes [R, 128*G] (kernel A)."""
-        return rank_planes(self.rows(rows, raw_missing), self.thresholds,
-                           self.counts)
+        return self.planes_staged(self.stage(rows), raw_missing)
 
 
 def rank_input(q: RankQuantizedForest, gather: np.ndarray | None, *,
@@ -582,7 +591,7 @@ def fuse_admits(q: RankQuantizedForest) -> bool:
             and q.max_ranks > FUSE_MIN_THRESHOLDS)
 
 
-class RankFoldEngine:
+class RankFoldEngine(GraphedEngine):
     """Rank-quantize a forest and run it through kernels A and B, or the
     fused kernel.
 
@@ -613,6 +622,11 @@ class RankFoldEngine:
         self.output = forest.output
         self.global_bias = forest.global_bias
         self.threshold = forest.threshold
+        # one CUDA graph a shape on the card (ops/graphed.py), as the JAX
+        # engine jits _predict_impl
+        self._graph()
+        self._predict_planes = graphed(self._predict_planes_impl, self.device,
+                                       self._stage_planes)
 
     def transform(self, rows) -> torch.Tensor:
         """Raw rows [R, C] -> int8 planes [R, 128*G] (kernel A)."""
@@ -622,18 +636,20 @@ class RankFoldEngine:
         planes = torch.as_tensor(planes, dtype=torch.int8, device=self.device)
         return rank_margins(planes.contiguous(), self.tables)
 
-    def margins(self, rows) -> torch.Tensor:
-        if not self.fused:
-            return self.margins_planes(self.transform(rows))
+    def _stage(self, rows, out: torch.Tensor | None = None) -> torch.Tensor:
+        return self.tables.stage(rows, out)
+
+    def _stage_planes(self, planes, out: torch.Tensor | None = None) -> torch.Tensor:
+        return stage_rows(planes, device=self.device, dtype=torch.int8, out=out)
+
+    def _margins_staged(self, x: torch.Tensor) -> torch.Tensor:
         t = self.tables
-        return rank_margins_fused(t.rows(rows, self.raw_missing), t)
+        if not self.fused:
+            return self.margins_planes(t.planes_staged(x, self.raw_missing))
+        return rank_margins_fused(finish_rows(x, self.raw_missing), t)
 
-    def _finish(self, margins: torch.Tensor) -> torch.Tensor:
-        return apply_output_transform(margins, self.num_trees, self.output,
-                                      self.global_bias, self.threshold)
-
-    def predict(self, rows) -> torch.Tensor:
-        return self._finish(self.margins(rows))
+    def _predict_planes_impl(self, planes) -> torch.Tensor:
+        return self._finish(self.margins_planes(planes))
 
     def predict_planes(self, planes) -> torch.Tensor:
-        return self._finish(self.margins_planes(planes))
+        return self._predict_planes(planes)

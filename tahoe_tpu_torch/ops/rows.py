@@ -9,6 +9,12 @@ One function for what the JAX package does in four places
   engine, the banded virtual features' source columns);
 - the fold's dual ``[x, -x]`` lanes (compiler.ge_normalize).
 
+It runs in two steps: ``stage_rows`` reads the raw rows once (the column
+gather, or a copy into a given buffer), outside an engine's CUDA graph;
+``finish_rows`` tests for missing values and adds the dual lanes, inside
+it. A value's missing test does not depend on its column, so testing after
+the gather gives the same rows.
+
 The CUDA kernels need no lane padding, so none is added. ``missing_mask``
 is the missing test on its own, for the plain torch engines that test rows
 as they gather them, and ``map_row_chunks`` runs those engines over a batch
@@ -46,19 +52,44 @@ def missing_mask(x: torch.Tensor, missing: float) -> torch.Tensor:
     return torch.abs(x - sentinel) <= float(np.float32(MISSING_EPS))
 
 
+def stage_rows(rows, *, device: torch.device,
+               col_index: torch.Tensor | None = None,
+               dtype: torch.dtype = torch.float32,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """rows [R, C] (numpy or tensor) -> [R, C'] of ``dtype`` on ``device``:
+    the columns ``col_index`` (or all), written into ``out`` when it is
+    given (ops/graphed.py: a graph's static input). The step of a predict
+    that reads the raw rows: rows on the host reach the device here."""
+    if out is not None and col_index is None:
+        return out.copy_(_two_dim(torch.as_tensor(rows)))
+    x = _two_dim(torch.as_tensor(rows, dtype=dtype, device=device))
+    if col_index is None:
+        return x
+    return torch.index_select(x, 1, col_index, out=out)
+
+
+def _two_dim(x: torch.Tensor) -> torch.Tensor:
+    if x.dim() != 2:
+        raise ValueError(f"rows must be [R, C]; got shape {tuple(x.shape)}")
+    return x
+
+
+def finish_rows(x: torch.Tensor, missing: float, *,
+                dual: bool = False) -> torch.Tensor:
+    """Staged f32 rows (``stage_rows``) -> the kernels' rows: missing as
+    NaN, ``[x, -x]`` lanes when ``dual``, contiguous."""
+    if not np.isnan(np.float32(missing)):
+        x = x.masked_fill(missing_mask(x, missing), float("nan"))
+    if dual:
+        x = torch.cat([x, -x], dim=1)
+    return x.contiguous()
+
+
 def canonicalize_rows(rows, missing: float, *, device: torch.device,
                       col_index: torch.Tensor | None = None,
                       dual: bool = False) -> torch.Tensor:
     """rows [R, C] (numpy or tensor) -> contiguous f32 [R, C'] on ``device``.
 
     C' is ``len(col_index)`` (or C), doubled when ``dual``."""
-    x = torch.as_tensor(rows, dtype=torch.float32, device=device)
-    if x.dim() != 2:
-        raise ValueError(f"rows must be [R, C]; got shape {tuple(x.shape)}")
-    if not np.isnan(np.float32(missing)):
-        x = x.masked_fill(missing_mask(x, missing), float("nan"))
-    if col_index is not None:
-        x = x.index_select(1, col_index)
-    if dual:
-        x = torch.cat([x, -x], dim=1)
-    return x.contiguous()
+    return finish_rows(stage_rows(rows, device=device, col_index=col_index),
+                       missing, dual=dual)

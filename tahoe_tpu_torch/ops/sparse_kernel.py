@@ -82,6 +82,7 @@ from tahoe_tpu_torch.forest.quantize import (
 from tahoe_tpu_torch.forest.sparse import SparseForest, from_dense
 from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
+from tahoe_tpu_torch.ops.graphed import GraphedEngine
 from tahoe_tpu_torch.ops.rank_kernel import (
     PLAIN_CHUNK_BYTES,
     RankInput,
@@ -92,7 +93,6 @@ from tahoe_tpu_torch.ops.rank_kernel import (
     rank_virtual_cols,
 )
 from tahoe_tpu_torch.ops.rank_transform import LANE
-from tahoe_tpu_torch.ops.transform import apply_output_transform
 
 SPARSE_RANK = CudaKernel(
     "tahoe_sparse_rank",
@@ -387,7 +387,7 @@ def sparse_tables(spec: ForestSpec, band: int | None = None, *,
     )
 
 
-class SparseRankEngine:
+class SparseRankEngine(GraphedEngine):
     """Rank-quantize a forest, prune it to its CSR pool and run it through
     kernel A and the sparse kernel (Strategy.SPARSE where the rank planes
     take the forest)."""
@@ -410,6 +410,9 @@ class SparseRankEngine:
         self.output = forest.output
         self.global_bias = forest.global_bias
         self.threshold = forest.threshold
+        # one CUDA graph a shape on the card (ops/graphed.py), as the JAX
+        # engine jits _predict_impl
+        self._graph()
 
     @staticmethod
     def feasible(forest: ForestSpec) -> str | None:
@@ -428,10 +431,8 @@ class SparseRankEngine:
         planes = torch.as_tensor(planes, dtype=torch.int8, device=self.device)
         return sparse_margins(planes.contiguous(), self.tables)
 
-    def margins(self, rows) -> torch.Tensor:
-        return self.margins_planes(self.transform(rows))
+    def _stage(self, rows, out: torch.Tensor | None = None) -> torch.Tensor:
+        return self.tables.stage(rows, out)
 
-    def predict(self, rows) -> torch.Tensor:
-        return apply_output_transform(self.margins(rows), self.num_trees,
-                                      self.output, self.global_bias,
-                                      self.threshold)
+    def _margins_staged(self, x: torch.Tensor) -> torch.Tensor:
+        return self.margins_planes(self.tables.planes_staged(x, self.raw_missing))

@@ -33,8 +33,8 @@ import torch
 
 from tahoe_tpu_torch.config import resolve_device
 from tahoe_tpu_torch.forest.spec import LeveledForest
-from tahoe_tpu_torch.ops.rows import map_row_chunks, missing_mask
-from tahoe_tpu_torch.ops.transform import apply_output_transform
+from tahoe_tpu_torch.ops.graphed import GraphedEngine
+from tahoe_tpu_torch.ops.rows import map_row_chunks, missing_mask, stage_rows
 
 SelectMode = Literal["take", "onehot"]
 
@@ -51,7 +51,7 @@ def onehot_matrix(fid_level: np.ndarray, num_cols: int) -> np.ndarray:
     return s
 
 
-class TensorEngine:
+class TensorEngine(GraphedEngine):
     """Leveled tables of one forest on ``device`` and the select-fold."""
 
     def __init__(self, leveled: LeveledForest, *,
@@ -77,6 +77,9 @@ class TensorEngine:
             self.sel = [as_dev(f.reshape(-1).astype(np.int64)) for f in leveled.fid]
         else:
             self.sel = [as_dev(onehot_matrix(f, self.num_cols)) for f in leveled.fid]
+        # one CUDA graph a shape on the card (ops/graphed.py), as the JAX
+        # engine jits _predict_impl
+        self._graph()
 
     def _margins_chunk(self, x: torch.Tensor) -> torch.Tensor:
         rt = x.shape[0]
@@ -105,14 +108,11 @@ class TensorEngine:
             w = torch.where(cond, w[..., half:], w[..., :half])
         return w[..., 0].sum(dim=1)
 
-    def margins(self, rows) -> torch.Tensor:
-        x = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
+    def _stage(self, rows, out: torch.Tensor | None = None) -> torch.Tensor:
+        return stage_rows(rows, device=self.device, out=out)
+
+    def _margins_staged(self, x: torch.Tensor) -> torch.Tensor:
         # per row: the leaf frontier and a level's values, flags and conds
         # (f32, bool), and the one-hot product's two f64 rows
         return map_row_chunks(self._margins_chunk, x,
                               32 * self.num_trees << self.depth)
-
-    def predict(self, rows) -> torch.Tensor:
-        return apply_output_transform(self.margins(rows), self.num_trees,
-                                      self.output, self.global_bias,
-                                      self.threshold)

@@ -25,6 +25,12 @@ to any margin (where the JAX engines raise on a tree count their TPU tiles
 do not divide); only a shard with no tree raises. The 128-tree lane tiles
 of the JAX split are a TPU layout rule and have no counterpart here.
 
+A shard's margins are its engine's graphed ``margins`` (ops/graphed.py:
+one CUDA graph a shape on the card); the ``all_reduce`` and the
+``all_gather`` stay outside every graph, because gloo cannot be captured
+(capturing NCCL's collectives is not done here either), and so does the
+output transform after them.
+
 Rows split into ``n_data`` contiguous slices of ceil(R / n_data).
 ``predict(rows)`` takes the global batch on every rank and returns every
 row's prediction on every rank, gathered over the data axis;

@@ -13,18 +13,22 @@ is reduced to per-element costs that the model scales to a forest's shape:
   and at one block an SM, where rows are too few to fill the card and a
   thread's chain of descents binds: the least time of a launch, ns per
   (tree, level) plus µs a launch. Kernel C also pays for each tile of trees
-  it waits on, µs a tile (the same forest in tiles of two sizes);
+  it waits on, µs a tile (the same forest in tiles of two sizes), for
+  each word of its row a thread stages (the same tables on rows of two
+  widths), and how a step's floor changes with the warps of a block
+  (blocks of 256 and of 64 rows);
 - kernel A, per (row, virtual feature), and its least time a launch;
 - the plain torch engines by device time: ns per gather step (HBM_DIRECT)
   and per (row, node) of the select-fold (ROW_TILED's take, TENSOR's
-  one-hot product);
+  one-hot product), less their ops' own;
 - device memory, by a device-to-device copy of 256 MiB between two events
   (2 x bytes / time), the role of bandwidthTest.h:829-908;
-- the host: µs to issue one kernel launch through its wrapper, one plain
-  torch op and one whole call of the shortest kernel path (an event pair
-  around 200 of them, which the card runs faster than the host issues),
-  and the µs a call ends after its host issue ends (an event pair around
-  one such call on an idle card, less its issue).
+- a predict is one CUDA graph replay (ops/graphed.py): the device µs one
+  small torch op adds to a replay, and the host's: µs to issue one graphed
+  call of the shortest kernel path (200 issued back to back, by the host's
+  clock) and the µs each graph node adds to a replay's issue (graphs of 1
+  and of 400 small ops); the µs an event pair around such a call reads past
+  its issue, in calls back to back (as the enumeration times a strategy).
 
 ``Calibration.default()`` holds the values measured on an H100; ``measure``
 re-measures them on the card and raises on the CPU. The JAX module's
@@ -52,18 +56,24 @@ CAL_TREES = (32, 256)
 # kernel (the deep kernel's: 2 x 132 SMs x 6 blocks x 256 rows)
 CAL_ROWS = 416 << 10
 CAL_WAVES = 2
-# kernel C's tile of trees in the calibration (and half of it)
+# kernel C's tile of trees in the calibration (and half of it), and its
+# block's rows
 C_TILE = 16
-# kernel C's least time with its block loads batched, by measure() on an
-# NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6); the default's
-# other values are the committed sweep's run
-BATCH_FLOOR_NS = 26.582030529555464
-BATCH_FLOOR_US = 2.5857998856476376
+CAL_BLOCK_ROWS = 256
 # the deep kernel's calibration forests: its own depth range (12-15)
 DEEP_DEPTH = 12
 DEEP_TREES = (8, 64)
 COPY_BYTES = 256 << 20
 HOST_CALLS = 200
+# graph nodes of the long graph that times a node's host issue
+GRAPH_NODES = 400
+# kernel C's row staging: a sign-form forest's tables on rows of its own
+# width and of STAGE_WIDTH, STAGE_ROWS rows a block (also the small block
+# of its floor a warp), STAGE_TILE trees a tile
+STAGE_COLS = 100
+STAGE_WIDTH = 400
+STAGE_ROWS = 64
+STAGE_TILE = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +92,12 @@ class Calibration:
     # level) and a launch
     fold_c_batch_floor_ns: float
     fold_c_batch_floor_us: float
+    # kernel C's least time, where rows are too few to fill the card: ns a
+    # thread takes to stage each word of its row; ns a (tree, level) step's
+    # floor changes a warp its block runs, from CAL_BLOCK_ROWS rows (both
+    # floors above are taken at CAL_BLOCK_ROWS)
+    fold_c_stage_ns: float
+    fold_c_warp_ns: float
     # the deep kernel (csrc/fold_deep.cu), the same but tiles
     fold_deep_ns: float
     fold_deep_row_ns: float
@@ -112,12 +128,13 @@ class Calibration:
     select_node_ns: float
     onehot_node_ns: float
     hbm_gbps: float
-    # the host: µs to issue one kernel launch through its wrapper, one plain
-    # torch op, and one whole call of the shortest kernel path (two ops and
-    # a launch); µs a call ends after its host issue ends
-    launch_us: float
-    op_us: float
+    # a graph replay: the device µs of one small torch op in it; the host's
+    # µs to issue one graphed call of the shortest kernel path (two ops and
+    # a launch) and µs a graph node adds to that; µs an event pair around a
+    # call reads past its host issue, calls back to back
+    op_device_us: float
     call_us: float
+    node_us: float
     latency_us: float
 
     @staticmethod
@@ -127,36 +144,38 @@ class Calibration:
         # "calibration" line; python -m tahoe_tpu_torch.perf_model.calibrate
         # prints one)
         return Calibration(
-            fold_c_ns=0.0007747303366414949,
-            fold_c_row_ns=0.04891099033320878,
-            fold_c_floor_ns=29.976897556999965,
-            fold_c_floor_us=2.583113632031849,
-            fold_c_tile_us=0.30010007321834564,
-            fold_c_batch_floor_ns=BATCH_FLOOR_NS,
-            fold_c_batch_floor_us=BATCH_FLOOR_US,
-            fold_deep_ns=0.0014450037166610751,
-            fold_deep_row_ns=0.03524192489285835,
-            fold_deep_floor_ns=61.29286096741756,
-            fold_deep_floor_us=4.4982850551605225,
-            rank_fold_ns=0.0008490315464951507,
-            rank_fold_bytes_ns=0.0012689058454286456,
-            rank_fold_row_ns=0.23866908202783715,
-            rank_fold_floor_ns=57.60982333283339,
-            rank_fold_floor_us=18.68228571755545,
-            sparse_ns=0.001085397337198622,
-            sparse_row_ns=0.2332761154308186,
-            sparse_floor_ns=76.93749752693942,
-            sparse_floor_us=18.184001105172296,
-            rank_transform_ns=0.01538858039286704,
-            rank_transform_floor_us=12.638400495052338,
-            gather_step_ns=0.06086940516070171,
-            select_node_ns=0.022444724834258523,
-            onehot_node_ns=0.03421363885536266,
-            hbm_gbps=2955.8168174908787,
-            launch_us=36.34671926498413,
-            op_us=9.043786525726318,
-            call_us=75.88479995727539,
-            latency_us=13.251200765371323,
+            fold_c_ns=0.0007687258752593274,
+            fold_c_row_ns=0.048637036355091395,
+            fold_c_floor_ns=29.631918213064118,
+            fold_c_floor_us=1.8882117906496632,
+            fold_c_tile_us=0.30140019953250885,
+            fold_c_batch_floor_ns=26.541738770902157,
+            fold_c_batch_floor_us=1.780098331471284,
+            fold_c_stage_ns=22.368001441160843,
+            fold_c_warp_ns=2.1808035810300637,
+            fold_deep_ns=0.0013980273791342908,
+            fold_deep_row_ns=0.04528274808030627,
+            fold_deep_floor_ns=61.43095614832072,
+            fold_deep_floor_us=4.64182836668832,
+            rank_fold_ns=0.0008461604206792995,
+            rank_fold_bytes_ns=0.0011666594306626481,
+            rank_fold_row_ns=0.2351821827585305,
+            rank_fold_floor_ns=57.408035666282686,
+            rank_fold_floor_us=18.78194298063006,
+            sparse_ns=0.001087722439354793,
+            sparse_row_ns=0.2226065949741856,
+            sparse_floor_ns=76.43392642161676,
+            sparse_floor_us=18.12091384615217,
+            rank_transform_ns=0.015296349856648276,
+            rank_transform_floor_us=12.671999633312225,
+            gather_step_ns=0.04489862419632118,
+            select_node_ns=0.015684149445860385,
+            onehot_node_ns=0.024766086899793056,
+            hbm_gbps=2952.1758597660605,
+            op_device_us=1.6786853472391765,
+            call_us=19.195530000217786,
+            node_us=0.0009270676694821551,
+            latency_us=9.284469862393507,
         )
 
     def summary(self) -> str:
@@ -168,8 +187,8 @@ class Calibration:
             f"{self.rank_transform_ns * 1e3:.2f} ps/(row, feature), gather "
             f"{self.gather_step_ns:.4f} ns/step, select "
             f"{self.select_node_ns * 1e3:.2f} ps/node, HBM {self.hbm_gbps:.0f} "
-            f"GB/s, launch {self.launch_us:.1f} us, op {self.op_us:.1f} us, "
-            f"call {self.call_us:.1f} us"
+            f"GB/s, op {self.op_device_us:.2f} us (device), graphed call "
+            f"{self.call_us:.1f} us + {self.node_us:.3f} us a node (host)"
         )
 
 
@@ -201,7 +220,8 @@ def measure(device="cuda") -> Calibration:
         SPARSE_RANK, sparse_margins_cuda, sparse_tables)
     from tahoe_tpu_torch.ops.tensor_engine import TensorEngine
     from tahoe_tpu_torch.perf_model.model import (
-        KERNEL_REGISTERS, blocks_per_sm, rank_b_geometry, register_query,
+        GATHER_CHUNK_OPS, GATHER_LEVEL_OPS, KERNEL_REGISTERS, SELECT_CHUNK_OPS,
+        SELECT_LEVEL_OPS, blocks_per_sm, rank_b_geometry, register_query,
         sparse_geometry)
     from tahoe_tpu_torch.utils.profiling import cuda_device_ms, cuda_median_ms
 
@@ -222,6 +242,19 @@ def measure(device="cuda") -> Calibration:
 
     def ms(fn):
         return cuda_device_ms(fn)
+
+    # -- a small torch op's device time in a graph (the plain torch
+    # engines' calibrations below are taken less their ops') ------------
+    with torch.cuda.device(dev):
+        a = torch.rand(64, 8, device=dev)
+        idx = torch.zeros(64, 8, dtype=torch.int64, device=dev)
+
+        def ops():
+            for _ in range(HOST_CALLS):
+                y = torch.gather(a, 1, idx)
+                torch.where(y >= a, y, a)
+
+        op_device_us = ms(ops) * 1e3 / (3 * HOST_CALLS)
 
     def descent(fn_for, block_rows, per_sm, chains=None):
         """(ns per (row, tree, level), ns per row, floor ns per (tree,
@@ -249,6 +282,9 @@ def measure(device="cuda") -> Calibration:
         c_table = [fold_c_table(t) for t in tabs]
         width = tabs[0].width
         c_rows = fold_launch(width, D, CAL_TREES[1], limits).rows_per_block
+        if c_rows != CAL_BLOCK_ROWS:
+            raise RuntimeError(f"kernel C's calibration block takes {c_rows} "
+                               f"rows, not {CAL_BLOCK_ROWS}")
 
         def c_launch(i, tile):
             """Kernel C's block of c_rows rows in tiles of ``tile`` trees,
@@ -288,7 +324,44 @@ def measure(device="cuda") -> Calibration:
             for i in range(2)]
         b_floor, b_base = _slope(fb[0], fb[1], *[t * D for t in CAL_TREES])
         fold_c_batch = less_tiles(b_floor, b_base * 1e-3)
-        del xs, c_table, tabs
+        # the same batched floor in blocks of STAGE_ROWS rows: a step's
+        # floor a warp of the block
+        n_w = sms * STAGE_ROWS
+        fw = [ms(lambda i=i: fold_margins_cuda(
+            xs[i][:n_w], tabs[i], c_table[i],
+            FoldLaunch(STAGE_ROWS, C_TILE, batch_smem))) * 1e6 for i in range(2)]
+        # (both wait on the same tiles: their difference is the warps')
+        w_floor, _ = _slope(fw[0], fw[1], *[t * D for t in CAL_TREES])
+        fold_c_warp_ns = (b_floor - w_floor) / ((c_rows - STAGE_ROWS) / 32)
+        # staging a block's rows: a sign-form forest's tables on rows of its
+        # width and of STAGE_WIDTH (the same tables: its codes read the first
+        # columns), one block an SM, both launches in the batched instance
+        stage_forest = synthetic.generate_forest(CAL_TREES[0], D, STAGE_COLS,
+                                                 seed=5)
+        st = fold_tables(stage_forest, device=dev)
+        if st.form != "sign":
+            raise RuntimeError(f"the staging forest takes the {st.form} form")
+        wide_t = dataclasses.replace(st, num_cols=STAGE_WIDTH)
+        s_table = fold_c_table(st)
+        n_st = sms * STAGE_ROWS
+        x_st = torch.zeros(n_st, STAGE_WIDTH, device=dev)
+        x_st[:, :st.width] = canonicalize_rows(
+            rows_d[:n_st, :CAL_WIDE_COLS].repeat(1, 3)[:, :STAGE_COLS],
+            stage_forest.missing, device=dev, col_index=st.col_index)
+        s_smem = max(fold_smem_bytes(STAGE_WIDTH, D, CAL_TREES[0], STAGE_ROWS,
+                                     STAGE_TILE), limits.smem_half_sm + 16)
+        s_launch = FoldLaunch(STAGE_ROWS, STAGE_TILE, s_smem)
+        narrow_x = x_st[:, :st.width].contiguous()
+        t_narrow = ms(lambda: fold_margins_cuda(narrow_x, st, s_table, s_launch))
+        t_wide = ms(lambda: fold_margins_cuda(x_st, wide_t, s_table, s_launch))
+        fold_c_stage_ns = max(0.0, (t_wide - t_narrow) * 1e6
+                              / ((STAGE_WIDTH | 1) - (st.width | 1)))
+        # the floors were taken on rows of the calibration's width: less
+        # their own staging
+        own_stage_us = (width | 1) * fold_c_stage_ns * 1e-3
+        fold_c[3] = max(0.0, fold_c[3] - own_stage_us)
+        fold_c_batch = (fold_c_batch[0], max(0.0, fold_c_batch[1] - own_stage_us))
+        del xs, c_table, tabs, x_st, narrow_x, s_table, st, wide_t
         # the deep kernel on forests of its own depth (its tables outgrow
         # L1 as a depth-8 forest's do not)
         deep_forests = [synthetic.generate_forest(t, DEEP_DEPTH, CAL_COLS, seed=5)
@@ -343,10 +416,13 @@ def measure(device="cuda") -> Calibration:
         del sts, sp
 
         # -- plain torch ---------------------------------------------------
+        # (one row chunk each; NaN missing: no op of a finite sentinel)
         big = forests[1]
         n_g = 8192
         gat = GatherEngine(big, device=dev)
-        gather_step_ns = (ms(lambda: gat.margins(rows_d[:n_g, :CAL_COLS]))
+        gather_ops = GATHER_LEVEL_OPS * D + GATHER_CHUNK_OPS + 1
+        gather_step_ns = ((ms(lambda: gat.margins(rows_d[:n_g, :CAL_COLS]))
+                           - gather_ops * op_device_us * 1e-3)
                           * 1e6 / (n_g * big.num_trees * D))
         small = synthetic.generate_forest(CAL_TREES[0], 6, CAL_COLS, seed=5)
         lev = compiler.levelize(small)
@@ -355,7 +431,9 @@ def measure(device="cuda") -> Calibration:
         select = {}
         for mode in ("take", "onehot"):
             eng = TensorEngine(lev, select_mode=mode, device=dev)
-            select[mode] = (ms(lambda: eng.margins(rows_d[:n_s, :CAL_COLS]))
+            select_ops = SELECT_LEVEL_OPS[mode] * small.depth + SELECT_CHUNK_OPS[mode] + 1
+            select[mode] = ((ms(lambda: eng.margins(rows_d[:n_s, :CAL_COLS]))
+                             - select_ops * op_device_us * 1e-3)
                             * 1e6 / (n_s * nodes))
         del gat, eng
 
@@ -367,29 +445,10 @@ def measure(device="cuda") -> Calibration:
         del src, dst
 
         # -- the host ----------------------------------------------------
+        # a whole graphed call of the shortest kernel path: FoldKernelEngine's
+        # predict (dual rows: two ops, one launch, no output op), issued back
+        # to back
         tiny = synthetic.generate_forest(1, 1, 2, seed=5)
-        tt = fold_tables(tiny, device=dev)
-        tx = canonicalize_rows(rows_d[:32, :2], tiny.missing, device=dev,
-                               col_index=tt.col_index, dual=tt.form == "dual")
-        tl = fold_launch(tt.width, tt.depth, 1, limits)
-        tc = fold_c_table(tt)
-
-        def launches():
-            for _ in range(HOST_CALLS):
-                fold_margins_cuda(tx, tt, tc, tl)
-
-        launch_us = cuda_median_ms(launches, warmup=1, iters=5) * 1e3 / HOST_CALLS
-        a = torch.rand(64, 8, device=dev)
-        idx = torch.zeros(64, 8, dtype=torch.int64, device=dev)
-
-        def ops():
-            for _ in range(HOST_CALLS):
-                y = torch.gather(a, 1, idx)
-                torch.where(y >= a, y, a)
-
-        op_us = cuda_median_ms(ops, warmup=1, iters=5) * 1e3 / (3 * HOST_CALLS)
-        # a whole call of the shortest kernel path: FoldKernelEngine's
-        # predict (dual rows: two ops, one launch, no output op)
         teng = FoldKernelEngine(tiny, device=dev)
         trow = rows_d[:32, :2]
 
@@ -397,13 +456,29 @@ def measure(device="cuda") -> Calibration:
             for _ in range(HOST_CALLS):
                 teng.predict(trow)
 
-        call_us = cuda_median_ms(calls, warmup=1, iters=5) * 1e3 / HOST_CALLS
-        lat = []
-        for _ in range(50):
-            torch.cuda.synchronize(dev)
-            lat.append(cuda_median_ms(lambda: teng.predict(trow), warmup=0,
-                                      iters=1))
-        latency_us = max(0.0, statistics.median(lat) * 1e3 - call_us)
+        call_us = host_us(calls, dev) / HOST_CALLS
+        # a graph node's part of a replay's issue: graphs of 1 and of
+        # GRAPH_NODES small ops
+        y = torch.zeros(64, device=dev)
+        issue = []
+        for n in (1, GRAPH_NODES):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(n):
+                    y.add_(1.0)
+
+            def replays(g=g):
+                for _ in range(HOST_CALLS // 4):
+                    g.replay()
+
+            replays()
+            issue.append(host_us(replays, dev) / (HOST_CALLS // 4))
+            del g
+        node_us = max(0.0, (issue[1] - issue[0]) / (GRAPH_NODES - 1))
+        # what an event pair around a call reads past its host issue, in
+        # calls back to back as the enumeration times them
+        latency_us = max(0.0, cuda_median_ms(lambda: teng.predict(trow),
+                                             iters=HOST_CALLS) * 1e3 - call_us)
     for k, c in zip(kernels, counts):
         k.launches = c
     return Calibration(
@@ -422,9 +497,28 @@ def measure(device="cuda") -> Calibration:
         rank_transform_floor_us=rank_transform_floor_us,
         gather_step_ns=gather_step_ns, select_node_ns=select["take"],
         onehot_node_ns=select["onehot"], hbm_gbps=hbm_gbps,
-        launch_us=launch_us, op_us=op_us, call_us=call_us,
-        latency_us=latency_us,
+        fold_c_stage_ns=fold_c_stage_ns, fold_c_warp_ns=fold_c_warp_ns,
+        op_device_us=op_device_us,
+        call_us=call_us, node_us=node_us, latency_us=latency_us,
     )
+
+
+def host_us(fn, dev, reps: int = 5) -> float:
+    """Median host µs to issue ``fn()`` on an idle card: a synchronize
+    before each, none after (the card runs on while the host's clock
+    stops)."""
+    import time
+
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize(dev)
+    return statistics.median(times)
 
 
 def main() -> int:

@@ -24,14 +24,31 @@ engines, not the TPU's:
 - **bytes**: kernel C restages its tables once a row block;
 - **plain torch**: gather steps (HBM_DIRECT, the CSR gather tier) and the
   select-fold's nodes (ROW_TILED, TENSOR);
-- **host**: every kernel launch and plain torch op the path issues, at the
-  calibrated µs each. TensorEngine sizes its row chunks by ROW_CHUNK_BYTES
-  (ops/rows.py), so it issues a depth-long chain a chunk.
+- **graph nodes**: a predict is one CUDA graph replay (ops/graphed.py).
+  Every kernel launch and plain torch op of the path is a node of it; each
+  plain torch op costs the card its calibrated µs (a launch's own is in its
+  kernel's floor), and each node adds its calibrated µs to the host's issue
+  of the replay. TensorEngine sizes its row chunks by ROW_CHUNK_BYTES
+  (ops/rows.py), so it holds a depth-long chain a chunk;
+- **the graph's copies**: around the replay the card copies the rows into
+  the graph's static input where the engine gathers no columns, and clones
+  the result out: their bytes at the card's copy rate, an op each;
+- **host**: one graphed call of the shortest kernel path (the rows staged
+  in, the replay, the result cloned out), plus the nodes past its own.
+
+Where the rows are too few to fill the card, kernel C's least time also
+follows its block: a thread stages its own row, a word at a time
+(``fold_c_stage_ns`` a word; wide rows, mnist-class), and a (tree, level)
+step of its chain takes longer the more warps the SM runs
+(``fold_c_warp_ns`` a warp, from the calibration's 256-row block;
+64-row blocks, VMEM_FOREST on mnist- and cifar-class).
 
 A call's predicted time is the larger of the device's and the host's, plus
-one call's latency. The JAX model's TPU terms (TpuLimits, split budgets,
-RANK_STREAM_GBPS, MXU rates, the VMEM residency penalty) have no
-counterpart. Costs are seconds per predict of ``rows`` rows.
+what an event pair around a call reads past the host's issue where calls
+run back to back, as the enumeration times them. The JAX model's TPU terms
+(TpuLimits, split budgets, RANK_STREAM_GBPS, MXU rates, the VMEM residency
+penalty) have no counterpart. Costs are seconds per predict of ``rows``
+rows.
 """
 from __future__ import annotations
 
@@ -66,7 +83,11 @@ from tahoe_tpu_torch.ops.rank_kernel import (
 )
 from tahoe_tpu_torch.ops.rows import ROW_CHUNK_BYTES
 from tahoe_tpu_torch.ops.sparse_kernel import SparseRankEngine
-from tahoe_tpu_torch.perf_model.calibrate import SPARSE_BLOCK_ROWS, Calibration
+from tahoe_tpu_torch.perf_model.calibrate import (
+    CAL_BLOCK_ROWS,
+    SPARSE_BLOCK_ROWS,
+    Calibration,
+)
 
 # plain torch ops a row chunk issues per level (and once a chunk), read off
 # the engines: GatherEngine._margins_chunk, SparseGatherEngine's and
@@ -75,8 +96,9 @@ GATHER_LEVEL_OPS, GATHER_CHUNK_OPS = 19, 3
 SPARSE_GATHER_LEVEL_OPS, SPARSE_GATHER_CHUNK_OPS = 18, 2
 SELECT_LEVEL_OPS = {"take": 5, "onehot": 6}
 SELECT_CHUNK_OPS = {"take": 2, "onehot": 10}
-# the ops of the call calibrate.py times whole (call_us): dual rows
-CALL_OPS = 2
+# the graph nodes of the call calibrate.py times whole (call_us): dual rows
+# (two ops) and kernel C
+CALL_NODES = 3
 # an SM's threads and resident blocks at most (sm_90)
 SM_THREADS, SM_BLOCKS = 2048, 32
 # bytes a row a chunk: the gather tiers' and TensorEngine's own sizing
@@ -112,7 +134,7 @@ class CostBreakdown:
     device_s: float
     host_s: float
     latency_s: float
-    launches: int  # kernel launches and plain torch ops a call issues
+    launches: int  # kernel launches and plain torch ops: a call's graph nodes
 
     @property
     def total(self) -> float:
@@ -186,15 +208,16 @@ def sparse_register_query(groups: int) -> tuple:
 def _descent_s(unit: float, row: float, floor: float, floor_us: float,
                rows: int, chain: float, rows_per_block: int, per_sm: int,
                limits: GpuLimits, floor_chain: Optional[float] = None,
-               waits_us: float = 0.0) -> float:
+               waits_us: float = 0.0, stage_us: float = 0.0) -> float:
     """A descent kernel of ``chain`` (tree, level) steps a row, in waves of
     blocks: a wave takes the larger of one block's least time (its thread's
-    ``floor_chain`` and ``waits_us``; what binds where an SM holds one block)
-    and the throughput of the blocks an SM runs at once, each of which still
-    waits ``waits_us`` on its tiles (svhn-class, PERF.md section 6: two
-    blocks an SM took their tile waits beside their descents)."""
+    ``floor_chain``, ``waits_us`` and staging its rows, ``stage_us``; what
+    binds where an SM holds one block) and the throughput of the blocks an
+    SM runs at once, each of which still waits ``waits_us`` on its tiles
+    (svhn-class, PERF.md section 6: two blocks an SM took their tile waits
+    beside their descents)."""
     floor_chain = chain if floor_chain is None else floor_chain
-    least = floor * floor_chain + (floor_us + waits_us) * 1e3
+    least = floor * floor_chain + (floor_us + waits_us + stage_us) * 1e3
     per_block = rows_per_block * limits.sm_count * (row + unit * chain) + waits_us * 1e3
     return sum(max(least, at_once * per_block)
                for at_once in occupancy(rows, rows_per_block, per_sm,
@@ -213,13 +236,15 @@ def _fold_kernel_s(form: str, width: int, depth: int, trees: int, rows: int,
     if isinstance(plan, FoldLaunch):
         tiles = -(-trees // plan.tile_trees)
         rpb = plan.rows_per_block
-        floor = ((cal.fold_c_batch_floor_ns, cal.fold_c_batch_floor_us)
-                 if fold_batches(plan.smem_bytes, limits)
-                 else (cal.fold_c_floor_ns, cal.fold_c_floor_us))
+        floor_ns, floor_us = ((cal.fold_c_batch_floor_ns, cal.fold_c_batch_floor_us)
+                              if fold_batches(plan.smem_bytes, limits)
+                              else (cal.fold_c_floor_ns, cal.fold_c_floor_us))
+        floor_ns += cal.fold_c_warp_ns * (rpb - CAL_BLOCK_ROWS) / 32
         compute = _descent_s(
-            cal.fold_c_ns, cal.fold_c_row_ns, *floor, rows, chain, rpb,
-            blocks_per_sm(plan.smem_bytes, rpb, limits, regs), limits,
-            waits_us=cal.fold_c_tile_us * (tiles - 1))
+            cal.fold_c_ns, cal.fold_c_row_ns, floor_ns, floor_us, rows, chain,
+            rpb, blocks_per_sm(plan.smem_bytes, rpb, limits, regs), limits,
+            waits_us=cal.fold_c_tile_us * (tiles - 1),
+            stage_us=(width | 1) * cal.fold_c_stage_ns * 1e-3)
         moved = rows * (width + 1) * 4 + -(-rows // rpb) * trees * tree_bytes(depth)
         return max(compute, moved / (cal.hbm_gbps * 1e9))
     threads = plan.rows_per_block * plan.lanes
@@ -262,21 +287,26 @@ def _rank_b_s(groups: int, depth: int, trees: int, rows: int,
                       *rank_b_geometry(groups, limits), limits)
 
 
-def _cost(device_s: float, launches: int, ops: int,
-          cal: Calibration) -> CostBreakdown:
-    """A path's cost: a kernel path's host time is the calibrated call of
-    the shortest one (CALL_OPS ops and a launch) and its other launches and
-    ops; a plain torch path's is its ops."""
-    if launches:
-        host_us = (cal.call_us + (launches - 1) * cal.launch_us
-                   + (ops - CALL_OPS) * cal.op_us)
-    else:
-        host_us = ops * cal.op_us
+def _cost(device_s: float, launches: int, ops: int, cal: Calibration,
+          rows: int, copied_cols: int) -> CostBreakdown:
+    """A path's cost as one graph replay: the card runs the kernels
+    (``device_s``) and the ops; the host issues one graphed call, the
+    calibrated call of the shortest path (CALL_NODES nodes) and its nodes
+    past those. Around the replay the card also copies the rows into the
+    graph's static input where the engine gathers no columns
+    (``copied_cols`` f32 a row; where it gathers, the gather writes them
+    there, as an eager call's writes them) and clones the result out: a
+    read and a write of each, an op each."""
+    nodes = launches + ops
+    host_us = cal.call_us + max(0, nodes - CALL_NODES) * cal.node_us
+    copied = 8 * rows * (copied_cols + 1)
+    ops += 1 + bool(copied_cols)
     return CostBreakdown(
-        device_s=device_s,
+        device_s=(device_s + ops * cal.op_device_us * 1e-6
+                  + copied / (cal.hbm_gbps * 1e9)),
         host_s=host_us * 1e-6,
         latency_s=cal.latency_us * 1e-6,
-        launches=launches + ops,
+        launches=nodes,
     )
 
 
@@ -299,6 +329,11 @@ def predict_cost(strategy: Strategy, forest: ForestSpec, rows: int,
         return None
     T, D = forest.num_trees, forest.depth
     out_ops = _transform_ops(forest)
+    # the rows a graphed call copies into its static input where its engine
+    # gathers no columns (rank engines gather where banding or compaction
+    # changes the columns)
+    C = forest.num_cols
+    rank_copied = 0 if rank_virtual_cols(forest) != C else C
     miss_ops = 2 * _finite_missing(forest)
 
     if strategy in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST):
@@ -307,14 +342,15 @@ def predict_cost(strategy: Strategy, forest: ForestSpec, rows: int,
         device = _fold_kernel_s(form, width, D, T, rows, cal, limits,
                                 strategy == Strategy.VMEM_FOREST)
         ops = _canon_ops(forest, col_index is not None, form == "dual") + out_ops
-        return _cost(device, 1, ops, cal)
+        return _cost(device, 1, ops, cal, rows,
+                     0 if col_index is not None else forest.num_cols)
 
     if strategy == Strategy.RANK_MXU:
         vcols = rank_virtual_cols(forest)
         device = (_rank_a_s(vcols, rows, cal)
                   + _rank_b_s(rank_groups(vcols), D, T, rows, cal, limits))
         ops = _canon_ops(forest, vcols != forest.num_cols) + out_ops
-        return _cost(device, 2, ops, cal)
+        return _cost(device, 2, ops, cal, rows, rank_copied)
 
     if strategy == Strategy.DEPTH_BUCKETED:
         depths = reachable_depths(forest)
@@ -328,14 +364,14 @@ def predict_cost(strategy: Strategy, forest: ForestSpec, rows: int,
             device = _rank_a_s(vcols, rows, cal) + sum(
                 _rank_b_s(G, d, n, rows, cal, limits) for n, d in buckets)
             ops = _canon_ops(forest, vcols != forest.num_cols) + adds + out_ops
-            return _cost(device, 1 + len(buckets), ops, cal)
+            return _cost(device, 1 + len(buckets), ops, cal, rows, rank_copied)
         dual = forest.num_cols <= MAX_DUAL_COLS
         form = "dual" if dual else "nonge"
         width = row_width(form, forest.num_cols)
         device = sum(_fold_kernel_s(form, width, d, n, rows, cal, limits)
                      for n, d in buckets)
         ops = _canon_ops(forest, False, dual) + adds + out_ops
-        return _cost(device, len(buckets), ops, cal)
+        return _cost(device, len(buckets), ops, cal, rows, C)
 
     if strategy == Strategy.SPARSE:
         if SparseRankEngine.feasible(forest) is None:
@@ -351,20 +387,20 @@ def predict_cost(strategy: Strategy, forest: ForestSpec, rows: int,
                 cal.sparse_floor_us, rows, path, *sparse_geometry(G, limits),
                 limits)
             ops = _canon_ops(forest, vcols != forest.num_cols) + out_ops
-            return _cost(device, 2, ops, cal)
+            return _cost(device, 2, ops, cal, rows, rank_copied)
         depth = int(reachable_depths(forest).max(initial=0))
         chunks = _chunks(rows, GATHER_ROW_BYTES * T)
         device = rows * T * depth * cal.gather_step_ns * 1e-9
         ops = chunks * ((SPARSE_GATHER_LEVEL_OPS + miss_ops) * depth
                         + SPARSE_GATHER_CHUNK_OPS) + 1 + out_ops
-        return _cost(device, 0, ops, cal)
+        return _cost(device, 0, ops, cal, rows, C)
 
     if strategy == Strategy.HBM_DIRECT:
         chunks = _chunks(rows, GATHER_ROW_BYTES * T)
         device = rows * T * D * cal.gather_step_ns * 1e-9
         ops = chunks * ((GATHER_LEVEL_OPS + miss_ops) * D
                         + GATHER_CHUNK_OPS) + 1 + out_ops
-        return _cost(device, 0, ops, cal)
+        return _cost(device, 0, ops, cal, rows, C)
 
     # ROW_TILED, TENSOR: TensorEngine, take or one-hot
     mode = "take" if strategy == Strategy.ROW_TILED else "onehot"
@@ -373,7 +409,7 @@ def predict_cost(strategy: Strategy, forest: ForestSpec, rows: int,
     device = rows * (T << D) * node_ns * 1e-9
     ops = chunks * (SELECT_LEVEL_OPS[mode] * D + SELECT_CHUNK_OPS[mode]
                     + miss_ops) + 1 + out_ops
-    return _cost(device, 0, ops, cal)
+    return _cost(device, 0, ops, cal, rows, C)
 
 
 def choose_strategy(forest: ForestSpec, rows: int,

@@ -11,10 +11,12 @@ each strategy's engine is built once through ``Forest``. Every round takes
 the engines in turn and gives, per strategy:
 
 - ``event_ms``: the enumeration's own reading (engine/autotune.py): the
-  median of a round of event pairs around each predict, as many calls as
-  fill ``autotune.ROUND_S``, the host's issue time included;
+  median of a round of event pairs around each predict (a replay of its
+  CUDA graph, ops/graphed.py), as many calls as fill ``autotune.ROUND_S``,
+  the host's issue time included;
 - ``device_ms``: the same predict by device time (``cuda_device_ms``, 20
-  calls in a CUDA graph): no host issue time;
+  calls in a CUDA graph, into which the graphed predict records its
+  kernels inline): no host issue time;
 - ``kernel_device_ms``: the engine's kernel alone on canonicalized rows.
 
 Beside them each engine's launch (kernel, rows a block, trees a tile,
@@ -22,8 +24,9 @@ shared bytes), whether kernel C batches its block loads (one block an SM),
 and the registers a thread of that kernel instance. VMEM_FOREST and
 SPLIT_FOREST run one kernel on one table where the forest fits one tile
 (gisette, stumps, ijcnn): there the two device times say whether a gap
-between their event times is the card's or the host's. Prints one JSON
-line a family; exits 2 without a card.
+between their event times is the card's or the host's. Each engine is
+warmed up (its graph captured) before the rounds, so no capture falls in
+a timed call. Prints one JSON line a family; exits 2 without a card.
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
 """Probe: one facade path's time against its kernel's, and the host's part.
 
     python -m tahoe_tpu_torch.scripts.path_time [--reps 5] [--tag NAME]
-        [--path svhn deep15 deep15_sign mixed90_deep]
+        [--path svhn cup98 deep15 deep15_sign mixed90_deep]
 
 Each path runs on 65,536 rows already on the card, as chip_smoke.py drives
 it (``PATHS``): svhn-class (200 trees, depth 6, 100 features;
 scripts/run_sweep.py ``svhn_like``) through ``Forest.predict(rows,
 Strategy.SPLIT_FOREST)``, phase 6's shortest kernel path (kernel C's sign
-form, ~0.1 ms; the default); deep15-class in the dual and the sign form
+form, ~0.1 ms; the default); cup98-class (150 trees, depth 8, 300 of 479
+columns used: the one path here whose rows are gathered); deep15-class in the dual and the sign form
 (phase 7, the deep kernel); the mixed-depth 90-column forest of depth 9-13
 through ``DEPTH_BUCKETED`` (phase 9, kernel C and the deep kernel's non-ge
 form, a launch a bucket). For each path, each of ``--reps`` rounds gives:
@@ -22,6 +23,9 @@ form, a launch a bucket). For each path, each of ``--reps`` rounds gives:
   (synchronized before the call, not after it);
 - ``stream_ms``: wall time per predict of 200 issued back to back and one
   synchronize: the larger of host and device time per call;
+- ``device_ms``: the predict by device time (``cuda_device_ms``);
+- ``launch_us``: ``wrapper_launch_us``, a kernel launch through its ctypes
+  wrapper (no model term reads it since one dispatch a predict);
 - ``kernel_a_ms``: kernel A at SUSY-class shapes, median of 20 (phase 3's
   check).
 
@@ -43,15 +47,19 @@ import time
 ROWS = 65536
 ITERS = 20
 STREAM_CALLS = 200
+LAUNCHES = 200
 PROFILED_CALLS = 10
 # name -> (synthetic generator, (trees, depth, columns), forest seed, data
-# seed, strategy), as chip_smoke.py phases 6, 7 and 9 build them
+# seed, strategy, the generator's keywords), as chip_smoke.py phases 6, 7
+# and 9 build them
 PATHS = {
-    "svhn": ("generate_forest", (200, 6, 100), 1, 10, "SPLIT_FOREST"),
-    "deep15": ("generate_forest", (30, 15, 16), 1, 5, "SPLIT_FOREST"),
-    "deep15_sign": ("generate_forest", (30, 15, 100), 1, 14, "SPLIT_FOREST"),
+    "svhn": ("generate_forest", (200, 6, 100), 1, 10, "SPLIT_FOREST", {}),
+    "cup98": ("generate_forest", (150, 8, 479), 1, 4, "SPLIT_FOREST",
+              {"active_cols": 300}),
+    "deep15": ("generate_forest", (30, 15, 16), 1, 5, "SPLIT_FOREST", {}),
+    "deep15_sign": ("generate_forest", (30, 15, 100), 1, 14, "SPLIT_FOREST", {}),
     "mixed90_deep": ("generate_mixed_depth_forest", (60, 13, 90), 2, 13,
-                     "DEPTH_BUCKETED"),
+                     "DEPTH_BUCKETED", {}),
 }
 
 
@@ -86,6 +94,37 @@ def profile_kernels(fn, calls: int) -> dict:
     return {n: [c / calls, us / calls] for n, (c, us) in kernels.items()}
 
 
+def wrapper_launch_us(device) -> float:
+    """µs a launch of LAUNCHES eager launches of kernel C through its ctypes
+    wrapper (``CudaKernel.launch``) take, back to back on a one-tree forest's
+    32 rows, between two events: the card runs them faster than the host
+    issues them. The kernel's launch count is as it was before."""
+    from tahoe_tpu_torch import GpuLimits
+    from tahoe_tpu_torch.forest import synthetic
+    from tahoe_tpu_torch.ops.fold_kernel import (
+        FOLD_KERNELS, fold_c_table, fold_launch, fold_margins_cuda, fold_tables)
+    from tahoe_tpu_torch.ops.rows import canonicalize_rows
+    from tahoe_tpu_torch.utils.profiling import cuda_median_ms
+
+    tiny = synthetic.generate_forest(1, 1, 2, seed=5)
+    tt = fold_tables(tiny, device=device)
+    tx = canonicalize_rows(synthetic.generate_data(32, 2, seed=6), tiny.missing,
+                           device=device, col_index=tt.col_index,
+                           dual=tt.form == "dual")
+    tl = fold_launch(tt.width, tt.depth, 1, GpuLimits.for_device(device))
+    tc = fold_c_table(tt)
+    kernel = FOLD_KERNELS[tt.form]
+    count = kernel.launches
+
+    def launches():
+        for _ in range(LAUNCHES):
+            fold_margins_cuda(tx, tt, tc, tl)
+
+    us = cuda_median_ms(launches, warmup=1, iters=5) * 1e3 / LAUNCHES
+    kernel.launches = count
+    return us
+
+
 def run(device, reps: int = 5, path: str = "svhn") -> dict:
     import torch
 
@@ -99,9 +138,10 @@ def run(device, reps: int = 5, path: str = "svhn") -> dict:
     from tahoe_tpu_torch.utils.profiling import cuda_device_ms, cuda_median_ms
 
     _build.build()
-    gen, shape, forest_seed, data_seed, strategy_name = PATHS[path]
+    gen, shape, forest_seed, data_seed, strategy_name, kw = PATHS[path]
     strategy = Strategy[strategy_name]
-    f = Forest(getattr(synthetic, gen)(*shape, seed=forest_seed), device=device)
+    f = Forest(getattr(synthetic, gen)(*shape, seed=forest_seed, **kw),
+               device=device)
     rows = torch.as_tensor(synthetic.generate_data(
         ROWS, shape[2], missing_prob=0.02, seed=data_seed), device=device)
     eng = f.engine(strategy)
@@ -142,6 +182,8 @@ def run(device, reps: int = 5, path: str = "svhn") -> dict:
                                  for e in subs],
             "host_ms": statistics.median(host_ms() for _ in range(ITERS)),
             "stream_ms": stream_ms(),
+            "device_ms": cuda_device_ms(predict),
+            "launch_us": wrapper_launch_us(device),
             "kernel_a_ms": cuda_median_ms(
                 lambda: rank_planes_cuda(sx, rt.thresholds, rt.counts), iters=ITERS),
         })

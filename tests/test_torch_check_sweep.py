@@ -38,16 +38,16 @@ def test_check_sweep_model_main_on_a_file(tmp_path):
     """main() prints a verdict a family and one JSON summary line; a miss
     that breaks the rule makes it exit 1."""
     path = tmp_path / "sweep.jsonl"
-    lines = [json.dumps(RECORDS[n]) for n in ("susy_like", "stumps_like")]
+    lines = [json.dumps(RECORDS[n]) for n in ("susy_like", "ijcnn_like")]
     path.write_text("\n".join(lines) + "\n")
     out = _io.StringIO()
     with redirect_stdout(out):
         rc = check_sweep_model.main([str(path)])
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
     assert summary["families"] == 2 and summary["hits"] == 1
-    assert rc == 1  # stumps: the pair on one launch (PERF.md, fault 2)
+    assert rc == 1  # ijcnn: the sweep's one rule miss (ROADMAP.md, fault 5)
     with redirect_stdout(_io.StringIO()):
-        assert check_sweep_model.main([str(path), "--skip", "stumps_like"]) == 0
+        assert check_sweep_model.main([str(path), "--skip", "ijcnn_like"]) == 0
 
 
 def test_sweep_summary_reads_records_with_fields_missing(tmp_path):

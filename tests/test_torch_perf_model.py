@@ -132,7 +132,10 @@ def test_kernel_c_batched_and_tiled_as_measured():
 
 
 def test_more_launches_raise_the_host_term():
+    """A call is one graph replay: each node (a launch or an op) adds to the
+    host's issue of it, and each op also to the card's time."""
     cal = Calibration.default()
+    assert cal.node_us > 0 and cal.op_device_us > 0
     mix = family_spec(shape_by_name("trained_mix_like"))
     rank = model.predict_cost(Strategy.RANK_MXU, mix, ROWS, cal)
     bucketed = model.predict_cost(Strategy.DEPTH_BUCKETED, mix, ROWS, cal)
@@ -140,10 +143,11 @@ def test_more_launches_raise_the_host_term():
     assert bucketed.launches > rank.launches
     assert bucketed.host_s > rank.host_s
     susy = synthetic.susy_class_forest(seed=0)
-    # the tensor engine issues a depth-long chain a row chunk
+    # the tensor engine holds a depth-long chain a row chunk
     one, many = (model.predict_cost(Strategy.TENSOR, susy, r, cal)
                  for r in (64, ROWS))
-    assert many.launches > 100 * one.launches and many.host_s > 100 * one.host_s
+    assert many.launches > 100 * one.launches and many.host_s > one.host_s
+    assert many.device_s > 100 * one.device_s
     # a finite sentinel and an output transform cost ops of their own
     edge = dataclasses.replace(
         susy, missing=-999.0,
@@ -154,6 +158,58 @@ def test_more_launches_raise_the_host_term():
     # host time, not device time, decides a host-bound call
     c = model.predict_cost(Strategy.ROW_TILED, susy, ROWS, cal)
     assert c.total == pytest.approx(max(c.device_s, c.host_s) + c.latency_s)
+
+
+def test_a_call_is_priced_as_one_graph_replay():
+    """The host issues one graphed call: the calibrated call of the
+    shortest kernel path (its CALL_NODES nodes), and each node past them."""
+    cal = Calibration.default()
+    susy = synthetic.susy_class_forest(seed=0)
+    split = model.predict_cost(Strategy.SPLIT_FOREST, susy, ROWS, cal)
+    assert split.launches == model.CALL_NODES  # dual rows: two ops, kernel C
+    assert split.host_s == pytest.approx(cal.call_us * 1e-6)
+    for s in Strategy:
+        c = model.predict_cost(s, susy, ROWS, cal)
+        if c is not None:
+            assert c.host_s == pytest.approx(
+                (cal.call_us + max(0, c.launches - model.CALL_NODES) * cal.node_us)
+                * 1e-6), s
+
+
+# VMEM_FOREST against SPLIT_FOREST at the sweep's rows, by device time
+# (scripts/pair_time.py, 7 interleaved rounds, H100 80GB HBM3, 700.00 W,
+# PERF.md section 5): mnist 0.02059 against 0.02364 ms, cifar 0.02158
+# against 0.03571; the event pairs of the sweep's eager calls had read the
+# pair the other way round (fault 4)
+SWEEP_PAIRS = [("mnist_like", 2000), ("cifar_like", 3000)]
+
+
+@pytest.mark.parametrize("name,rows", SWEEP_PAIRS)
+def test_vmem_forest_at_the_sweep_rows_as_measured(name, rows):
+    """mnist's pick, pinned: at these rows one block an SM binds, and
+    VMEM_FOREST's 64-row blocks (two warps) step their chains faster than
+    SPLIT_FOREST's blocks of 128 or 256 rows (fold_c_warp_ns), which also
+    wait on 22- or 45-tree tiles."""
+    spec = family_spec(shape_by_name(name))
+    cal = Calibration.default()
+    best, costs = model.choose_strategy(spec, rows, cal)
+    assert best == Strategy.VMEM_FOREST, {
+        s.name: (c.total if c else None) for s, c in costs.items()}
+    assert (costs[Strategy.VMEM_FOREST].device_s
+            < 0.95 * costs[Strategy.SPLIT_FOREST].device_s)
+
+
+def test_wide_rows_cost_a_block_its_staging():
+    """Kernel C's least time pays for the rows a block stages: where one
+    block an SM binds, staging adds to a wave as it is."""
+    cal = Calibration.default()
+    assert cal.fold_c_stage_ns > 0
+    limits = GpuLimits()
+    base, staged = (model._descent_s(
+        cal.fold_c_ns, cal.fold_c_row_ns, cal.fold_c_batch_floor_ns,
+        cal.fold_c_batch_floor_us, limits.sm_count * 64, 600, 64, 1, limits,
+        stage_us=us) for us in (0.0, 3.0))
+    assert staged - base == pytest.approx(3e-6)
 
 
 def test_measure_needs_a_card():
