@@ -1,6 +1,7 @@
 // Deep kernel: f32 fold of the forests that kernel C's shared-memory tiles
-// serve badly (depth 12-15, whose trees a tile restages too often or cannot
-// hold), in the dual, sign and non-ge forms, one entry point each.
+// serve badly (from depth 12, whose trees a tile restages too often, and
+// every forest past depth 14, one of whose trees no block holds), in the
+// dual, sign and non-ge forms, one entry point each.
 //
 // Replaces the Pallas kernel tahoe_tpu/ops/fold_kernel.py _make_split_kernel
 // (:688, launched from fold_margins' split branch :829-865). It computes the
@@ -14,8 +15,15 @@
 // for VMEM and Mosaic compile time; none is carried over.
 //
 // One depth-15 tree's tables are 393 KB, more than a block's 227 KB, so the
-// nodes cannot be staged; a descent visits only D nodes per (row, tree), and
-// the forest stays in the 50 MB L2. What bounds it on the H100 is its node
+// nodes cannot be staged; a descent visits only D nodes per (row, tree).
+// Depth costs table bytes, not work, so a forest is bounded by its bytes
+// only (ops/fold_kernel.py fold_table_bytes, 2 GiB). deep15-class (9 MB of
+// blocks and leaves) stays in the 50 MB L2; rf_deep16- and rf_deep18-class
+// hold 0.14 and 0.9 GB of tables, past it, though the descents of trained
+// trees read few of their lower blocks (8 MB of sectors at rf_deep18-class
+// and 65,536 rows, PERF.md). Every index
+// past a tree's offset fits an int to D = 30: a block's is below 2^D / 1.5
+// and a leaf's below 2^D. What bounds it on the H100 is its node
 // loads: rows of a warp sit on different nodes below the top levels, so each
 // warp-wide load of a level costs the L1 one request per thread, and where
 // wide rows leave few threads an SM (cup98-class: 192 rows), the chain's

@@ -2,10 +2,13 @@
 
 The counterpart of tahoe_tpu/engine/feasibility.py for all eight
 strategies: where the TPU engines check VMEM budgets and compile walls, the
-CUDA kernels check feature caps, the dense depth cap and shared memory per
-block (GpuLimits). The plain torch engines and SPARSE keep the JAX limits
-(feasibility.py:128-146): 2 GiB of device tables, priced at the port's bytes
-per node, and depth <= 14 for the leveled form.
+CUDA kernels check feature caps and shared memory per block (GpuLimits).
+Every strategy's device tables keep the JAX package's 2 GiB cap
+(feasibility.py:128-146), priced at the port's own bytes at the forest's
+stored depth: the fold strategies' at the deep kernel's route
+(fold_kernel.fold_table_bytes), which takes every depth past 14, so that
+SPLIT_FOREST and DEPTH_BUCKETED reach as deep as the JAX package runs them.
+The leveled form stops at depth 14, as there.
 """
 from __future__ import annotations
 
@@ -21,20 +24,21 @@ from tahoe_tpu_torch.forest.compiler import (
     reachable_mask,
 )
 from tahoe_tpu_torch.forest.spec import ForestSpec
+# rank_buckets_fit is DEPTH_BUCKETED's choice of variant, read here too
+from tahoe_tpu_torch.ops.bucketed import plan_buckets, rank_buckets_fit
 from tahoe_tpu_torch.ops.fold_kernel import (
-    MAX_DENSE_DEPTH,
     MAX_NONGE_COLS,
     MAX_SIGN_COLS,
+    TABLE_CAP_BYTES,
     fold_leveled,
     fold_plan,
+    fold_table_bytes,
     row_width,
 )
 from tahoe_tpu_torch.ops.gather_engine import NODE_BYTES
 from tahoe_tpu_torch.ops.rank_kernel import rank_virtual_cols
 from tahoe_tpu_torch.ops.sparse_kernel import RECORD_BYTES
 
-# the JAX package's caps on device tables (feasibility.py:138, :145)
-TABLE_CAP_BYTES = 2 << 30
 # the leveled form stores 2^depth leaves per tree (feasibility.py:130)
 MAX_LEVELED_DEPTH = 14
 
@@ -45,22 +49,6 @@ def fold_cols(forest: ForestSpec) -> Tuple[int, str]:
     package): "dual" up to 64 live features, "sign" above."""
     lev, _, form = fold_leveled(forest)
     return lev.num_cols, form
-
-
-def rank_buckets_fit(forest: ForestSpec) -> bool:
-    """Whether DEPTH_BUCKETED takes its rank variant: one or two plane
-    groups (bucketed.py:292-295 of the JAX package)."""
-    if forest.num_cols > RANK_MAX_COLS:
-        return False
-    vcols = rank_virtual_cols(forest)
-    return vcols <= RANK_MAX_COLS and rank_groups(vcols) <= 2
-
-
-def _depth_reason(depth: int) -> Optional[str]:
-    if depth > MAX_DENSE_DEPTH:
-        return (f"dense fold tables stop at depth {MAX_DENSE_DEPTH}, forest "
-                f"has depth {depth} (SPARSE serves it)")
-    return None
 
 
 def _table_reason(what: str, nbytes: int) -> Optional[str]:
@@ -75,15 +63,21 @@ def _rank_reason(forest: ForestSpec) -> Optional[str]:
     if vcols > RANK_MAX_COLS:
         return (f"forest needs {vcols} banded virtual live features "
                 f"> {RANK_MAX_COLS}")
-    nodes = (1 << forest.depth) - 1
     return _table_reason(
         f"dense rank tables (depth {forest.depth})",
-        forest.num_trees * (nodes * 128 * rank_groups(vcols) + 4 * (nodes + 1)))
+        _rank_table_bytes(forest.num_trees, forest.depth, rank_groups(vcols)))
+
+
+def _rank_table_bytes(trees: int, depth: int, groups: int) -> int:
+    nodes = (1 << depth) - 1
+    return trees * (nodes * 128 * groups + 4 * (nodes + 1))
 
 
 def _fold_reason(strategy: Strategy, forest: ForestSpec,
                  limits: GpuLimits) -> Optional[str]:
-    reason = _depth_reason(forest.depth)
+    T, D = forest.num_trees, forest.depth
+    reason = _table_reason(f"dense fold tables ({T} trees of depth {D})",
+                           fold_table_bytes(T, D))
     if reason:
         return reason
     cols, form = fold_cols(forest)
@@ -102,20 +96,27 @@ def _fold_reason(strategy: Strategy, forest: ForestSpec,
 
 
 def _bucketed_reason(forest: ForestSpec) -> Optional[str]:
-    reason = _depth_reason(forest.depth)
-    if reason:
-        return reason
     depths = reachable_depths(forest)
     if np.unique(depths).size < 2:
         return "uniform tree depth — identical work to SPLIT_FOREST"
+    # each bucket's tables at its own depth (ops/bucketed.py), the variant
+    # chosen as the JAX package chooses it
+    buckets = [(idx.size, int(depths[idx].max())) for idx in plan_buckets(depths)]
+    buckets = [(n, d) for n, d in buckets if d > 0]
     if rank_buckets_fit(forest):
-        return None
+        groups = rank_groups(rank_virtual_cols(forest))
+        return _table_reason(
+            f"the buckets' dense rank tables (depths {[d for _, d in buckets]})",
+            sum(_rank_table_bytes(n, d, groups) for n, d in buckets))
     if forest.num_cols > MAX_NONGE_COLS:
         return (f"rank variant needs <= 2 plane groups and the fold variant "
                 f"<= {MAX_NONGE_COLS} columns; forest has {forest.num_cols}")
-    # the fold variant: the deep kernel takes every bucket's depth (<= 15) in
-    # the non-ge form too, so fold_plan always has a kernel
-    return None
+    # the fold variant: the deep kernel takes every bucket too deep for a
+    # tile of kernel C, in the non-ge form too, so fold_plan always has a
+    # kernel
+    return _table_reason(
+        f"the buckets' dense fold tables (depths {[d for _, d in buckets]})",
+        sum(fold_table_bytes(n, d) for n, d in buckets))
 
 
 def check(strategy: Strategy, forest: ForestSpec,

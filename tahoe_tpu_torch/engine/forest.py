@@ -3,7 +3,8 @@
 The counterpart of tahoe_tpu/engine/forest.py, serving all eight strategies:
 
   SPLIT_FOREST   -> FoldKernelEngine (f32 fold: kernel C in the dual or sign
-                    form, or the deep kernel at depth 12-15)
+                    form, or the deep kernel from depth 12, every depth
+                    past 14; its tables capped at 2 GiB)
   VMEM_FOREST    -> FoldKernelEngine(whole_forest=True) (kernel C, the whole
                     forest in one shared-memory tile)
   DEPTH_BUCKETED -> make_depth_bucketed_engine (kernels A + B per bucket, or

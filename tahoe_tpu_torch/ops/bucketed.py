@@ -28,17 +28,25 @@ import numpy as np
 import torch
 
 from tahoe_tpu_torch.config import resolve_device
-from tahoe_tpu_torch.forest.compiler import reachable_depths, truncate_depth
+from tahoe_tpu_torch.forest.compiler import (
+    RANK_MAX_COLS,
+    rank_groups,
+    reachable_depths,
+    truncate_depth,
+)
 from tahoe_tpu_torch.forest.quantize import band_split, quantize
 from tahoe_tpu_torch.forest.spec import ForestSpec
-from tahoe_tpu_torch.engine import feasibility
 from tahoe_tpu_torch.ops.fold_kernel import (
     MAX_DUAL_COLS,
     MAX_NONGE_COLS,
     FoldKernelEngine,
 )
 from tahoe_tpu_torch.ops.graphed import GraphedEngine
-from tahoe_tpu_torch.ops.rank_kernel import RankFoldEngine, rank_margins
+from tahoe_tpu_torch.ops.rank_kernel import (
+    RankFoldEngine,
+    rank_margins,
+    rank_virtual_cols,
+)
 from tahoe_tpu_torch.ops.rows import stage_rows
 
 
@@ -201,6 +209,15 @@ class DepthBucketedRankEngine(_Bucketed):
                                            for e in self.sub))
 
 
+def rank_buckets_fit(forest: ForestSpec) -> bool:
+    """Whether DEPTH_BUCKETED takes its rank variant: one or two plane
+    groups (bucketed.py:292-295 of the JAX package)."""
+    if forest.num_cols > RANK_MAX_COLS:
+        return False
+    vcols = rank_virtual_cols(forest)
+    return vcols <= RANK_MAX_COLS and rank_groups(vcols) <= 2
+
+
 def make_depth_bucketed_engine(spec: ForestSpec, *, device):
     """DEPTH_BUCKETED's chooser (bucketed.py:282-307): the rank variant when
     the forest takes one or two plane groups, else the fold variant.
@@ -208,7 +225,7 @@ def make_depth_bucketed_engine(spec: ForestSpec, *, device):
     It stops at the first variant whose tables can be built for the forest:
     a constructor compiles tables and launches no kernel, so the only errors
     passed over are the rank variant's refusals of the forest."""
-    if feasibility.rank_buckets_fit(spec):
+    if rank_buckets_fit(spec):
         try:
             return DepthBucketedRankEngine(spec, device=device)
         except (ValueError, NotImplementedError):

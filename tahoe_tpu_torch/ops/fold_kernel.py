@@ -58,8 +58,10 @@ MAX_DUAL_COLS = 64
 MAX_SIGN_COLS = 512
 # the JAX non-ge kernel gathers from one 128-lane feature vreg
 MAX_NONGE_COLS = 128
-# deeper forests are the SPARSE strategy's (ops/sparse_kernel.py)
-MAX_DENSE_DEPTH = 15
+# the JAX package's cap on a strategy's device tables (feasibility.py:138,
+# :145): engine/feasibility.py holds every strategy's tables to it, and
+# fold_tables refuses a forest whose fold tables pass it
+TABLE_CAP_BYTES = 2 << 30
 # bits of one node code in a block (csrc/common.cuh kCodeBits): the sign
 # form's codes lie in [-512, 511], the dual form's in [0, 128), the non-ge
 # form's in [0, 512) (BLOCK_NONGE_*)
@@ -165,16 +167,19 @@ def fold_leveled(spec: ForestSpec, ge_mode: bool = True
 
 def fold_tables(spec: ForestSpec, *, device: torch.device,
                 ge_mode: bool = True) -> FoldTables:
-    """Compile ``spec`` for the fold (fold_kernel.py:138-165, :383-438)."""
+    """Compile ``spec`` for the fold (fold_kernel.py:138-165, :383-438).
+    Refuses, before compiling, a forest whose tables at its stored depth
+    pass TABLE_CAP_BYTES (``fold_table_bytes``)."""
+    nbytes = fold_table_bytes(spec.num_trees, spec.depth)
+    if nbytes > TABLE_CAP_BYTES:
+        raise NotImplementedError(
+            f"dense fold tables of {spec.num_trees} trees of depth {spec.depth} "
+            f"take ~{nbytes / 2**30:.1f} GiB > {TABLE_CAP_BYTES / 2**30:.0f} GiB")
     lev, col_index, form = fold_leveled(spec, ge_mode)
     cap = MAX_NONGE_COLS if form == "nonge" else MAX_SIGN_COLS
     if lev.num_cols > cap:
         raise NotImplementedError(
             f"{form} fold supports <= {cap} live features; got {lev.num_cols}")
-    if lev.depth > MAX_DENSE_DEPTH:
-        raise NotImplementedError(
-            f"dense fold supports depth <= {MAX_DENSE_DEPTH}; got {lev.depth} "
-            f"(deeper forests are SPARSE's: ops/sparse_kernel.py)")
     if form == "nonge":
         thr_l = lev.thresh
         code_l = [f.astype(np.int32)
@@ -283,6 +288,17 @@ def tree_bytes(depth: int) -> int:
     return 16 * deep_block_count(depth) + 4 * leaf_slots(depth)
 
 
+def fold_table_bytes(num_trees: int, depth: int) -> int:
+    """Device bytes of a forest's fold tables on the deep kernel's route,
+    which every forest past depth 14 takes: the thresholds, codes and leaves
+    of ``FoldTables`` and the ``deep_blocks``, about 17.3 x 2^depth a tree.
+    (Kernel C's route holds ``fold_c_table`` in place of the blocks, 4 x
+    2^depth more a tree, at depths whose tables are a few MB.)"""
+    nodes = (1 << depth) - 1
+    return num_trees * (8 * nodes + 4 * (1 << depth)
+                        + 16 * deep_block_count(depth))
+
+
 def fold_plan(form: str, width: int, depth: int, num_trees: int,
               limits: GpuLimits, *, whole_forest: bool = False
               ) -> FoldLaunch | DeepLaunch | None:
@@ -294,7 +310,9 @@ def fold_plan(form: str, width: int, depth: int, num_trees: int,
       block restages at most C_MAX_STAGED_PER_VISIT bytes of tables per
       node visit, or while the deep kernel's rows do not fit 256 a block
       (wide rows, which leave it few threads an SM); else the deep kernel.
-      PERF.md section 6 has the shapes and times the rule was fit to.
+      PERF.md section 6 has the shapes and times the rule was fit to. Past
+      depth 14 no block of kernel C holds one tree (``tree_bytes(15)`` is
+      306 KB), so every deeper forest takes the deep kernel.
     None when nothing fits."""
     T = max(num_trees, 1)
     if whole_forest:

@@ -16,7 +16,10 @@ is reduced to per-element costs that the model scales to a forest's shape:
   it waits on, µs a tile (the same forest in tiles of two sizes), for
   each word of its row a thread stages (the same tables on rows of two
   widths), and how a step's floor changes with the warps of a block
-  (blocks of 256 and of 64 rows);
+  (blocks of 256 and of 64 rows). The deep kernel also on a forest whose
+  lower levels pass the L2 (random tables of depth 18): ns per load past
+  the L2 (model.deep_misses) a row, and in a thread's chain, over what
+  its depth-12 terms price;
 - kernel A, per (row, virtual feature), and its least time a launch;
 - the plain torch engines by device time: ns per gather step (HBM_DIRECT)
   and per (row, node) of the select-fold (ROW_TILED's take, TENSOR's
@@ -60,9 +63,13 @@ CAL_WAVES = 2
 # block's rows
 C_TILE = 16
 CAL_BLOCK_ROWS = 256
-# the deep kernel's calibration forests: its own depth range (12-15)
+# the deep kernel's calibration forests, whose tables sit in the L2
 DEEP_DEPTH = 12
 DEEP_TREES = (8, 64)
+# ... and random tables of depth 18 whose lower levels do not (96 trees,
+# 436 MB; rf_deep18-class holds 0.9 GB)
+DEEP_FAR_DEPTH = 18
+DEEP_FAR_TREES = 96
 COPY_BYTES = 256 << 20
 HOST_CALLS = 200
 # graph nodes of the long graph that times a node's host issue
@@ -98,11 +105,16 @@ class Calibration:
     # floors above are taken at CAL_BLOCK_ROWS)
     fold_c_stage_ns: float
     fold_c_warp_ns: float
-    # the deep kernel (csrc/fold_deep.cu), the same but tiles
+    # the deep kernel (csrc/fold_deep.cu), the same but tiles; and per load
+    # of a (row, tree) descent past the L2 (model.deep_misses), over those
+    # terms: a row's ns, and ns in a thread's chain where one block an SM
+    # runs
     fold_deep_ns: float
     fold_deep_row_ns: float
     fold_deep_floor_ns: float
     fold_deep_floor_us: float
+    fold_deep_miss_ns: float
+    fold_deep_miss_floor_ns: float
     # kernel B (csrc/rank_fold.cu): per (row, tree, level) at one plane group
     # (int16 pair staging) and past it (byte staging); per (row, group)
     # staged; least time per (tree, level) and a launch
@@ -144,38 +156,40 @@ class Calibration:
         # "calibration" line; python -m tahoe_tpu_torch.perf_model.calibrate
         # prints one)
         return Calibration(
-            fold_c_ns=0.0007687258752593274,
-            fold_c_row_ns=0.048637036355091395,
-            fold_c_floor_ns=29.631918213064118,
-            fold_c_floor_us=1.8882117906496632,
-            fold_c_tile_us=0.30140019953250885,
-            fold_c_batch_floor_ns=26.541738770902157,
-            fold_c_batch_floor_us=1.780098331471284,
-            fold_c_stage_ns=22.368001441160843,
-            fold_c_warp_ns=2.1808035810300637,
-            fold_deep_ns=0.0013980273791342908,
-            fold_deep_row_ns=0.04528274808030627,
-            fold_deep_floor_ns=61.43095614832072,
-            fold_deep_floor_us=4.64182836668832,
-            rank_fold_ns=0.0008461604206792995,
-            rank_fold_bytes_ns=0.0011666594306626481,
-            rank_fold_row_ns=0.2351821827585305,
-            rank_fold_floor_ns=57.408035666282686,
-            rank_fold_floor_us=18.78194298063006,
-            sparse_ns=0.001087722439354793,
-            sparse_row_ns=0.2226065949741856,
-            sparse_floor_ns=76.43392642161676,
-            sparse_floor_us=18.12091384615217,
-            rank_transform_ns=0.015296349856648276,
-            rank_transform_floor_us=12.671999633312225,
-            gather_step_ns=0.04489862419632118,
-            select_node_ns=0.015684149445860385,
-            onehot_node_ns=0.024766086899793056,
-            hbm_gbps=2952.1758597660605,
-            op_device_us=1.6786853472391765,
-            call_us=19.195530000217786,
-            node_us=0.0009270676694821551,
-            latency_us=9.284469862393507,
+            fold_c_ns=0.0007689900864230973,
+            fold_c_row_ns=0.04864043810150842,
+            fold_c_floor_ns=29.733145493082706,
+            fold_c_floor_us=1.717118673026563,
+            fold_c_tile_us=0.2993002533912652,
+            fold_c_batch_floor_ns=26.578680262900892,
+            fold_c_batch_floor_us=1.7886621281504644,
+            fold_c_stage_ns=22.410668432712555,
+            fold_c_warp_ns=2.1843747596167735,
+            fold_deep_ns=0.0013986685925850733,
+            fold_deep_row_ns=0.04525433467838155,
+            fold_deep_floor_ns=61.36904758889051,
+            fold_deep_floor_us=4.676571062632969,
+            fold_deep_miss_ns=0.007327590096362607,
+            fold_deep_miss_floor_ns=349.1563538873284,
+            rank_fold_ns=0.0008477677688283797,
+            rank_fold_bytes_ns=0.0012498362810306606,
+            rank_fold_row_ns=0.23407623720117463,
+            rank_fold_floor_ns=57.40714592060873,
+            rank_fold_floor_us=18.590169293539866,
+            sparse_ns=0.0010839258819843151,
+            sparse_row_ns=0.23415542908243608,
+            sparse_floor_ns=76.68482139706612,
+            sparse_floor_us=17.898285388946533,
+            rank_transform_ns=0.015278820706626926,
+            rank_transform_floor_us=12.628799676895142,
+            gather_step_ns=0.045039639076094325,
+            select_node_ns=0.015662836574392717,
+            onehot_node_ns=0.02477903336739473,
+            hbm_gbps=2963.9106548095288,
+            op_device_us=1.6764426231384277,
+            call_us=31.593880000002628,
+            node_us=0.0027722305764483076,
+            latency_us=10.998120216243024,
         )
 
     def summary(self) -> str:
@@ -207,8 +221,8 @@ def measure(device="cuda") -> Calibration:
     from tahoe_tpu_torch.config import GpuLimits, resolve_device
     from tahoe_tpu_torch.forest import compiler, synthetic
     from tahoe_tpu_torch.ops.fold_kernel import (
-        DEEP_KERNELS, FOLD_KERNELS, FoldKernelEngine, FoldLaunch, deep_blocks,
-        deep_launch,
+        DEEP_KERNELS, FOLD_KERNELS, FoldKernelEngine, FoldLaunch, FoldTables,
+        deep_blocks, deep_launch,
         fold_c_table, fold_deep_cuda, fold_launch, fold_margins_cuda,
         fold_smem_bytes, fold_tables)
     from tahoe_tpu_torch.ops.gather_engine import GatherEngine
@@ -221,8 +235,8 @@ def measure(device="cuda") -> Calibration:
     from tahoe_tpu_torch.ops.tensor_engine import TensorEngine
     from tahoe_tpu_torch.perf_model.model import (
         GATHER_CHUNK_OPS, GATHER_LEVEL_OPS, KERNEL_REGISTERS, SELECT_CHUNK_OPS,
-        SELECT_LEVEL_OPS, blocks_per_sm, rank_b_geometry, register_query,
-        sparse_geometry)
+        SELECT_LEVEL_OPS, blocks_per_sm, deep_misses, rank_b_geometry,
+        register_query, sparse_geometry)
     from tahoe_tpu_torch.utils.profiling import cuda_device_ms, cuda_median_ms
 
     dev = resolve_device(device)
@@ -372,14 +386,43 @@ def measure(device="cuda") -> Calibration:
               for f, t in zip(deep_forests, tabs)]
         d_launch = deep_launch(tabs[0].width, limits)
         blocks = [deep_blocks(t) for t in tabs]
+        d_per_sm = blocks_per_sm(d_launch.smem_bytes,
+                                 d_launch.rows_per_block * d_launch.lanes, limits,
+                                 KERNEL_REGISTERS[register_query(tabs[0].form,
+                                                                 d_launch, limits)])
         fold_deep = descent(lambda i, n: fold_deep_cuda(
             xs[i][:n], tabs[i], blocks[i], d_launch), d_launch.rows_per_block,
-            blocks_per_sm(d_launch.smem_bytes,
-                          d_launch.rows_per_block * d_launch.lanes, limits,
-                          KERNEL_REGISTERS[register_query(tabs[0].form, d_launch,
-                                                          limits)]),
-            [t * DEEP_DEPTH for t in DEEP_TREES])
-        del xs, blocks, tabs
+            d_per_sm, [t * DEEP_DEPTH for t in DEEP_TREES])
+        # the same kernel on random dual-form tables of DEEP_FAR_DEPTH, past
+        # the L2: its time over what the terms above price, per load past
+        # the L2, at full waves and at one block an SM
+        T_far, D_far = DEEP_FAR_TREES, DEEP_FAR_DEPTH
+        gen = torch.Generator(device=dev).manual_seed(7)
+        nodes = (1 << D_far) - 1
+        far = FoldTables(
+            form="dual", col_index=None, num_cols=CAL_COLS,
+            thresholds=torch.rand(T_far, nodes, device=dev, generator=gen) * 2 - 1,
+            fids=torch.randint(0, 2 * CAL_COLS, (T_far, nodes), device=dev,
+                               dtype=torch.int32, generator=gen),
+            leaf=torch.randn(T_far, 1 << D_far, device=dev, generator=gen),
+            depth=D_far)
+        far_blocks = deep_blocks(far)
+        chain = T_far * D_far
+
+        def far_ms(n):
+            """The far tables' launch on ``n`` rows, and its loads a row past
+            the L2."""
+            return (ms(lambda: fold_deep_cuda(xs[0][:n], far, far_blocks, d_launch)),
+                    T_far * deep_misses(T_far, D_far, n, limits.l2_bytes))
+
+        n = min(rows_d.shape[0], CAL_WAVES * d_per_sm * d_launch.rows_per_block * sms)
+        t_far, misses = far_ms(n)
+        fold_deep_miss_ns = max(0.0, (t_far * 1e6 / n - fold_deep[1]
+                                      - fold_deep[0] * chain) / misses)
+        f_far, misses = far_ms(sms * d_launch.rows_per_block)
+        fold_deep_miss_floor_ns = max(0.0, (f_far * 1e6 - fold_deep[2] * chain
+                                            - fold_deep[3] * 1e3) / misses)
+        del xs, blocks, tabs, far, far_blocks
 
         # -- kernels A and B, one plane group and two --------------------
         rts = [rank_tables(f, device=dev) for f in forests]
@@ -488,6 +531,8 @@ def measure(device="cuda") -> Calibration:
         fold_c_batch_floor_us=fold_c_batch[1],
         fold_deep_ns=fold_deep[0], fold_deep_row_ns=fold_deep[1],
         fold_deep_floor_ns=fold_deep[2], fold_deep_floor_us=fold_deep[3],
+        fold_deep_miss_ns=fold_deep_miss_ns,
+        fold_deep_miss_floor_ns=fold_deep_miss_floor_ns,
         rank_fold_ns=rank_fold[0], rank_fold_bytes_ns=rank_fold_bytes_ns,
         rank_fold_row_ns=rank_fold[1], rank_fold_floor_ns=rank_fold[2],
         rank_fold_floor_us=rank_fold[3],

@@ -8,7 +8,11 @@ engines, not the TPU's:
 
 - **descents**: kernel C, the deep kernel and kernel B descend D levels a
   (row, tree): T x D steps a row at the kernel's ns per (row, tree, level)
-  slot, plus its ns per row (staging, paid once a launch). A launch runs in
+  slot, plus its ns per row (staging, paid once a launch). The deep
+  kernel's terms are fit on tables that sit in the L2; where the sectors a
+  call reads of a forest's lower levels do not (``deep_misses``:
+  rf_deep18-class), each of those loads a (row, tree) adds its own
+  calibrated ns to the row and to a thread's chain. A launch runs in
   waves of blocks (``occupancy``), each the larger of one block's least
   time (a thread's chain of steps: where rows are too few to fill the card,
   it binds; kernel C also waits on each tile of trees, and where one block
@@ -70,6 +74,7 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     MAX_DUAL_COLS,
     DeepLaunch,
     FoldLaunch,
+    deep_groups,
     fold_leveled,
     fold_plan,
     row_width,
@@ -103,6 +108,11 @@ CALL_NODES = 3
 SM_THREADS, SM_BLOCKS = 2048, 32
 # bytes a row a chunk: the gather tiers' and TensorEngine's own sizing
 GATHER_ROW_BYTES, SELECT_ROW_BYTES = 48, 32
+# the L2's partitions (H100 SXM: two of 25 MB), each caching the reads of
+# the SMs wired to it; the deep kernel's loads past the near one's share
+# are priced on their own (``deep_misses``), fit to rf_deep16- and
+# rf_deep18-class at the sweep's rows (PERF.md section 6)
+L2_PARTITIONS = 2
 # an SM's registers, granted a warp at a time in units of REGISTER_UNIT
 SM_REGISTERS, REGISTER_UNIT = 65536, 256
 # the fold forms' index in the library's register queries (csrc/common.cuh
@@ -224,6 +234,30 @@ def _descent_s(unit: float, row: float, floor: float, floor_us: float,
                                         limits.sm_count)) * 1e-9
 
 
+def deep_misses(trees: int, depth: int, rows: int, l2_bytes: int) -> float:
+    """Loads of one (row, tree) descent of the deep kernel that the L2 does
+    not hold, where calls repeat on the same ``rows`` (as the enumeration
+    and the calibration time them): its groups of blocks, then its leaves,
+    top first. A call reads of a group at most a 32-byte sector a (row,
+    tree), and no more than the group's blocks over every tree; each
+    group's sectors are held in the share of the L2 the groups above leave
+    them, the rest read from device memory. The L2 holding a read is taken
+    as the partition near the SM that issues it, one of L2_PARTITIONS
+    (NVIDIA's A100 architecture paper: each partition caches the accesses
+    of the SMs wired to it)."""
+    l2_bytes //= L2_PARTITIONS
+    spans, d = [], 0
+    for size in deep_groups(depth):
+        spans.append(trees * min(16 << d, 32 * rows))
+        d += size
+    spans.append(trees * min(4 << depth, 32 * rows))
+    free, misses = l2_bytes, 0.0
+    for span in spans:
+        misses += 1.0 - min(span, max(free, 0)) / span
+        free -= span
+    return misses
+
+
 def _fold_kernel_s(form: str, width: int, depth: int, trees: int, rows: int,
                    cal: Calibration, limits: GpuLimits,
                    whole_forest: bool = False) -> float:
@@ -248,9 +282,15 @@ def _fold_kernel_s(form: str, width: int, depth: int, trees: int, rows: int,
         moved = rows * (width + 1) * 4 + -(-rows // rpb) * trees * tree_bytes(depth)
         return max(compute, moved / (cal.hbm_gbps * 1e9))
     threads = plan.rows_per_block * plan.lanes
-    return _descent_s(cal.fold_deep_ns, cal.fold_deep_row_ns,
-                      cal.fold_deep_floor_ns, cal.fold_deep_floor_us, rows,
-                      chain, plan.rows_per_block,
+    # the loads past the L2: each adds to a row's time and to its thread's
+    # chain (its trees' share of them)
+    misses = trees * deep_misses(trees, depth, rows, limits.l2_bytes)
+    return _descent_s(cal.fold_deep_ns,
+                      cal.fold_deep_row_ns + cal.fold_deep_miss_ns * misses,
+                      cal.fold_deep_floor_ns,
+                      cal.fold_deep_floor_us
+                      + cal.fold_deep_miss_floor_ns * misses / plan.lanes * 1e-3,
+                      rows, chain, plan.rows_per_block,
                       blocks_per_sm(plan.smem_bytes, threads, limits, regs), limits,
                       chain / plan.lanes)
 

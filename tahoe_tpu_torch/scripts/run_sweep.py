@@ -54,7 +54,8 @@ SHAPES = [
     ("trained_mix_like", 300, 12, 26, 4000, 0.01),
     # trained random forests (forest/train.py): early leaves throughout
     ("rf_trained_like", 300, 10, 24, 4000, 0.01),
-    # too deep for every dense strategy: SPARSE's regime
+    # trained and deep: SPARSE's pruned pool, or the deep kernel's dense
+    # tables past the L2
     ("rf_deep16_like", 120, 16, 20, 1500, 0.00),
     ("rf_deep18_like", 200, 18, 24, 1500, 0.00),
 ]

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from tahoe_tpu.config import ORACLE_ATOL
+from tahoe_tpu.config import Strategy as JaxStrategy
+from tahoe_tpu.engine import feasibility as jax_feasibility
 from tahoe_tpu.forest import synthetic
 from tahoe_tpu.ops import bucketed as jax_bucketed
 from tahoe_tpu.ops import oracle
@@ -197,3 +199,32 @@ def test_rank_variant_refusal_falls_to_fold():
     data = synthetic.generate_data(12, 5, seed=42)
     np.testing.assert_allclose(eng.predict(data).numpy(),
                                oracle.predict(f, data), atol=ORACLE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("cols,variant", [(62, DepthBucketedFoldEngine),
+                                          (9, DepthBucketedRankEngine)])
+def test_depth17_bucket_matches_jax(cols, variant):
+    """Eight trees that end by depth 4 and two of depth 17, in two buckets:
+    the fold variant (62 live features take three plane groups) runs the
+    depth-17 bucket on the deep kernel and the other on kernel C; the rank
+    variant runs both on kernel B. Each against the JAX engine in
+    interpret mode (the fold variant's depth-17 bucket through the JAX
+    subtree-split fold) and the oracle; the feasibility checks of both
+    packages admit the forest."""
+    f = synthetic.generate_forest(10, 17, cols, leaf_prob=0.02, seed=3)
+    f.is_leaf[:8, f.level_slice(4).start:] = True
+    data = synthetic.generate_data(24, cols, missing_prob=0.1, seed=2)
+    port = _port(f)
+    assert feasibility.check(Strategy.DEPTH_BUCKETED, port) is None
+    assert jax_feasibility.check(JaxStrategy.DEPTH_BUCKETED, f) is None
+    eng = make_depth_bucketed_engine(port, device=CPU)
+    jeng = jax_bucketed.make_depth_bucketed_engine(f, row_tile=8, interpret=True)
+    assert isinstance(eng, variant) and type(jeng).__name__ == variant.__name__
+    assert eng.bucket_plan == jeng.bucket_plan == [(8, 4), (2, 17)]
+    if variant is DepthBucketedFoldEngine:
+        assert [e.kernel for e in eng.sub] == [FOLD, FOLD_DEEP]
+        x = eng.sub[0].canonicalize(data)
+        deep = eng.sub[1]
+        assert torch.equal(deep_block_walk(x, deep.tables, deep.blocks),
+                           fold_margins_plain(x, deep.tables))
+    _check(eng.predict(data).numpy(), jeng, f, data)

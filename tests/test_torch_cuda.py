@@ -31,6 +31,7 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     FOLD_SIGN,
     FoldKernelEngine,
     FoldLaunch,
+    deep_block_walk,
     deep_blocks,
     deep_launch,
     fold_c_table,
@@ -673,6 +674,101 @@ def test_redesigned_kernels_at_row_counts(dev, rows):
             torch.cuda.synchronize()
             assert got.shape == (rows,)
             assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
+
+
+def _deep_forest(form, depth, trees=3):
+    """A forest of ``depth`` in the deep kernel's ``form``: 8 features
+    (dual), 100 of 300 live (sign), 90 (non-ge)."""
+    if form == "sign":
+        return _wide_forest(trees, depth, 300, 100, seed=depth, leaf_prob=0.02,
+                            missing=-999.0)
+    return synthetic.generate_forest(trees, depth, 8 if form == "dual" else 90,
+                                     leaf_prob=0.02, seed=depth)
+
+
+@pytest.mark.parametrize("depth", [16, 17, 18])
+def test_deep_kernel_past_depth_15(dev, depth):
+    """The deep kernel at depth 16, 17 (a root group of one level) and 18 in
+    its three forms, one and two threads a row in partial last blocks, at
+    one row, a partial warp and one row past 65,536, against the walk of
+    its blocks (the plain fold evaluates 2^depth nodes a (row, tree)), and
+    through the engine, which fold_plan sends to the deep kernel."""
+    limits = GpuLimits.for_device(dev)
+    for form in ("dual", "sign", "nonge"):
+        forest = _deep_forest(form, depth)
+        eng = FoldKernelEngine(forest, device=dev, ge_mode=form != "nonge")
+        t = eng.tables
+        assert t.form == form and t.depth == depth
+        assert eng.kernel is DEEP_KERNELS[form] and eng.blocks is not None
+        for rows in (1, 31, 65537):
+            x = eng.canonicalize(_data(rows, forest.num_cols, rows + depth,
+                                       missing=forest.missing))
+            want = deep_block_walk(x, t, eng.blocks)
+            for lanes in (1, 2):
+                launch = deep_launch(t.width, limits)._replace(
+                    rows_per_block=48, lanes=lanes)
+                before = eng.kernel.launches
+                got = fold_deep_cuda(x, t, eng.blocks, launch)
+                torch.cuda.synchronize()
+                assert eng.kernel.launches == before + 1
+                assert got.shape == (rows,)
+                assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0), (form, rows, lanes)
+            assert torch.allclose(eng.margins_rows(x), want, atol=KERNEL_ATOL, rtol=0)
+
+
+def test_deep_kernel_captures_at_depth_18(dev):
+    """At depth 18 the deep kernel gives inside a CUDA graph what it gives
+    outside it, and the engine's graphed predict is its eager one bit for
+    bit, within ORACLE_ATOL of the oracle."""
+    forest = _deep_forest("dual", 18, trees=4)
+    eng = FoldKernelEngine(forest, device=dev)
+    data = _data(4096, forest.num_cols, 18)
+    x = eng.canonicalize(data)
+    want = fold_deep_cuda(x, eng.tables, eng.blocks, eng.launch)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fold_deep_cuda(x, eng.tables, eng.blocks, eng.launch)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    rows = torch.as_tensor(data, device=dev)
+    pred = eng.predict(rows)
+    assert torch.equal(pred, eng.predict(rows))
+    assert torch.equal(pred, eng._predict_impl(rows))
+    np.testing.assert_allclose(pred.cpu().numpy(),
+                               Forest(forest, device="cpu").predict_oracle(data),
+                               atol=ORACLE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("cols,kernels", [(62, (FOLD, FOLD_DEEP)),
+                                          (90, (FOLD_NONGE, FOLD_DEEP_NONGE)),
+                                          (9, (RANK_PLANES, RANK_FOLD))])
+def test_depth_bucketed_with_a_depth17_bucket(dev, cols, kernels):
+    """DEPTH_BUCKETED with eight trees that end by depth 4 and two of depth
+    17 on the card: the fold variant (62 live features, dual; 90 columns,
+    non-ge) runs the depth-17 bucket on the deep kernel, each bucket within
+    1e-5 of the walk of its blocks; the rank variant (9 columns) runs it on
+    kernel B; the predictions within ORACLE_ATOL of the oracle, every
+    kernel of the variant launched."""
+    forest = synthetic.generate_forest(10, 17, cols, leaf_prob=0.02, seed=3)
+    forest.is_leaf[:8, forest.level_slice(4).start:] = True
+    f = Forest(forest, device=dev)
+    eng = f.engine(Strategy.DEPTH_BUCKETED)
+    assert eng.bucket_plan == [(8, 4), (2, 17)]
+    data = _data(4099, cols, 17)
+    if isinstance(eng, DepthBucketedFoldEngine):
+        assert tuple(e.kernel for e in eng.sub) == kernels
+        x = eng.sub[0].canonicalize(data)
+        for e in eng.sub:
+            want = deep_block_walk(x, e.tables, deep_blocks(e.tables))
+            assert torch.allclose(e.margins_rows(x), want, atol=KERNEL_ATOL, rtol=0)
+    else:
+        assert isinstance(eng, DepthBucketedRankEngine)
+    counts = [k.launches for k in kernels]
+    np.testing.assert_allclose(f.predict(data, Strategy.DEPTH_BUCKETED).cpu().numpy(),
+                               f.predict_oracle(data), atol=ORACLE_ATOL, rtol=0)
+    assert all(k.launches > c for k, c in zip(kernels, counts))
 
 
 def test_launchers_capture_in_a_cuda_graph(dev):

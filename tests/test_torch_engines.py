@@ -26,6 +26,7 @@ from tahoe_tpu_torch.engine import feasibility
 from tahoe_tpu_torch.forest import compiler as port_compiler
 from tahoe_tpu_torch.forest.spec import from_arrays
 from tahoe_tpu_torch.ops import rows as rows_mod
+from tahoe_tpu_torch.ops.fold_kernel import fold_table_bytes
 from tahoe_tpu_torch.ops.gather_engine import GatherEngine
 from tahoe_tpu_torch.ops.tensor_engine import TensorEngine
 
@@ -150,6 +151,25 @@ def test_leveled_depth_cap_matches_jax(depth, trees):
         jax_reason = jax_feasibility.check(JaxStrategy[s.name], spec)
         port_reason = feasibility.check(s, _port(spec))
         assert (jax_reason is None) == (port_reason is None)
+
+
+@pytest.mark.parametrize("trees,depth,feasible", [(120, 16, True),
+                                                  (200, 18, True),
+                                                  (500, 20, False)])
+def test_fold_table_cap(trees, depth, feasible):
+    """The fold strategies' tables at the deep kernel's route, 17.3 bytes
+    a tree-node of 2^depth (thresholds, codes, leaves, blocks): rf_deep16-
+    (0.14 GB) and rf_deep18-class (0.91 GB) pass the 2 GiB cap, 500 trees
+    of depth 20 (8.5 GiB) do not; the JAX package states no such cap for
+    SPLIT_FOREST, so this refusal is the port's own."""
+    nbytes = fold_table_bytes(trees, depth)
+    assert 17.3 < nbytes / (trees << depth) < 17.4
+    assert (nbytes <= feasibility.TABLE_CAP_BYTES) == feasible
+    if not feasible:
+        shape = types.SimpleNamespace(num_trees=trees, depth=depth)
+        for s in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST):
+            reason = feasibility.check(s, shape)
+            assert "dense fold tables" in reason and "> 2 GiB" in reason
 
 
 @pytest.mark.parametrize("trees,depth,feasible", [(200, 18, True),

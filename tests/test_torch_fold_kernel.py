@@ -6,6 +6,7 @@ Margins are held to the JAX engine within 1e-5 (the port sums leaves in f64,
 the TPU kernel in f32 tiles) and to the oracle within ORACLE_ATOL.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -32,6 +33,7 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     NONGE_FID,
     NONGE_FLIP,
     NONGE_SEL_LT,
+    TABLE_CAP_BYTES,
     DeepLaunch,
     FoldKernelEngine,
     FoldLaunch,
@@ -46,6 +48,7 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     fold_margins_plain,
     fold_plan,
     fold_smem_bytes,
+    fold_table_bytes,
     fold_tables,
     fold_wavefronts,
     tree_bytes,
@@ -322,19 +325,86 @@ def test_sign_and_non_ge_tables_layout():
 
 @pytest.mark.parametrize("what", ["live_features", "depth", "non_ge_width"])
 def test_fold_caps_hold(what):
-    """> 512 live features, depth >= 16 (SPARSE's range) and a non-ge form
-    over > 128 live features raise."""
+    """> 512 live features, tables past the 2 GiB cap (500 trees of depth
+    20, ~8.5 GiB: depth itself has no cap) and a non-ge form over > 128
+    live features raise; the tables' cap before a table is built, so a
+    shape stands in for the forest."""
     if what == "live_features":
-        forest = _sparse_wide_forest(200, 6, 700, 600, seed=88)
+        spec = _port(_sparse_wide_forest(200, 6, 700, 600, seed=88))
         kw = {}
     elif what == "depth":
-        forest = synthetic.generate_forest(1, 16, 4, seed=89)
+        spec = types.SimpleNamespace(num_trees=500, depth=20)
+        assert fold_table_bytes(500, 20) > TABLE_CAP_BYTES
         kw = {}
     else:
-        forest = synthetic.generate_forest(60, 4, 200, seed=90)
+        spec = _port(synthetic.generate_forest(60, 4, 200, seed=90))
         kw = {"ge_mode": False}
-    with pytest.raises(NotImplementedError, match="depth <= 15|<= 512|<= 128"):
-        FoldKernelEngine(_port(forest), device=CPU, **kw)
+    with pytest.raises(NotImplementedError, match="GiB > 2 GiB|<= 512|<= 128"):
+        FoldKernelEngine(spec, device=CPU, **kw)
+
+
+@pytest.mark.parametrize("depth", [16, 17])
+def test_split_forest_past_depth_15_matches_jax(depth):
+    """SPLIT_FOREST at depth 16 and 17 (an odd depth: its root group of
+    blocks is one level) on the deep kernel's route, with missing values:
+    the walk of its blocks bit-equal to the plain version, the predictions
+    within JAX_ATOL of the JAX Forest.predict (the subtree-split fold in
+    interpret mode) and within ORACLE_ATOL of the oracle."""
+    from tahoe_tpu.config import Strategy as JaxStrategy
+    from tahoe_tpu.engine.forest import Forest as JaxForest
+
+    trees = 2 if depth == 16 else 3
+    forest = synthetic.generate_forest(trees, depth, 6, leaf_prob=0.02,
+                                       seed=depth)
+    data = synthetic.generate_data(32, 6, missing_prob=0.1, seed=depth + 1)
+    eng = FoldKernelEngine(_port(forest), device=CPU)
+    t = eng.tables
+    assert eng.kernel is FOLD_DEEP and t.depth == depth
+    assert deep_groups(depth)[0] == 2 - depth % 2
+    x = eng.canonicalize(data)
+    assert torch.equal(deep_block_walk(x, t, eng.blocks), fold_margins_plain(x, t))
+    got = eng.predict(data).numpy()
+    want = np.asarray(JaxForest(forest).predict(data, JaxStrategy.SPLIT_FOREST))
+    np.testing.assert_allclose(got, want, atol=JAX_ATOL, rtol=0)
+    np.testing.assert_allclose(got, oracle.predict(forest, data),
+                               atol=ORACLE_ATOL, rtol=0)
+
+
+def test_deep_blocks_layout_at_depth_18():
+    """Depth 18: nine groups of two levels, 87,381 blocks a tree; block q of
+    the group from level d holds node q of level d and its children q and
+    q + 2^d of level d + 1 (thresholds' bits, then three 10-bit codes);
+    every index stays within an int32, as csrc/fold_deep.cu reads it. The
+    walk of the blocks is the plain fold bit for bit."""
+    D, T, F = 18, 2, 4
+    g = torch.Generator().manual_seed(18)
+    nodes = (1 << D) - 1
+    t = FoldTables(form="dual", col_index=None, num_cols=F,
+                   thresholds=torch.rand(T, nodes, generator=g) * 2 - 1,
+                   fids=torch.randint(0, 2 * F, (T, nodes), generator=g,
+                                      dtype=torch.int32),
+                   leaf=torch.randn(T, 1 << D, generator=g), depth=D)
+    blocks = deep_blocks(t)
+    assert deep_groups(D) == [2] * 9
+    assert blocks.shape == (T, deep_block_count(D), 4) == (T, 87381, 4)
+    assert T * deep_block_count(D) * 4 < 2**31 and T << D < 2**31
+    thr = t.thresholds.view(torch.int32)
+    off = 0
+    for d in range(0, D, 2):
+        q = torch.arange(1 << d)
+        top, lo = (1 << d) - 1 + q, (2 << d) - 1 + q
+        members = [top, lo, lo + (1 << d)]
+        blk = blocks[:, off:off + (1 << d)]
+        for n, node in enumerate(members):
+            assert torch.equal(blk[..., n], thr[:, node])
+        word = sum(t.fids[:, node] << (10 * n) for n, node in enumerate(members))
+        assert torch.equal(blk[..., 3], word)
+        off += 1 << d
+    assert off == deep_block_count(D)
+    x = torch.rand(16, 2 * F, generator=g) * 2 - 1
+    x[:, F:] = -x[:, :F]
+    x[3, [1, F + 1]] = float("nan")
+    assert torch.equal(deep_block_walk(x, t, blocks), fold_margins_plain(x, t))
 
 
 # (form, width, depth, trees, whole_forest) -> kernel C block or deep kernel,
@@ -371,6 +441,15 @@ PLANS = {
     "nonge_depth15": ("nonge", 90, 15, 40, False, DeepLaunch(256, 93184), None),
     "stumps_whole": ("dual", 20, 3, 800, True, FoldLaunch(256, 800, 85520), None),
     "susy_whole": ("dual", 36, 8, 500, True, None, None),
+    # past depth 14 no block of kernel C holds a tree: the deep kernel
+    # (rf_deep16- and rf_deep18-class), and no VMEM_FOREST block
+    "rf_deep16_dual": ("dual", 40, 16, 120, False, DeepLaunch(256, 41984), None),
+    "deep17_sign": ("sign", 100, 17, 10, False, DeepLaunch(256, 103424), None),
+    "rf_deep18_dual": ("dual", 48, 18, 200, False, DeepLaunch(256, 50176), None),
+    "wide_deep16_sign": ("sign", 512, 16, 3, False, DeepLaunch(96, 196992, 2),
+                         None),
+    "nonge_depth18": ("nonge", 90, 18, 5, False, DeepLaunch(256, 93184), None),
+    "rf_deep16_whole": ("dual", 40, 16, 120, True, None, None),
 }
 
 

@@ -17,6 +17,7 @@ from tahoe_tpu.ops import oracle
 from tahoe_tpu.ops.transform import apply_output_transform as np_transform
 from tahoe_tpu_torch import Forest, Output, Strategy
 from tahoe_tpu_torch.config import MISSING_EPS, resolve_device
+from tahoe_tpu_torch.engine import feasibility
 from tahoe_tpu_torch.forest.spec import from_arrays, to_arrays
 from tahoe_tpu_torch.ops.bucketed import (
     DepthBucketedFoldEngine,
@@ -151,14 +152,46 @@ def test_every_strategy_is_served(strategy):
 
 
 def test_infeasible_fold_raises():
-    """Dense fold tables stop at depth 15: depth 16 is SPARSE's range."""
-    f = Forest(_port(synthetic.generate_forest(2, 16, 4, seed=70)), device="cpu")
-    for s in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST,
-              Strategy.DEPTH_BUCKETED):
-        assert "depth 15" in f.feasible(s)
+    """Depth 16: no block's shared memory holds a tree, so VMEM_FOREST is
+    refused for it (the TPU's VMEM holds it: the JAX check admits it), and
+    DEPTH_BUCKETED for the trees' uniform depth, as in the JAX check;
+    SPLIT_FOREST runs on the deep kernel, and RANK_MXU too."""
+    spec = synthetic.generate_forest(2, 16, 4, seed=70)
+    f = Forest(_port(spec), device="cpu")
+    for s, why in ((Strategy.VMEM_FOREST, "bytes of shared memory per block"),
+                   (Strategy.DEPTH_BUCKETED, "uniform tree depth")):
+        assert why in f.feasible(s)
         with pytest.raises(ValueError, match="infeasible"):
             f.engine(s)
-    assert f.feasible(Strategy.RANK_MXU) is None
+    assert jax_feasibility.check(JaxStrategy.VMEM_FOREST, spec) is None
+    for s in (Strategy.SPLIT_FOREST, Strategy.RANK_MXU):
+        assert f.feasible(s) is None
+        assert jax_feasibility.check(JaxStrategy[s.name], spec) is None
+    assert f.engine(Strategy.SPLIT_FOREST).kernel is FOLD_DEEP
+
+
+@pytest.mark.parametrize("depth", range(12, 19))
+def test_feasibility_matches_jax_to_depth_18(depth):
+    """Both packages' checks on all eight strategies, forests of uniform and
+    of mixed reachable depth 12-18: they agree but for VMEM_FOREST, which
+    no block's shared memory holds from depth 14 on (the TPU's VMEM holds
+    it), refused for that reason. Past depth 15 SPLIT_FOREST and
+    DEPTH_BUCKETED are admitted, as in the JAX package."""
+    spec = synthetic.generate_forest(3, depth, 6, seed=depth)
+    mixed = synthetic.generate_forest(3, depth, 6, seed=depth)
+    mixed.is_leaf[0, mixed.level_slice(depth - 3).start:] = True
+    for forest in (spec, mixed):
+        port = _port(forest)
+        for s in Strategy:
+            want = jax_feasibility.check(JaxStrategy[s.name], forest)
+            got = feasibility.check(s, port)
+            if s == Strategy.VMEM_FOREST and depth >= 14:
+                assert want is None and "bytes of shared memory" in got
+            else:
+                assert (got is None) == (want is None), (s, got, want)
+        if depth > 15:
+            assert feasibility.check(Strategy.SPLIT_FOREST, port) is None
+    assert feasibility.check(Strategy.DEPTH_BUCKETED, _port(mixed)) is None
 
 
 def test_depth15_split_forest_matches_oracle():

@@ -11,6 +11,7 @@ import dataclasses
 import pytest
 
 from tahoe_tpu_torch import Forest, GpuLimits, Output, Strategy
+from tahoe_tpu_torch.engine import feasibility
 from tahoe_tpu_torch.forest import synthetic
 from tahoe_tpu_torch.forest.train import train_forest
 from tahoe_tpu_torch.ops.fold_kernel import fold_leveled, fold_plan, row_width
@@ -39,10 +40,9 @@ def test_cost_is_none_exactly_where_feasibility_refuses(name):
 
 def test_sparse_over_the_gather_tier_on_a_deep_trained_forest():
     """rf_deep18-class at a few trees: the model prices exactly what the
-    port's feasibility admits, and of the two strategies the full family
-    admits (SPARSE and the HBM_DIRECT gather tier: every dense table of 200
-    depth-18 trees passes the caps) it prices SPARSE lower, as measured
-    (PERF.md section 5)."""
+    port's feasibility admits, and of the SPARSE and the HBM_DIRECT gather
+    tier (whose dense tables of 200 depth-18 trees pass the caps) it prices
+    SPARSE lower, as measured (PERF.md section 5)."""
     spec = train_forest(3, 18, 24, rows=2048, seed=1)
     f = Forest(spec, device="cpu")
     cal = Calibration.default()
@@ -50,6 +50,46 @@ def test_sparse_over_the_gather_tier_on_a_deep_trained_forest():
     for s, c in costs.items():
         assert (c is None) == (f.feasible(s) is not None), s
     assert costs[Strategy.SPARSE].total < costs[Strategy.HBM_DIRECT].total
+
+
+@pytest.mark.parametrize("cap", [None, 8 << 20])
+@pytest.mark.parametrize("name", ["rf_deep16_like", "rf_deep18_like"])
+def test_cost_is_none_exactly_where_check_refuses_past_depth_15(
+        monkeypatch, name, cap):
+    """rf_deep16- and rf_deep18-class at three trees: predict_cost prices
+    exactly the strategies feasibility.check admits, at the 2 GiB table cap
+    (SPLIT_FOREST on the deep kernel among them) and at a cap of 8 MB,
+    under which some dense tables pass it."""
+    if cap is not None:
+        monkeypatch.setattr(feasibility, "TABLE_CAP_BYTES", cap)
+    spec = Forest(family_spec(shape_by_name(name), num_trees=3), device="cpu").spec
+    assert spec.depth > 15
+    cal = Calibration.default()
+    refused = set()
+    for s in Strategy:
+        reason = feasibility.check(s, spec)
+        assert (model.predict_cost(s, spec, 1500, cal) is None) == (reason is not None), s
+        if reason is not None:
+            refused.add(s)
+    assert Strategy.SPARSE not in refused
+    assert (Strategy.SPLIT_FOREST in refused) == (cap is not None
+                                                  and spec.depth == 18)
+
+
+def test_deep_misses_past_the_l2():
+    """The deep kernel's loads a (row, tree) past the near half of a 50 MB
+    L2: none while the forest's blocks and leaves fit it (deep15-class, 9
+    MB), nor where a call's 1,500 rows read 20 MB of rf_deep16-class's
+    0.14 GB; at 65,536 rows some for rf_deep16-class, more for
+    rf_deep18-class (0.9 GB), never more than its groups and its leaf."""
+    l2 = GpuLimits().l2_bytes
+    assert model.deep_misses(30, 15, 65536, l2) == 0.0
+    assert model.deep_misses(120, 16, 1500, l2) == 0.0
+    m16 = model.deep_misses(120, 16, 65536, l2)
+    m18 = model.deep_misses(200, 18, 65536, l2)
+    assert 0.0 < m16 < 2.0 < m18 <= 10.0
+    assert model.deep_misses(200, 18, 1500, l2) < m18
+    assert model.deep_misses(200, 18, 65536, 0) == 10.0
 
 
 # measured on the H100 at 65,536 rows: (family, faster, slower), PERF.md

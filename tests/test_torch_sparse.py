@@ -222,8 +222,9 @@ def test_facade_picks_the_tier_by_feasibility():
 
 
 def test_deep_trained_forest_through_the_facade():
-    """Depth > 15: SPARSE serves it (and agrees with JAX); the dense
-    strategies give their reasons."""
+    """Depth > 15: SPARSE serves it (and agrees with JAX), and so does
+    SPLIT_FOREST on the deep kernel; VMEM_FOREST gives the shared-memory
+    reason, the leveled strategies theirs."""
     forest = train_forest(10, 17, 10, rows=512, seed=25)
     f = Forest(_port(forest), device=CPU)
     assert f.spec.depth > 15
@@ -236,9 +237,10 @@ def test_deep_trained_forest_through_the_facade():
                                interpret=True, row_tile=8)
     np.testing.assert_allclose(got, np.asarray(jeng.predict(data)),
                                atol=JAX_ATOL, rtol=0)
-    for s in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST,
-              Strategy.DEPTH_BUCKETED):
-        assert "SPARSE serves it" in f.feasible(s)
+    assert f.feasible(Strategy.SPLIT_FOREST) is None
+    np.testing.assert_allclose(f.predict(data, Strategy.SPLIT_FOREST).numpy(),
+                               got, atol=JAX_ATOL, rtol=0)
+    assert "shared memory" in f.feasible(Strategy.VMEM_FOREST)
     for s in (Strategy.ROW_TILED, Strategy.TENSOR):
         assert "leveled form of depth" in f.feasible(s)
         with pytest.raises(ValueError, match="infeasible"):
