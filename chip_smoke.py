@@ -113,8 +113,22 @@ Phases, each of which exits non-zero when it fails:
    issue time of one replay on an idle card and the capture's seconds.
    Then scripts/pair_time.py through the graphed predicts (VMEM_FOREST
    against SPLIT_FOREST on gisette, stumps, ijcnn, mnist, cifar and letter
-   at their sweep rows, by event and by device time) and the time of an
-   eager launch through a kernel's ctypes wrapper (path_time.py).
+   at their sweep rows, by slope, by event and by device time) and the time of an
+   eager launch through a kernel's ctypes wrapper (path_time.py);
+19. the chained timing (ops/graphed.py ``chain``, utils/profiling.py
+   ``slope_time``): every engine of phases 4-12 (the plain torch engines at
+   CHAIN_PLAIN_ROWS rows) and RankFoldEngine.predict_planes_k, at the
+   phase's rows and at 2,000: predict_k for k = 1, 2 and m + 1 (m, the
+   steps of one graph of the chain) bit-equal to predict and counting k
+   times one call's launches, its graphs keyed by (rows, columns, steps),
+   the chain's peak memory within twice one eager call's and its own
+   buffers (failed otherwise); printed, one JSON line a path: the slope a
+   predict beside the device time of one staged predict (a chain's step;
+   on csrc's paths at 65,536 rows in three alternating rounds, and a note
+   where they part by more than 0.95-1.10) and the event-pair time a call,
+   the spread of one chain's time over ten runs and the host's issue of a
+   chain; then the same-launch pairs (gisette, stumps, ijcnn: VMEM_FOREST
+   against SPLIT_FOREST) by slope, from phase 18's pair_time.
 
 Every phase's predicts go through the graph layer, so phases 4-17's launch
 counts are those of replays (a capture counts what one eager call does;
@@ -162,6 +176,8 @@ KERNEL_ATOL = 1e-5  # kernel vs plain version: f64 leaf sums on both sides
 PLAIN_FOLD_ROWS = 1024
 # profiles of one call phase 18 takes before an empty one fails it
 PROFILE_TRIES = 3
+# rows of phase 19's plain torch engines (calls of tens of ms at 65,536)
+CHAIN_PLAIN_ROWS = 4096
 
 # an H100 SXM's published peaks (NVIDIA's data sheet, dense): device memory,
 # int8 tensor-core operations, and f32 outside the tensor cores, the rate
@@ -252,7 +268,7 @@ def main() -> int:
     from tahoe_tpu_torch.scripts import (
         bench, int8_cast_probe, make_fixtures, overhead_bench, unit_bench)
     from tahoe_tpu_torch.utils.profiling import (
-        alternating, cuda_device_ms, cuda_median_ms)
+        alternating, chain_seconds, cuda_device_ms, cuda_median_ms, slope_time)
     from tahoe_tpu_torch.perf_model.model import KERNEL_REGISTERS
     from tahoe_tpu_torch.ops import oracle
 
@@ -1401,9 +1417,10 @@ def main() -> int:
     # fault 2's pairs (one launch, one table), mnist's and cifar's (fault
     # 4) and letter's, graphed: event time against device time in the same
     # rounds
+    pairs = {}
     for fam in ("gisette_like", "stumps_like", "ijcnn_like", "mnist_like",
                 "cifar_like", "letter_like"):
-        res = pair_time.run(dev, fam)
+        res = pairs[fam] = pair_time.run(dev, fam)
         print(json.dumps({"phase": 18, "pair_time": fam, "rows": res["rows"],
                           **{k: v for k, v in res.items() if k.endswith("_ratio")},
                           "strategies": {
@@ -1418,6 +1435,127 @@ def main() -> int:
     print(f"[18] by the profiler, a replay ran the kernels of csrc its eager call "
           f"ran, as many as it counted, on all {profiled} predicts of their paths "
           f"({card})")
+
+    # -- 19. the chained timing ----------------------------------------------
+    t19 = time.perf_counter()
+    spreads = []
+    for label, eng, methods, rows_np, spec, want, iters in dispatch:
+        if int(label.split()[0]) > 12:
+            continue
+        slow = type(eng).__name__ in plain
+        for n in (min(len(rows_np), CHAIN_PLAIN_ROWS) if slow else len(rows_np),
+                  SWEEP_ROWS):
+            x = torch.as_tensor(rows_np[:n], device=dev)
+            for method in ("predict", "predict_planes"):
+                if method not in methods:
+                    continue
+                inp = eng.transform(x) if method == "predict_planes" else x
+                g, call = getattr(eng, f"_{method}"), getattr(eng, method)
+                chain = getattr(eng, f"{method}_k")
+                key = tuple(inp.shape)
+                where = f"[19] {label}, {n} rows, {method}_k"
+                # a chain's memory against one eager call's, both at their peak
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                getattr(eng, f"_{method}_impl")(inp)
+                torch.cuda.synchronize()
+                one_bytes = torch.cuda.max_memory_allocated(dev) - base
+                want_r, one = counted(lambda: call(inp))
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                r1 = chain(inp, 1)
+                m = g._chain_shapes[key].steps
+                chain(inp, m + 1)
+                torch.cuda.synchronize()
+                chain_memory = torch.cuda.max_memory_allocated(dev) - base
+                # the chain's own buffers: the rows it stages from, and the
+                # static input it stages into
+                held = nbytes(g._chain_shapes[key].src, g._chain_shapes[key].staged)
+                if chain_memory > 2 * one_bytes + held + (1 << 20):
+                    fail(f"{where}: a chain of {m + 1} steps peaked at "
+                         f"{chain_memory} bytes, one call at {one_bytes} (and its "
+                         f"buffers {held})")
+                if not torch.equal(r1, want_r):
+                    fail(f"{where}: a chain of 1 differs from {method}")
+                for k in (1, 2, m + 1):
+                    got, counts = counted(lambda: chain(inp, k))
+                    if not torch.equal(got, want_r):
+                        fail(f"{where}: a chain of {k} differs from {method}")
+                    if counts != {name: k * c for name, c in one.items()}:
+                        fail(f"{where}: a chain of {k} counted {counts}, one "
+                             f"call {one}")
+                if not set(g.chains) <= {(*key, c) for c in (1, 2, m)}:
+                    fail(f"{where}: chain graphs {sorted(g.chains)}")
+
+                def run_k(k):
+                    return chain(inp, k)
+
+                k1, k2, _ = autotune.plan_timing(lambda: call(inp), run_k, dev,
+                                                 2, 20)
+                # one chain's time at k1 over its runs: the spread the noise
+                # guard's least delta is derived from (utils/profiling.py)
+                runs = [chain_seconds(run_k, k1, dev, n=1) for _ in range(10)]
+                spreads.append(max(runs) - min(runs))
+                staged = g.stage(inp).clone()
+                # the slope against one staged predict's device time (a
+                # chain's step), in alternating rounds where it is judged
+                # (csrc's paths at 65,536 rows), so that a drift of the
+                # card's clock falls on both
+                judged = n == ROWS and bool(one)
+                slopes, devices = [], []
+                for _ in range(3 if judged else 1):
+                    slopes.append(slope_time(run_k, k1, k2, device=dev) * 1e3)
+                    devices.append(cuda_device_ms(
+                        lambda: g.fn(g.stage(inp, staged)), warmup=1,
+                        calls=20 if iters >= 20 else 2))
+                slope = statistics.median(slopes)
+                device_ms = statistics.median(devices)
+                event_ms = cuda_median_ms(lambda: call(inp), iters=iters)
+                ratio = slope / device_ms
+                line = {"phase": 19, "path": label, "rows": n, "method": method,
+                        "steps": m, "k1": k1, "k2": k2,
+                        "slope_us_per_sample": slope * 1e3 / n,
+                        "staged_device_us_per_sample": device_ms * 1e3 / n,
+                        "event_us_per_sample": event_ms * 1e3 / n,
+                        "slope_over_device": ratio,
+                        "chain_spread_us": (max(runs) - min(runs)) * 1e6,
+                        "chain_issue_ms": host_ms(lambda: chain(inp, k1), 5),
+                        "peak_bytes": {"call": one_bytes, "chain": chain_memory},
+                        "launches": one, "card": card}
+                if judged:
+                    # the chain's own graph of m steps, its replays back to
+                    # back between two events: its device time a step
+                    chain(inp, m)
+                    cg = g.chains[(*key, m)].graph
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(5):
+                        cg.replay()
+                    end.record()
+                    end.synchronize()
+                    line.update(slope_rounds_ms=slopes, device_rounds_ms=devices,
+                                chain_graph_device_ms=start.elapsed_time(end) / (5 * m))
+                if judged and not 0.95 <= ratio <= 1.10:
+                    line["note"] = ("slope / staged device time outside "
+                                    "0.95-1.10 at 65,536 rows (PERF.md section 5)")
+                print(json.dumps(line))
+                g.release()
+    ratios = {fam: {"VMEM_FOREST_slope_ms": pairs[fam]["strategies"]["VMEM_FOREST"]
+                    ["slope_ms"]["median"],
+                    "SPLIT_FOREST_slope_ms": pairs[fam]["strategies"]["SPLIT_FOREST"]
+                    ["slope_ms"]["median"],
+                    "slope_ratio": pairs[fam]["slope_ms_ratio"],
+                    "device_ratio": pairs[fam]["device_ms_ratio"],
+                    "event_ratio": pairs[fam]["event_ms_ratio"],
+                    "rows": pairs[fam]["rows"]}
+              for fam in ("gisette_like", "stumps_like", "ijcnn_like")}
+    print(json.dumps({"phase": 19, "same_launch_pairs": ratios, "card": card}))
+    print(f"[19] every chain of phases 4-12 (k = 1, 2, m + 1) bit-equal to its "
+          f"call and counting k calls' launches; largest spread of one chain's "
+          f"time {max(spreads) * 1e6:.1f} us; phase 19 in "
+          f"{time.perf_counter() - t19:.1f} s ({card})")
     del dispatch
 
     for name, checks in record.items():

@@ -5,17 +5,24 @@ benchmarking loop (BaseTahoeTest.h:633-710): build the forest once, run
 every strategy with warm-up and timed epochs and a correctness verdict each,
 skip the infeasible ones with their reason, return the argmin.
 
-Everything runs in this process. The JAX package gives each strategy a
-subprocess and times it by a chained slope because its remote TPU runtime
-acknowledged a call before running it; on a local GPU an event pair around
-each call times it (utils/profiling.median_ms), the host's issue time
-included, as a user's call sees it. The rounds take the engines in turn
-(PERF.md section 6: on a shared host a slow spell of the host lasts
-seconds). The oracle runs once per data set, not once per strategy, and
-every engine is dropped once the rounds are done. A predict is one CUDA
-graph replay (ops/graphed.py): its capture falls in the warm-up calls, as
-a jit's compile does, and the timed rounds time replays; ``build_s`` is the
-engine's build alone.
+Every strategy is timed as the JAX package times it
+(engine/bench_worker.py ``timed_epoch_seconds``, which its enumeration
+runs in process too): by the chained slope (utils/profiling.slope_time)
+over the engine's ``predict_k``, k serialized predicts replayed from CUDA
+graphs (ops/graphed.py), so that one predict's time has the host's issue,
+the event tail and the clone of the result cancelled. At the sweep's rows
+(1,000-20,000) the host's issue of a graphed call is most of the call and
+its spread moved the verdicts of event pairs (ROADMAP Queue 3 fault 5).
+Everything runs in this process: no subprocess a strategy, which the JAX
+package needs for its remote TPU runtime. ``us_per_sample`` is the median
+of ROUNDS slopes and ``us_band`` their [min, max], as the JAX worker
+records three slope measurements; the rounds take the engines in turn.
+Beside it ``event_us_per_sample`` keeps one round of event pairs around
+each call (utils/profiling.median_ms, the host's issue included), the
+reading of earlier sweeps. A predict's capture, and each chain length's,
+fall in the warm-up, as a jit's compile does; ``build_s`` is the engine's
+build alone. The oracle runs once per data set, not once per strategy,
+and every engine is dropped once the rounds are done.
 """
 from __future__ import annotations
 
@@ -34,19 +41,27 @@ from tahoe_tpu_torch.engine.forest import Forest
 from tahoe_tpu_torch.forest.spec import ForestSpec
 from tahoe_tpu_torch.ops.rank_kernel import fuse_admits, rank_quantize
 from tahoe_tpu_torch.utils.debug import check_engine
-from tahoe_tpu_torch.utils.profiling import median_ms
+from tahoe_tpu_torch.utils.profiling import (
+    SLOPE_MIN_DELTA_S, median_ms, slope_time)
 
 # reference epoch counts: 5 warmup, 50 timed for the adaptive strategies
 # (BaseTahoeTest.h:43, 684-698)
 WARMUP_EPOCHS = 5
 TIMED_EPOCHS = 50
-# rounds of timed epochs; a strategy's time is the median of their medians.
-# A round takes at least ROUND_S of calls (at most MAX_ROUND_CALLS):
-# PERF.md section 6
+# slopes a strategy takes; its time is their median
 ROUNDS = 3
+# a slope's chains: k1 = max(1, warmup) predicts, k2 = k1 + steps, the
+# steps sized from a call's time so that t(k2) - t(k1) comes near
+# SLOPE_DELTA_S (past the noise guard's least delta), at least
+# max(epochs, SLOPE_MIN_STEPS), and at most SLOPE_BUDGET_S of predicts
+SLOPE_DELTA_S = 4 * SLOPE_MIN_DELTA_S
+SLOPE_MIN_STEPS = 4
+SLOPE_BUDGET_S = 0.25
+# the round of event pairs a strategy keeps beside its slope takes at least
+# ROUND_S of calls (at most MAX_ROUND_CALLS)
 ROUND_S = 0.2
 MAX_ROUND_CALLS = 10000
-# untimed calls after the warm-up that size a round
+# untimed calls after the warm-up that size the chains and the event round
 PROBE_CALLS = 3
 
 # the run-time choices a variant stands for, as Forest.engine arguments
@@ -64,8 +79,10 @@ class StrategyResult:
     # the run-time choice (a VARIANTS key) that produced us_per_sample;
     # None = the engine's default
     variant: Optional[str] = None
-    # [min, max] of the ROUNDS round medians
+    # [min, max] of the ROUNDS slopes
     us_band: Optional[list] = None
+    # one round of event pairs around each call (the host's issue included)
+    event_us_per_sample: Optional[float] = None
     # seconds to build the engine's tables on the device
     build_s: Optional[float] = None
 
@@ -101,10 +118,11 @@ def enumerate_strategies(
     tune_tiles: bool = False,
 ) -> Dict[Strategy, StrategyResult]:
     """Time and check each of ``strategies`` on ``data`` on ``device``:
-    ``warmup`` untimed calls, then ROUNDS rounds of at least ``epochs``
-    calls; with ``tune_tiles`` also each variant_candidates variant,
-    keeping the fastest correct one. The rounds take the engines in turn,
-    so that a slow spell of a shared host falls on all of them alike."""
+    ``warmup`` untimed calls, then ROUNDS chained slopes over at least
+    ``epochs`` predicts; with ``tune_tiles`` also each variant_candidates
+    variant, keeping the fastest correct one. The rounds take the engines
+    in turn, so that a slow spell of a shared host or of the card's clock
+    falls on all of them alike."""
     dev = resolve_device(device)
     forest = Forest(spec, device=dev)
     data = np.asarray(data, np.float32)
@@ -149,15 +167,22 @@ class _Timing:
 
     result: StrategyResult
     call: Callable[[], object]
+    run_k: Callable[[int], object]
     engine: object
+    k1: int
+    k2: int
     iters: int
     rounds: list = dataclasses.field(default_factory=list)
+    event_ms: Optional[float] = None
 
     def time_round(self, dev: torch.device) -> None:
         if self.result.error is None:
             try:
-                self.rounds.append(median_ms(self.call, dev, warmup=0,
-                                             iters=self.iters))
+                if self.event_ms is None:
+                    self.event_ms = median_ms(self.call, dev, warmup=0,
+                                              iters=self.iters)
+                self.rounds.append(slope_time(self.run_k, self.k1, self.k2,
+                                              device=dev))
             except Exception as e:  # reported as data, as the JAX worker does
                 self.result.error = f"{type(e).__name__}: {e}"
 
@@ -167,8 +192,9 @@ class _Timing:
         if r.error is not None:
             return
         n = rows.shape[0]
-        r.us_per_sample = statistics.median(self.rounds) * 1e3 / n
-        r.us_band = [min(self.rounds) * 1e3 / n, max(self.rounds) * 1e3 / n]
+        r.us_per_sample = statistics.median(self.rounds) * 1e6 / n
+        r.us_band = [min(self.rounds) * 1e6 / n, max(self.rounds) * 1e6 / n]
+        r.event_us_per_sample = self.event_ms * 1e3 / n
         try:
             rep = check_engine(self.engine, spec, rows, want=want)
             r.max_err, r.correct = rep.max_err, rep.correct
@@ -191,17 +217,23 @@ def _prepare(forest: Forest, r: StrategyResult, rows: torch.Tensor,
         def call():
             return eng.predict(rows)
 
-        return _Timing(r, call, eng, _round_calls(call, dev, warmup, epochs))
+        def run_k(k):
+            return eng.predict_k(rows, k)
+
+        return _Timing(r, call, run_k, eng,
+                       *plan_timing(call, run_k, dev, warmup, epochs))
     except Exception as e:
         r.error = f"{type(e).__name__}: {e}"
         return None
 
 
-def _round_calls(call, dev: torch.device, warmup: int, epochs: int) -> int:
-    """Run the ``warmup`` calls, time PROBE_CALLS more and return the calls
-    a round takes: ``epochs``, or as many as fill ROUND_S. On a shared host
-    the time to issue a short call drifts over tens of milliseconds, so a
-    round of a few short calls would time one state of the host."""
+def plan_timing(call, run_k, dev: torch.device, warmup: int,
+                epochs: int) -> tuple[int, int, int]:
+    """Warm up one engine and size its timing: run the ``warmup`` calls
+    (the first captures the predict's graph), time PROBE_CALLS more by the
+    host's clock (a call's seconds, the host's issue included), run a chain
+    of each length once (their captures). Returns (k1, k2, the calls of the
+    event round)."""
     for _ in range(warmup):
         call()
 
@@ -214,8 +246,14 @@ def _round_calls(call, dev: torch.device, warmup: int, epochs: int) -> int:
     for _ in range(PROBE_CALLS):
         call()
     sync()
-    per_call = (time.perf_counter() - t0) / PROBE_CALLS
-    return max(epochs, min(MAX_ROUND_CALLS, math.ceil(ROUND_S / max(per_call, 1e-6))))
+    per_call = max((time.perf_counter() - t0) / PROBE_CALLS, 1e-6)
+    k1 = max(1, warmup)
+    steps = max(SLOPE_MIN_STEPS, epochs, math.ceil(SLOPE_DELTA_S / per_call))
+    steps = min(steps, max(SLOPE_MIN_STEPS, int(SLOPE_BUDGET_S / per_call)))
+    for k in (k1, k1 + steps):
+        run_k(k)
+    iters = max(epochs, min(MAX_ROUND_CALLS, math.ceil(ROUND_S / per_call)))
+    return k1, k1 + steps, iters
 
 
 def _release(forest: Forest) -> None:

@@ -44,10 +44,36 @@ engines take their rows in chunks of ``ops/rows.py`` ``ROW_CHUNK_BYTES``
 output. The engine's tables are not copied. The graphs live as long as the
 callable (an engine's lifetime); ``release`` frees them at once, and
 ``Forest.drop_engines`` and the enumeration call it.
+
+**A chain of k predicts** (``graphed.chain``, ``GraphedEngine.predict_k``):
+the counterpart of the JAX engines' ``jax.jit(self._chain_impl,
+static_argnames=("k",))``, k serialized predicts in one dispatch, which
+the chained-slope timing (utils/profiling.py ``slope_time``) runs. Each of
+the k steps is a whole call: ``stage`` from a device-resident copy of the
+rows into the static input (the column gather, or the copy), then ``fn``.
+The steps are serialized by the capture's stream order, so no ``data +
+acc[0] * 0.0`` op ties one step to the last. k runs into the thousands,
+so the chain is not one unrolled graph: m steps are captured in one graph,
+keyed by (rows, columns, m), and replayed ⌈k/m⌉ times back to back, a last
+graph of the remainder ending the chain. m is chosen once a shape so that
+one replay keeps the card busy CHAIN_REPLAY_S, many times the host's issue
+of a replay (whose time the one-step graph's replays, back to back, bound
+from above), and so that capturing m steps takes at most CHAIN_CAPTURE_S:
+m = 1 where a call runs for milliseconds or takes a second to capture
+(the plain torch engines at 65,536 rows). The steps share the callable's
+memory pool, each freeing the last one's intermediates, so a chain holds
+about one step's working set. The result is the last step's output,
+cloned once a chain. A chain counts k times one call's launches (the
+warm-up before a shape's first capture, and the replays that size m, are
+not counted, as a capture is not). On ``cpu``, or inside an outer capture,
+it runs k calls of ``fn(stage(rows))`` and returns the last. A capture or a
+replay that fails raises a RuntimeError that names the method, the key and
+m; nothing runs the chain eagerly instead.
 """
 from __future__ import annotations
 
 import inspect
+import math
 import time
 import weakref
 from typing import Callable, NamedTuple
@@ -58,6 +84,15 @@ import torch
 from tahoe_tpu_torch.config import resolve_device
 from tahoe_tpu_torch.ops import _build
 from tahoe_tpu_torch.ops.transform import apply_output_transform
+
+# a chain's replay of m steps keeps the card busy this long (the host
+# issues a replay in 10-30 us); capturing m steps takes at most
+# CHAIN_CAPTURE_S; m is at most CHAIN_MAX_STEPS
+CHAIN_REPLAY_S = 1e-3
+CHAIN_CAPTURE_S = 0.5
+CHAIN_MAX_STEPS = 256
+# replays of the one-step graph, back to back, that size m
+CHAIN_PROBE_REPLAYS = 10
 
 
 def launch_counts() -> dict:
@@ -83,6 +118,29 @@ def add_launches(delta: list) -> None:
         k.launches += n
 
 
+def chain_runs(k: int, steps: int) -> list:
+    """The graphs a chain of ``k`` calls replays, by their steps: ⌈k/m⌉
+    replays of m = ``steps``, the last of the remainder where there is one."""
+    full, rest = divmod(k, steps)
+    return [steps] * full + ([rest] if rest else [])
+
+
+def chain_key(key: tuple, steps: int) -> tuple:
+    """A chain graph's key: the input's (rows, columns) and its steps."""
+    return key + (steps,)
+
+
+def chain_steps(replay_s: float, capture_s: float) -> int:
+    """m, the steps of a chain's graph: enough that one replay keeps the
+    card busy CHAIN_REPLAY_S, where one step's graph replays in
+    ``replay_s`` back to back (its device time, or the host's issue where
+    that is longer), as few as capture in CHAIN_CAPTURE_S where one step
+    captures in ``capture_s``; 1 to CHAIN_MAX_STEPS."""
+    return max(1, min(CHAIN_MAX_STEPS,
+                      math.ceil(CHAIN_REPLAY_S / max(replay_s, 1e-12)),
+                      int(CHAIN_CAPTURE_S / max(capture_s, 1e-12))))
+
+
 def _weak(fn: Callable):
     """``fn`` held weakly where it is a bound method: an engine holds its
     graphed callables, and their graphs go with the engine, without a
@@ -92,7 +150,8 @@ def _weak(fn: Callable):
 
 class _Graph(NamedTuple):
     """One capture: the graph, its static buffers, the launches it holds
-    and the seconds its warm-up and capture took."""
+    and the seconds its warm-up and capture took (a chain's graph: its
+    capture's)."""
 
     graph: torch.cuda.CUDAGraph
     static_in: torch.Tensor
@@ -101,10 +160,21 @@ class _Graph(NamedTuple):
     seconds: float
 
 
+class _Chain(NamedTuple):
+    """A chain's buffers at one input shape: the rows on the device that
+    every step stages from, the static input every step stages into, and
+    m, the steps a replay."""
+
+    src: torch.Tensor
+    staged: torch.Tensor
+    steps: int
+
+
 class graphed:
     """``fn(stage(rows))`` on ``device``, ``fn`` in one CUDA graph per
     input shape (the module docstring). ``graphs`` maps each key to its
-    capture."""
+    capture; ``chains`` maps (rows, columns, steps) to a chain's graph of
+    that many steps."""
 
     def __init__(self, fn: Callable, device, stage: Callable):
         self.device = resolve_device(device)
@@ -115,6 +185,8 @@ class graphed:
                      if owner is not None else fn.__qualname__)
         self._fn, self._stage = _weak(fn), _weak(stage)
         self.graphs: dict = {}
+        self.chains: dict = {}
+        self._chain_shapes: dict = {}
         self._pool = None
 
     def _held(self, ref) -> Callable:
@@ -134,6 +206,8 @@ class graphed:
     def release(self) -> None:
         """Drop every graph and their pool."""
         self.graphs.clear()
+        self.chains.clear()
+        self._chain_shapes.clear()
         self._pool = None
 
     def __call__(self, rows):
@@ -184,6 +258,99 @@ class graphed:
                                   time.perf_counter() - t0)
         return out
 
+    def chain(self, rows, k: int) -> torch.Tensor:
+        """k serialized calls on ``rows`` (the module docstring, "A chain
+        of k predicts"): the last one's result."""
+        if k < 1:
+            raise ValueError(f"{self.name}: a chain takes k >= 1 calls, not {k}")
+        key = tuple(np.shape(rows))
+        if (self.device.type != "cuda" or torch.cuda.is_current_stream_capturing()
+                or not key or key[0] == 0):
+            fn, stage = self.fn, self.stage
+            for _ in range(k):
+                out = fn(stage(rows))
+            return out
+        c = self._chain_shapes.get(key)
+        if c is None:
+            c = self._chain_shape(key, rows)
+        else:
+            c.src.copy_(torch.as_tensor(rows))
+        runs = chain_runs(k, c.steps)
+        # every capture first: a capture synchronizes the card
+        graphs = {n: self._chain_graph(key, c, n) for n in set(runs)}
+        for n in runs:
+            g = graphs[n]
+            try:
+                g.graph.replay()
+            except Exception as e:
+                raise RuntimeError(
+                    f"{self.name}: the replay of a chain at rows, columns "
+                    f"{key}, m {n} failed: {e}") from e
+            add_launches(g.launches)
+        return graphs[runs[-1]].static_out.clone()
+
+    def _chain_shape(self, key: tuple, rows) -> _Chain:
+        """The first chain at ``key``: its buffers, a warm-up step on a side
+        stream (uncounted), the one-step graph, and m from its replays."""
+        fn = self.fn
+        src = torch.as_tensor(rows, device=self.device).clone(
+            memory_format=torch.contiguous_format)
+        staged = self.stage(src).clone(memory_format=torch.contiguous_format)
+        before = launch_counts()
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = fn(self.stage(src, staged))
+        current.wait_stream(side)
+        out.record_stream(current)
+        del out
+        take_launches(before)
+        one = self._chain_graph(key, _Chain(src, staged, 1), 1)
+        try:
+            one.graph.replay()  # the first replay uploads the graph
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(CHAIN_PROBE_REPLAYS):
+                one.graph.replay()
+            end.record()
+            end.synchronize()
+        except Exception as e:
+            raise RuntimeError(f"{self.name}: the replay of a chain at rows, "
+                               f"columns {key}, m 1 failed: {e}") from e
+        steps = chain_steps(start.elapsed_time(end) * 1e-3 / CHAIN_PROBE_REPLAYS,
+                            one.seconds)
+        c = self._chain_shapes[key] = _Chain(src, staged, steps)
+        return c
+
+    def _chain_graph(self, key: tuple, c: _Chain, steps: int) -> _Graph:
+        """The graph of ``steps`` chained calls at ``key``, captured on
+        first use."""
+        g = self.chains.get(chain_key(key, steps))
+        if g is not None:
+            return g
+        fn, stage = self.fn, self.stage
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                # the capture's own seconds: not those of the collection
+                # and the synchronize that open every capture
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    out = fn(stage(c.src, c.staged))
+        except Exception as e:
+            take_launches(before)
+            raise RuntimeError(f"{self.name}: the capture of a chain at rows, "
+                               f"columns {key}, m {steps} failed: {e}") from e
+        g = self.chains[chain_key(key, steps)] = _Graph(
+            graph, c.staged, out, take_launches(before),
+            time.perf_counter() - t0)
+        return g
+
 
 class GraphedEngine:
     """An engine whose ``predict`` and ``margins`` are graphed, as a JAX
@@ -215,6 +382,11 @@ class GraphedEngine:
 
     def predict(self, rows) -> torch.Tensor:
         return self._predict(rows)
+
+    def predict_k(self, rows, k: int) -> torch.Tensor:
+        """k serialized predicts on ``rows`` (``graphed.chain``, the JAX
+        engines' ``predict_k``): the last one's result."""
+        return self._predict.chain(rows, k)
 
 
 def release(engine) -> None:

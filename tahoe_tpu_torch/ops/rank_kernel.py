@@ -653,3 +653,8 @@ class RankFoldEngine(GraphedEngine):
 
     def predict_planes(self, planes) -> torch.Tensor:
         return self._predict_planes(planes)
+
+    def predict_planes_k(self, planes, k: int) -> torch.Tensor:
+        """k serialized ``predict_planes`` (the JAX engine's
+        ``_chain_planes_impl``): the last one's result."""
+        return self._predict_planes.chain(planes, k)

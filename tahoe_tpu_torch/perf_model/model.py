@@ -47,9 +47,12 @@ step of its chain takes longer the more warps the SM runs
 (``fold_c_warp_ns`` a warp, from the calibration's 256-row block;
 64-row blocks, VMEM_FOREST on mnist- and cifar-class).
 
-A call's predicted time is the larger of the device's and the host's, plus
-what an event pair around a call reads past the host's issue where calls
-run back to back, as the enumeration times them. The JAX model's TPU terms
+A predict of a chain, which the enumeration's slope times, costs the
+card's time alone (``CostBreakdown.chained``): its kernels, its ops and
+the copy of ungathered rows, not the host's issue nor the clone out. One
+call on its own (``total``) is the larger of the device's time, the clone
+included, and the host's, plus what an event pair around a call reads past
+the host's issue where calls run back to back. The JAX model's TPU terms
 (TpuLimits, split budgets, RANK_STREAM_GBPS, MXU rates, the VMEM residency
 penalty) have no counterpart. Costs are seconds per predict of ``rows``
 rows.
@@ -145,10 +148,24 @@ class CostBreakdown:
     host_s: float
     latency_s: float
     launches: int  # kernel launches and plain torch ops: a call's graph nodes
+    # the card's clone of one call's result out of its graph (in device_s)
+    clone_s: float = 0.0
 
     @property
     def total(self) -> float:
+        """One call on its own: the larger of the card's and the host's
+        time, and the event pair's tail past the issue
+        (scripts/path_time.py)."""
         return max(self.device_s, self.host_s) + self.latency_s
+
+    @property
+    def chained(self) -> float:
+        """One predict of a chain (ops/graphed.py ``chain``), what the
+        enumeration's slope measures: the path's work on the card (its
+        kernels, its plain ops as graph nodes, the copy into the static
+        input where the engine gathers no columns); no host issue, no
+        event tail and no per-call clone."""
+        return self.device_s - self.clone_s
 
 
 def _transform_ops(forest: ForestSpec) -> int:
@@ -336,17 +353,20 @@ def _cost(device_s: float, launches: int, ops: int, cal: Calibration,
     graph's static input where the engine gathers no columns
     (``copied_cols`` f32 a row; where it gathers, the gather writes them
     there, as an eager call's writes them) and clones the result out: a
-    read and a write of each, an op each."""
+    read and a write of each, an op each. A predict of a chain makes the
+    copy (its stage step) but not the clone (``clone_s``)."""
     nodes = launches + ops
     host_us = cal.call_us + max(0, nodes - CALL_NODES) * cal.node_us
-    copied = 8 * rows * (copied_cols + 1)
-    ops += 1 + bool(copied_cols)
+    copied = 8 * rows * copied_cols
+    ops += bool(copied_cols)
+    clone_s = cal.op_device_us * 1e-6 + 8 * rows / (cal.hbm_gbps * 1e9)
     return CostBreakdown(
         device_s=(device_s + ops * cal.op_device_us * 1e-6
-                  + copied / (cal.hbm_gbps * 1e9)),
+                  + copied / (cal.hbm_gbps * 1e9) + clone_s),
         host_s=host_us * 1e-6,
         latency_s=cal.latency_us * 1e-6,
         launches=nodes,
+        clone_s=clone_s,
     )
 
 
@@ -456,12 +476,13 @@ def choose_strategy(forest: ForestSpec, rows: int,
                     cal: Optional[Calibration] = None,
                     limits: GpuLimits = GpuLimits()
                     ) -> Tuple[Strategy, Dict[Strategy, Optional[CostBreakdown]]]:
-    """argmin over predicted costs (main.cu:66-82 analog). Returns the pick
-    and the full cost table for reporting."""
+    """argmin over predicted costs (main.cu:66-82 analog), each a predict
+    of a chain (``CostBreakdown.chained``), as the enumeration times them.
+    Returns the pick and the full cost table for reporting."""
     cal = cal or Calibration.default()
     costs = {s: predict_cost(s, forest, rows, cal, limits) for s in Strategy}
     best = min(
         (s for s in Strategy if costs[s] is not None),
-        key=lambda s: costs[s].total,
+        key=lambda s: costs[s].chained,
     )
     return best, costs

@@ -15,12 +15,15 @@ the call); ``rank_mxu_planes_us`` its traversal of planes encoded once
 (the serving path, the analog of the reference timing device-resident
 data, BaseTahoeTest.h:684-698).
 
-Each time is the median of three rounds of ``--epochs`` calls (after
-``--warmup``) by utils/profiling.median_ms: on the card an event pair
-around each call, the host's issue time included; its band is the rounds'
-[min, max]. No chained slope: the remote TPU runtime it existed for is not
-here. Exits 1 with bench.py's error line when a path misses the oracle by
-more than 1e-3.
+Each of bench.py's keys is the median of three rounds of ``--epochs``
+calls (after ``--warmup``) by utils/profiling.median_ms: on the card an
+event pair around each call, the host's issue time included; its band is
+the rounds' [min, max]. After them, each path again by bench.py's own
+measure (bench.py:68-98): the median of three chained slopes
+(utils/profiling.slope_time) over k1 = max(1, warmup) and k2 = k1 +
+epochs serialized predicts (``predict_k``, ``predict_planes_k``), under
+the keys ``*_slope_us`` and ``*_slope_band_us``. Exits 1 with bench.py's
+error line when a path misses the oracle by more than 1e-3.
 """
 from __future__ import annotations
 
@@ -57,7 +60,7 @@ def main(argv=None) -> int:
     from tahoe_tpu_torch.ops import oracle
     from tahoe_tpu_torch.ops.fold_kernel import FoldKernelEngine
     from tahoe_tpu_torch.ops.rank_kernel import RankFoldEngine
-    from tahoe_tpu_torch.utils.profiling import median_ms
+    from tahoe_tpu_torch.utils.profiling import median_ms, slope_time
 
     dev = resolve_device(args.device)
     forest = synthetic.susy_class_forest(seed=0)
@@ -74,6 +77,16 @@ def main(argv=None) -> int:
                     / args.rows for _ in range(ROUNDS))
         return statistics.median(ts), ts[0], ts[-1]
 
+    k1 = max(1, args.warmup)
+    k2 = k1 + max(1, args.epochs)
+
+    def slope3(run_k):
+        """(median, min, max) us/sample of three chained slopes over k1 and
+        k2 predicts: bench.py's median3."""
+        ts = sorted(slope_time(run_k, k1, k2, device=dev) * 1e6 / args.rows
+                    for _ in range(ROUNDS))
+        return ts[1], ts[0], ts[-1]
+
     def err(pred):
         return float(np.abs(pred.cpu().numpy() - want).max())
 
@@ -88,6 +101,11 @@ def main(argv=None) -> int:
     planes = rank.transform(rows)
     us_planes, pl_lo, pl_hi = median3(lambda: rank.predict_planes(planes))
     err_rank = err(rank.predict(rows))
+    slopes = {
+        "fold_kernel": slope3(lambda k: fold.predict_k(rows, k)),
+        "rank_mxu_full": slope3(lambda k: rank.predict_k(rows, k)),
+        "rank_mxu_planes": slope3(lambda k: rank.predict_planes_k(planes, k)),
+    }
 
     if err_fold > PARITY_ATOL or err_rank > PARITY_ATOL:
         print(json.dumps({"metric": "SUSY-class per-sample latency",
@@ -115,6 +133,9 @@ def main(argv=None) -> int:
         "epochs": args.epochs,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
+        **{f"{path}_slope_us": us for path, (us, _, _) in slopes.items()},
+        **{f"{path}_slope_band_us": [lo, hi]
+           for path, (_, lo, hi) in slopes.items()},
     }), flush=True)
     return 0
 

@@ -59,15 +59,18 @@ def rerank(rec: dict, cal=None) -> dict | None:
     margin = (rec.get("runner_up_margin") if rec.get("runner_up_margin") is not None
               else (ranked[1] / ranked[0] - 1 if len(ranked) > 1 else None))
     hit = pick.name == best
+    band = (rec.get("bands") or {}).get(best)
     return {
         "dataset": rec["dataset"], "rows": rec["rows"], "pick": pick.name,
         "best": best, "pick_us": meas.get(pick.name), "best_us": meas[best],
-        "predicted_us": costs[pick].total * 1e6 / rec["rows"],
+        "predicted_us": costs[pick].chained * 1e6 / rec["rows"],
         "margin": margin, "hit": hit,
         "within_5pct": hit or (pick.name in meas
                                and meas[pick.name] <= meas[best] * (1 + RULE_MARGIN)),
         "rule_met": hit or (margin is not None and margin <= RULE_MARGIN),
         "recorded_pick": rec.get("predicted"),
+        # the spread of the best's slopes (max / min - 1)
+        "best_band": band[1] / band[0] - 1 if band else None,
     }
 
 
@@ -94,8 +97,10 @@ def main(argv=None) -> int:
         flag = "hit " if r["hit"] else ("~5% " if r["within_5pct"] else "MISS")
         pick_us = r["pick_us"] if r["pick_us"] is not None else float("nan")
         margin = f"{r['margin']:+.1%}" if r["margin"] is not None else "-"
+        band = f"{r['best_band']:.1%}" if r["best_band"] is not None else "-"
         print(f"{flag} {name:18s} pick {r['pick']:14s} ({pick_us:.4f} us) "
-              f"best {r['best']:14s} ({r['best_us']:.4f} us, runner-up "
+              f"best {r['best']:14s} ({r['best_us']:.4f} us, band {band}, "
+              f"predicted {r['predicted_us']:.4f} us for the pick, runner-up "
               f"{margin}) rule {'met' if r['rule_met'] else 'BROKEN'}; "
               f"recorded pick {r['recorded_pick']}")
     n = len(rows)

@@ -10,10 +10,13 @@ with the sweep's seed, at the family's own row count or ``--rows``), and
 each strategy's engine is built once through ``Forest``. Every round takes
 the engines in turn and gives, per strategy:
 
-- ``event_ms``: the enumeration's own reading (engine/autotune.py): the
-  median of a round of event pairs around each predict (a replay of its
-  CUDA graph, ops/graphed.py), as many calls as fill ``autotune.ROUND_S``,
-  the host's issue time included;
+- ``slope_ms``: the enumeration's own reading (engine/autotune.py): one
+  predict by the chained slope over the engine's ``predict_k``
+  (utils/profiling.slope_time), with the chains the enumeration sizes;
+- ``event_ms``: the reading of earlier enumerations: the median of a round
+  of event pairs around each predict (a replay of its CUDA graph,
+  ops/graphed.py), as many calls as fill ``autotune.ROUND_S``, the host's
+  issue time included;
 - ``device_ms``: the same predict by device time (``cuda_device_ms``, 20
   calls in a CUDA graph, into which the graphed predict records its
   kernels inline): no host issue time;
@@ -24,9 +27,9 @@ shared bytes), whether kernel C batches its block loads (one block an SM),
 and the registers a thread of that kernel instance. VMEM_FOREST and
 SPLIT_FOREST run one kernel on one table where the forest fits one tile
 (gisette, stumps, ijcnn): there the two device times say whether a gap
-between their event times is the card's or the host's. Each engine is
-warmed up (its graph captured) before the rounds, so no capture falls in
-a timed call. Prints one JSON line a family; exits 2 without a card.
+between their slope or event times is the card's or the host's. Each
+engine is warmed up (its graphs captured) before the rounds, so no capture
+falls in a timed call. Prints one JSON line a family; exits 2 without a card.
 """
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ def run(device, family: str, rows: int | None = None, rounds: int = 5,
     from tahoe_tpu_torch.ops.fold_kernel import FoldKernelEngine, FoldLaunch
     from tahoe_tpu_torch.perf_model.model import fold_batches, register_query
     from tahoe_tpu_torch.scripts.run_sweep import card_line, family_spec, shape_by_name
-    from tahoe_tpu_torch.utils.profiling import cuda_device_ms, cuda_median_ms
+    from tahoe_tpu_torch.utils.profiling import (
+        cuda_device_ms, cuda_median_ms, slope_time)
 
     _build.build()
     shape = shape_by_name(family)
@@ -65,14 +69,21 @@ def run(device, family: str, rows: int | None = None, rounds: int = 5,
         def predict(e=eng):
             return e.predict(x)
 
+        def run_k(k, e=eng):
+            return e.predict_k(x, k)
+
         engines[name] = eng
-        calls[name] = (predict, autotune._round_calls(
-            predict, device, autotune.WARMUP_EPOCHS, autotune.TIMED_EPOCHS))
-    per = {name: {"event_ms": [], "device_ms": [], "kernel_device_ms": []}
+        calls[name] = (predict, run_k, *autotune.plan_timing(
+            predict, run_k, device, autotune.WARMUP_EPOCHS,
+            autotune.TIMED_EPOCHS))
+    per = {name: {"slope_ms": [], "event_ms": [], "device_ms": [],
+                  "kernel_device_ms": []}
            for name in strategies}
     for _ in range(rounds):
-        for name, (predict, iters) in calls.items():
+        for name, (predict, run_k, k1, k2, iters) in calls.items():
             eng = engines[name]
+            per[name]["slope_ms"].append(
+                slope_time(run_k, k1, k2, device=device) * 1e3)
             per[name]["event_ms"].append(cuda_median_ms(predict, warmup=0,
                                                         iters=iters))
             per[name]["device_ms"].append(cuda_device_ms(predict))
@@ -96,7 +107,7 @@ def run(device, family: str, rows: int | None = None, rounds: int = 5,
     names = list(per)
     if len(names) == 2:
         a, b = names
-        for key in ("event_ms", "device_ms", "kernel_device_ms"):
+        for key in ("slope_ms", "event_ms", "device_ms", "kernel_device_ms"):
             if per[a][key] and per[b][key]:
                 out[f"{key}_ratio"] = (statistics.median(per[a][key])
                                        / statistics.median(per[b][key]))

@@ -9,8 +9,12 @@ run_all_15_examples.sh analog): ``SHAPES`` (its 25 families) and
 forest/train.py, bit-equal to the original's forests. Per family: calibrate
 once, let the model pick a strategy, enumerate every strategy in-process
 against the oracle and append one JSON line: the pick, the measured best,
-every strategy's µs/sample and band, its predicted cost and its build time,
-beside the card's name and power limit.
+every strategy's µs/sample and band (the chained slope, as the JAX
+package's enumeration times it: engine/autotune.py), one round of its
+event pairs around each call (``event_us``, the reading of the sweeps
+before the slope), its predicted cost (a predict of a chain,
+perf_model/model.py ``CostBreakdown.chained``) and its build time, beside
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -141,7 +145,9 @@ def sweep_record(label, spec, data, *, device, cal, epochs, warmup=2,
         "strategies": {s.name: (r.us_per_sample if r.ran else None)
                        for s, r in res.items()},
         "bands": {s.name: r.us_band for s, r in res.items() if r.ran},
-        "predicted_us": {s.name: (c.total * 1e6 / data.shape[0] if c else None)
+        "event_us": {s.name: r.event_us_per_sample for s, r in res.items()
+                     if r.ran},
+        "predicted_us": {s.name: (c.chained * 1e6 / data.shape[0] if c else None)
                          for s, c in costs.items()},
         "build_s": {s.name: r.build_s for s, r in res.items() if r.ran},
         "max_err": {s.name: r.max_err for s, r in res.items() if r.ran},

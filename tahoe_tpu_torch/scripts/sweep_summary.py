@@ -45,8 +45,13 @@ def main(argv=None) -> int:
         for k in counts:
             counts[k] += bool(r.get(k))
         rank = (r.get("strategies") or {}).get("RANK_MXU")
+        best = r.get("measured_best")
+        band = (r.get("bands") or {}).get(best)
+        event = (r.get("event_us") or {}).get(best)
         print(f"{name:18s} rows={r.get('rows', '-')!s:6s}"
-              f" best={r.get('measured_best') or '-':14s} {best_us:8.4f}"
+              f" best={best or '-':14s} {best_us:8.4f}"
+              f" band={band[1] / band[0] - 1 if band else float('nan'):6.1%}"
+              f" event={event if event is not None else float('nan'):8.4f}"
               f" pick={r.get('predicted') or '-':14s}"
               f" strict={_flag(r.get('model_correct'))}"
               f" w5={_flag(r.get('model_within_5pct'))}"

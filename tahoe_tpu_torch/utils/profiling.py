@@ -1,18 +1,26 @@
-"""Timing on the card with CUDA events.
+"""Timing on the card: the chained slope, and CUDA events.
 
-Replaces the JAX package's chained-slope timing (utils/profiling.py,
-bench.py:68-86), which existed because the remote TPU runtime acknowledged a
-call before running it. On a local GPU an event pair around each call,
-read after one synchronize, gives the time of that call on the card, the
-host's issue time included where the card waits on it; ``median_ms`` is
-that on ``cuda`` and the host's clock on ``cpu``, and ``cuda_device_ms``
-the device time alone.
+- ``slope_time`` and ``us_per_sample``, the port of the JAX package's
+  chained-slope timing (tahoe_tpu/utils/profiling.py:20-48 and its noise
+  guard, engine/bench_worker.py:98-113): ``run_k(k)`` runs k serialized
+  predicts (an engine's ``predict_k``: ops/graphed.py, one CUDA graph of m
+  predicts replayed back to back), each chain is timed whole, and the
+  slope (t(k2) - t(k1)) / (k2 - k1) is one predict's time with the issue
+  of the chain, its copy in and its clone out, and the wait for its end
+  cancelled. This is the enumeration's µs/sample, as it is the JAX
+  package's. One chain is timed by the host's clock around it followed by
+  a synchronize of the device (the JAX harness's fence), on ``cuda`` and on
+  ``cpu`` alike;
+- ``median_ms``: an event pair around each call on ``cuda`` (the host's
+  issue time included where the card waits on it), the host's clock on
+  ``cpu``; ``cuda_median_ms`` the event pairs alone; ``cuda_device_ms`` the
+  device time of one call, captured in a CUDA graph.
 """
 from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -96,3 +104,81 @@ def alternating(fns: dict, *, rounds: int = 5, calls: int = 20) -> dict:
         for name, fn in fns.items():
             times[name].append(cuda_device_ms(fn, calls=calls))
     return {name: (statistics.median(v), v) for name, v in times.items()}
+
+
+# The noise guard: the least t(k2) - t(k1) a slope is read from. One chain's
+# time at a fixed k spreads over its runs: the host's issue of the chain
+# and its wait for the end. chip_smoke.py phase 19 measures that spread,
+# the max - min of ten runs of a chain of k1 = 2 predicts: 2.8-305 us on
+# the 40 paths of csrc's kernels on an H100 (80GB HBM3, 700 W), at most
+# 101 us on all but two; SLOPE_SPREAD_S is that 101 us, rounded. A delta
+# of SLOPE_NOISE_FACTOR spreads holds the spread's share of a slope near
+# 1 / SLOPE_NOISE_FACTOR. k2 is stretched (at most SLOPE_TRIES times, and
+# no chain past SLOPE_MAX_CHAIN_S) until the delta passes it.
+SLOPE_SPREAD_S = 100e-6
+SLOPE_NOISE_FACTOR = 100
+SLOPE_MIN_DELTA_S = SLOPE_NOISE_FACTOR * SLOPE_SPREAD_S
+SLOPE_TRIES = 4
+SLOPE_MAX_CHAIN_S = 2.0
+
+
+def chain_seconds(run_k: Callable[[int], object], k: int, device, *, n: int = 3,
+                  clock: Callable[[], float] = time.perf_counter) -> float:
+    """Median seconds of one ``run_k(k)`` over ``n`` runs, after an untimed
+    one (a chain's first run at a k captures its graphs): ``clock`` around
+    the run and a synchronize of ``device``."""
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    run_k(k)
+    sync()
+    times = []
+    for _ in range(n):
+        t0 = clock()
+        run_k(k)
+        sync()
+        times.append(clock() - t0)
+    return statistics.median(times)
+
+
+def slope_time(run_k: Callable[[int], object], k1: int = 3, k2: int = 27,
+               n: int = 3, *, device="cpu",
+               clock: Callable[[], float] = time.perf_counter,
+               min_delta_s: float = SLOPE_MIN_DELTA_S) -> float:
+    """Seconds an iteration by the chained slope: ``run_k(k)`` runs k
+    serialized iterations (an engine's ``predict_k``); each chain length is
+    timed by ``chain_seconds`` and (t(k2) - t(k1)) / (k2 - k1) cancels what
+    every chain pays once. Where the delta falls below ``min_delta_s``, k2
+    grows (the JAX noise guard) until it passes, for SLOPE_TRIES tries or
+    until a chain would outlast SLOPE_MAX_CHAIN_S."""
+    if not 1 <= k1 < k2:
+        raise ValueError(f"slope_time needs 1 <= k1 < k2; got {k1}, {k2}")
+
+    def timed(k):
+        return chain_seconds(run_k, k, device, n=n, clock=clock)
+
+    t1, t2 = timed(k1), timed(k2)
+    for _ in range(SLOPE_TRIES):
+        delta = t2 - t1
+        if delta >= min_delta_s:
+            break
+        grow = max(2, int(2 * min_delta_s / max(delta, min_delta_s / 20)))
+        k_next = k1 + (k2 - k1) * grow
+        # t(k2) / k2, the fixed cost included, bounds a chain's time a step
+        if t2 / k2 * k_next > SLOPE_MAX_CHAIN_S:
+            break
+        k2 = k_next
+        t2 = timed(k2)
+    return max((t2 - t1) / (k2 - k1), 1e-12)
+
+
+def us_per_sample(engine, rows, k1: int = 3, k2: int = 27, *,
+                  device: Optional[object] = None, **kw) -> float:
+    """Slope-timed µs a row of ``engine.predict_k`` on ``rows`` (on the
+    engine's device unless ``device`` is given)."""
+    dev = device if device is not None else getattr(engine, "device", "cpu")
+    return slope_time(lambda k: engine.predict_k(rows, k), k1, k2,
+                      device=dev, **kw) * 1e6 / len(rows)

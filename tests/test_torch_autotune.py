@@ -51,6 +51,36 @@ def test_enumeration_matches_jax(facade):
     assert autotune.best_strategy(got) in {s for s in got if got[s].ran}
 
 
+def test_the_enumeration_times_by_the_slope(monkeypatch, facade):
+    """Each strategy's us/sample is the median of ROUNDS chained slopes over
+    its engine's predict_k (utils/profiling.slope_time), its band their
+    [min, max]; one round of event pairs is kept beside it."""
+    spec, data = facade
+    slopes = iter([3e-6, 1e-6, 2e-6, 9e-6, 7e-6, 8e-6])
+    seen = []
+
+    def slope_time(run_k, k1, k2, **kw):
+        assert 1 <= k1 < k2 and kw["device"].type == "cpu"
+        seen.append(run_k(k1).shape)
+        return next(slopes)
+
+    monkeypatch.setattr(autotune, "slope_time", slope_time)
+    res = autotune.enumerate_strategies(
+        from_arrays(dataclasses.asdict(spec)), data, device="cpu",
+        strategies=(Strategy.SPLIT_FOREST, Strategy.HBM_DIRECT), warmup=2,
+        epochs=3, verbose=False)
+    n = data.shape[0]
+    assert len(seen) == 2 * autotune.ROUNDS and set(seen) == {(n,)}
+    # the rounds take the engines in turn
+    split, gather = res[Strategy.SPLIT_FOREST], res[Strategy.HBM_DIRECT]
+    assert split.us_per_sample == pytest.approx(3e-6 * 1e6 / n)
+    assert split.us_band == pytest.approx([2e-6 * 1e6 / n, 7e-6 * 1e6 / n])
+    assert gather.us_per_sample == pytest.approx(8e-6 * 1e6 / n)
+    assert gather.us_band == pytest.approx([1e-6 * 1e6 / n, 9e-6 * 1e6 / n])
+    for r in (split, gather):
+        assert r.correct and r.event_us_per_sample > 0
+
+
 def _result(s, us, correct=True, **kw):
     return autotune.StrategyResult(strategy=s, us_per_sample=us, correct=correct,
                                    **kw)

@@ -34,18 +34,33 @@ def test_a_rule_met_stays_met(name):
         assert r["rule_met"], r
 
 
+def _missed(rec):
+    """``rec`` with the model's pick made the runner-up: another strategy
+    measured 20% faster than every one, so that the pick breaks the rule."""
+    rec = json.loads(json.dumps(rec))
+    pick = check_sweep_model.rerank(rec, Calibration.default())["pick"]
+    times = rec["strategies"]
+    other = next(k for k, v in times.items() if v is not None and k != pick)
+    times[other] = min(v for v in times.values() if v is not None) / 1.2
+    rec.update(measured_best=other, runner_up_margin=None)
+    return rec
+
+
 def test_check_sweep_model_main_on_a_file(tmp_path):
     """main() prints a verdict a family and one JSON summary line; a miss
     that breaks the rule makes it exit 1."""
     path = tmp_path / "sweep.jsonl"
-    lines = [json.dumps(RECORDS[n]) for n in ("susy_like", "ijcnn_like")]
+    lines = [json.dumps(RECORDS["susy_like"]),
+             json.dumps(_missed(RECORDS["ijcnn_like"]))]
     path.write_text("\n".join(lines) + "\n")
     out = _io.StringIO()
     with redirect_stdout(out):
         rc = check_sweep_model.main([str(path)])
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
     assert summary["families"] == 2 and summary["hits"] == 1
-    assert rc == 1  # ijcnn: the sweep's one rule miss (ROADMAP.md, fault 5)
+    assert summary["rule_met"] == 1 and rc == 1
+    miss = summary["records"][1]
+    assert miss["dataset"] == "ijcnn_like" and not miss["hit"] and miss["margin"] > 0.05
     with redirect_stdout(_io.StringIO()):
         assert check_sweep_model.main([str(path), "--skip", "ijcnn_like"]) == 0
 

@@ -335,3 +335,70 @@ def test_a_failed_capture_raises_and_names_the_key(dev):
     with pytest.raises(RuntimeError, match=r"syncs.*\(8, 3\)"):
         g(torch.ones(8, 3, device=dev))
     assert g.graphs == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", list(Strategy), ids=lambda s: s.name)
+def test_a_chain_is_k_predicts(dev, strategy):
+    """predict_k for k in {1, 2, m + 1} bit-equal to predict, counting k
+    times one call's launches; its graphs keyed by (rows, columns, steps)."""
+    eng = Forest(_card_forest(), device=dev).engine(strategy)
+    x = torch.as_tensor(_card_rows(1500, 13), device=dev)
+    want = eng.predict(x)
+    before = graphed.launch_counts()
+    eng.predict(x)
+    one = {k: k.launches - n for k, n in before.items()}
+    g = eng._predict
+    assert torch.equal(eng.predict_k(x, 1), want)
+    m = g._chain_shapes[(1500, 18)].steps
+    for k in (1, 2, m + 1):
+        before = graphed.launch_counts()
+        assert torch.equal(eng.predict_k(x, k), want), k
+        assert {kn: kn.launches - n for kn, n in before.items()} == {
+            kn: k * n for kn, n in one.items()}, k
+    assert set(g.chains) <= {(1500, 18, n) for n in (1, 2, m)}
+    assert (1500, 18, m) in g.chains and list(g.graphs) == [(1500, 18)]
+
+
+@pytest.mark.cuda
+def test_a_chain_holds_about_one_steps_memory(dev):
+    """A chain of many steps, each with 64 MiB intermediates, reserves
+    about what a chain of one step does: the steps share the callable's
+    pool, each reusing the last one's intermediates."""
+    def fn(x):
+        big = x.new_ones(16 << 20) * 2.0
+        return x.sum(1) + big[:1]
+
+    def stage(x, out=None):
+        return x if out is None else out.copy_(x)
+
+    def grown(k):
+        g = graphed.graphed(fn, dev, stage)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved(dev)
+        out = g.chain(torch.ones(8, 3, device=dev), k)
+        assert torch.equal(out, torch.full((8,), 5.0, device=dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+        grew = torch.cuda.memory_reserved(dev) - base
+        steps = g._chain_shapes[(8, 3)].steps
+        g.release()
+        return grew, steps
+
+    one, _ = grown(1)
+    many, steps = grown(50)
+    assert steps > 2 and one >= 64 << 20
+    assert many < 1.5 * one, (many, one, steps)
+
+
+@pytest.mark.cuda
+def test_a_failed_chain_capture_raises_and_names_the_key(dev):
+    def syncs(x):
+        return x * float(x.sum())  # a host synchronisation: not capturable
+
+    g = graphed.graphed(syncs, dev, lambda x, out=None: x if out is None else out.copy_(x))
+    with pytest.raises(RuntimeError, match=r"syncs.*chain.*\(8, 3\), m 1"):
+        g.chain(torch.ones(8, 3, device=dev), 4)
+    assert g.chains == {}

@@ -106,13 +106,20 @@ def test_bench_prints_the_jax_line():
                          "--epochs", "1", "--warmup", "0"])
     assert rc == 0
     line = json.loads(out.getvalue().strip().splitlines()[-1])
-    assert list(line) == keys
+    # bench.py's keys in its order, then its measure, the chained slope, of
+    # each path under keys of their own
+    paths = ("fold_kernel", "rank_mxu_full", "rank_mxu_planes")
+    assert list(line) == keys + [f"{p}_slope_us" for p in paths] + [
+        f"{p}_slope_band_us" for p in paths]
     assert line["max_err_vs_oracle"] <= 1e-3
     assert line["rows"] == 96 and line["device"] == "cpu"
     assert line["value"] == min(line["fold_kernel_us"], line["rank_mxu_full_us"])
     for band in ("fold_band_us", "rank_band_us", "planes_band_us"):
         lo, hi = line[band]
         assert 0 < lo <= hi
+    for p in paths:
+        lo, hi = line[f"{p}_slope_band_us"]
+        assert 0 < lo <= line[f"{p}_slope_us"] <= hi
 
 
 def test_sweep_record_on_the_cpu(tmp_path):
@@ -128,5 +135,8 @@ def test_sweep_record_on_the_cpu(tmp_path):
     assert (rec["trees"], rec["depth"], rec["cols"]) == (100, 6, 22)
     assert rec["all_correct"] and rec["measured_best"] in rec["strategies"]
     assert rec["predicted"] in rec["predicted_us"]
+    ran = {k for k, v in rec["strategies"].items() if v is not None}
+    assert set(rec["bands"]) == set(rec["event_us"]) == ran
+    assert all(rec["event_us"][k] > 0 for k in ran)
     assert set(rec["not_run"]) == {"DEPTH_BUCKETED"}
     assert rec["device"] == "cpu"
