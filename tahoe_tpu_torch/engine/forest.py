@@ -46,6 +46,7 @@ from tahoe_tpu_torch.ops.gather_engine import GatherEngine
 from tahoe_tpu_torch.ops.rank_kernel import RankFoldEngine
 from tahoe_tpu_torch.ops.sparse_kernel import SparseRankEngine
 from tahoe_tpu_torch.ops.tensor_engine import TensorEngine
+from tahoe_tpu_torch.utils.profiling import span
 
 
 class Forest:
@@ -140,7 +141,8 @@ class Forest:
 
     def predict(self, rows, strategy: Strategy = Strategy.SPLIT_FOREST):
         """Predictions [R] f32 on ``device``."""
-        return self.engine(strategy).predict(rows)
+        with span("tahoe_predict"):
+            return self.engine(strategy).predict(rows)
 
     def predict_oracle(self, rows) -> np.ndarray:
         """The numpy CPU golden model (ops/oracle.py, the port's copy of the

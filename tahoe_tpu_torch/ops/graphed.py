@@ -35,6 +35,28 @@ the counts it added, sets them back (a capture runs nothing on the card),
 and every replay adds them again: one replay counts what one eager call
 counts.
 
+Spans and counters. While a profiler records, each call on ``cuda`` marks
+host spans (utils/profiling.py ``span``) that the trace ties to the device
+work they launch: ``tahoe_stage`` around the staging into the static
+input (the copy, or the column gather), ``tahoe_replay`` around the
+graph's launch, ``tahoe_clone`` around the clone of its output, and
+``tahoe_capture`` around a shape's warm-up and capture (a predict's, or a
+chain graph's), so that a capture in steady state shows in any trace.
+The CPU path and a call inline in an outer capture mark none; Forest.predict
+marks ``tahoe_predict`` around the whole call. With no profiler a span is
+one test of a flag. ``counters()`` snapshots monotonic totals over every
+graphed callable: ``captures`` and ``capture_s`` (each capture's
+``_Graph.seconds``), ``replays`` (each replay of a predict's graph),
+``staged_bytes`` (the static input's bytes, each time a call stages into it
+outside the graph) and ``launches`` (the kernels' counts above, summed).
+They are plain adds on the host. An operator checks the graph cache with
+them: in steady state ``captures`` stays flat, ``replays`` counts the calls,
+and ``staged_bytes`` a row is what the staging step moves. On a chain
+``captures`` and ``capture_s`` count its graphs (the one-step graph and
+each m-step graph) and ``launches`` k calls' launches; its staging runs
+inside its graphs and its replays are the timing's, so ``replays`` and
+``staged_bytes`` do not move.
+
 Memory: every graph of one callable keeps its intermediates in one memory
 pool, shared by its shapes: the replays run one at a time on one stream and
 each output is cloned at once, so the pool holds about one eager call's
@@ -84,6 +106,7 @@ import torch
 from tahoe_tpu_torch.config import resolve_device
 from tahoe_tpu_torch.ops import _build
 from tahoe_tpu_torch.ops.transform import apply_output_transform
+from tahoe_tpu_torch.utils.profiling import span
 
 # a chain's replay of m steps keeps the card busy this long (the host
 # issues a replay in 10-30 us); capturing m steps takes at most
@@ -93,6 +116,23 @@ CHAIN_CAPTURE_S = 0.5
 CHAIN_MAX_STEPS = 256
 # replays of the one-step graph, back to back, that size m
 CHAIN_PROBE_REPLAYS = 10
+
+
+# the totals counters() reads, besides the kernels' launch counts
+_TOTALS = {"captures": 0, "capture_s": 0.0, "replays": 0, "staged_bytes": 0}
+
+
+def counters() -> dict:
+    """Monotonic totals over every graphed callable (the module docstring,
+    "Spans and counters"): captures, capture_s, replays, staged_bytes and
+    launches."""
+    return {**_TOTALS, "launches": sum(k.launches for k in _build.KERNELS)}
+
+
+def _captured(g: "_Graph") -> "_Graph":
+    _TOTALS["captures"] += 1
+    _TOTALS["capture_s"] += g.seconds
+    return g
 
 
 def launch_counts() -> dict:
@@ -218,14 +258,20 @@ class graphed:
             return self.fn(self.stage(rows))
         g = self.graphs.get(key)
         if g is None:
-            return self._capture(key, rows)
-        self.stage(rows, g.static_in)
+            with span("tahoe_capture"):
+                return self._capture(key, rows)
+        with span("tahoe_stage"):
+            self.stage(rows, g.static_in)
+        _TOTALS["staged_bytes"] += g.static_in.nbytes
         try:
-            g.graph.replay()
-            out = g.static_out.clone()
+            with span("tahoe_replay"):
+                g.graph.replay()
+            with span("tahoe_clone"):
+                out = g.static_out.clone()
         except Exception as e:
             raise RuntimeError(f"{self.name}: the replay at rows, columns "
                                f"{key} failed: {e}") from e
+        _TOTALS["replays"] += 1
         add_launches(g.launches)
         return out
 
@@ -253,9 +299,9 @@ class graphed:
             take_launches(before)
             raise RuntimeError(f"{self.name}: the capture at rows, columns "
                                f"{key} failed: {e}") from e
-        self.graphs[key] = _Graph(graph, static_in, static_out,
-                                  take_launches(before),
-                                  time.perf_counter() - t0)
+        self.graphs[key] = _captured(_Graph(graph, static_in, static_out,
+                                            take_launches(before),
+                                            time.perf_counter() - t0))
         return out
 
     def chain(self, rows, k: int) -> torch.Tensor:
@@ -336,7 +382,7 @@ class graphed:
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with span("tahoe_capture"), torch.cuda.graph(graph, pool=self._pool):
                 # the capture's own seconds: not those of the collection
                 # and the synchronize that open every capture
                 t0 = time.perf_counter()
@@ -346,9 +392,9 @@ class graphed:
             take_launches(before)
             raise RuntimeError(f"{self.name}: the capture of a chain at rows, "
                                f"columns {key}, m {steps} failed: {e}") from e
-        g = self.chains[chain_key(key, steps)] = _Graph(
+        g = self.chains[chain_key(key, steps)] = _captured(_Graph(
             graph, c.staged, out, take_launches(before),
-            time.perf_counter() - t0)
+            time.perf_counter() - t0))
         return g
 
 

@@ -1,4 +1,5 @@
-"""Timing on the card: the chained slope, and CUDA events.
+"""Timing on the card: the chained slope, CUDA events, and the program's
+spans.
 
 - ``slope_time`` and ``us_per_sample``, the port of the JAX package's
   chained-slope timing (tahoe_tpu/utils/profiling.py:20-48 and its noise
@@ -14,10 +15,23 @@
 - ``median_ms``: an event pair around each call on ``cuda`` (the host's
   issue time included where the card waits on it), the host's clock on
   ``cpu``; ``cuda_median_ms`` the event pairs alone; ``cuda_device_ms`` the
-  device time of one call, captured in a CUDA graph.
+  device time of one call, captured in a CUDA graph;
+- ``span(name)``: a host span of the program while a profiler records,
+  a shared null context otherwise (the test of the gate: 0.3-0.9 us a span
+  on an H100 machine's host). The span is PyTorch's C++ record-function
+  scope (``torch._C._profiler._RecordFunctionFast``), a ``cpu_op`` event
+  of the trace: 1.2-2.7 us a span there under the profiler, where the
+  Python ``torch.profiler.record_function`` (a ``user_annotation``) costs
+  8-15 us and set the host behind the card in half the traced slices
+  measured (PERF.md §6). The spans land in the same trace as the device
+  operations, on its clock, and each kernel, copy or set names the runtime
+  call that launched it by its correlation id: so a span holds the device
+  work its calls launched. Spans nest on the one host thread. The
+  program's spans are named ``tahoe_*`` (engine/forest.py, ops/graphed.py).
 """
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
 from typing import Callable, Optional
@@ -25,6 +39,16 @@ from typing import Callable, Optional
 import torch
 
 from tahoe_tpu_torch.config import resolve_device
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks the host span ``name`` while a profiler
+    records, a shared null context otherwise."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def cuda_median_ms(fn: Callable[[], object], *, warmup: int = 3,
