@@ -17,7 +17,9 @@ Phases, each of which exits non-zero when it fails:
    time (20 calls in a CUDA graph, utils/profiling.cuda_device_ms) here and
    on every path, against torch.searchsorted on the same table in
    alternating rounds; kernel C and the deep kernel both on the SUSY-class
-   tables;
+   tables, and kernel C as the main path launches it, on the raw rows read
+   in place, held to the plain version of its row staging (its time and
+   bound are kernel C's in the kernels line);
 4. the main path through the user's entry points: Forest.from_files on the
    reference text formats, then SPLIT_FOREST (on the fold kernel fold_plan
    picks: kernel C's dual form since its redesign) and RANK_MXU (full
@@ -29,14 +31,16 @@ Phases, each of which exits non-zero when it fails:
 6. wide, the sign form: cup98-class (150 trees, depth 8, 479 columns, 300
    live) through SPLIT_FOREST from Forest.from_files, and svhn-class (200
    trees, depth 6, 100 features), each on fold_plan's kernel (kernel C's
-   sign form), both sign-form kernels held to the plain version on each;
+   sign form), both sign-form kernels held to the plain version on each,
+   and kernel C on the raw rows read in place as the main path does;
 7. deep: deep15-class (30 trees, depth 15) in the dual (16 features) and
    the sign form (100 features) through SPLIT_FOREST on the deep kernel,
    which no tile of kernel C holds; then kernel C and the deep kernel at
    deep12-class (100, 12, 28), where fold_plan takes the deep kernel;
 8. VMEM_FOREST: stumps-class (800 trees, depth 3, 10 features), the whole
-   forest in one shared-memory tile of kernel C, and SPLIT_FOREST, which
-   routes it to kernel C's dual form too;
+   forest in one shared-memory tile of kernel C (on the canonical and on
+   the raw rows), and SPLIT_FOREST, which routes it to kernel C's dual form
+   too;
 9. DEPTH_BUCKETED: its rank variant on trained_mix-class (300 trees, depths
    6-12, 26 features; kernel A once, kernel B per bucket) and its fold
    variant on two mixed-depth forests of 90 columns (the non-ge form; depths
@@ -103,7 +107,8 @@ Phases, each of which exits non-zero when it fails:
    (mnist's sweep rows): its graphed predict, margins and, where it has
    one, predict_planes bit-equal to the un-graphed ``_*_impl``, predict
    within ORACLE_ATOL of the oracle, a repeated call at a shape making no
-   new capture and a second shape one more, two results at one shape not
+   new capture and a second shape one more (kernel C's engine, which
+   launches directly on the rows in place, none at all), two results at one shape not
    aliased, a replay counting the eager call's launches, and by the
    profiler (path_time.profile_kernels), on every path of csrc's kernels,
    one replay of its predict running on the card the kernels of csrc one
@@ -131,8 +136,9 @@ Phases, each of which exits non-zero when it fails:
    against SPLIT_FOREST) by slope, from phase 18's pair_time.
 
 Every phase's predicts go through the graph layer, so phases 4-17's launch
-counts are those of replays (a capture counts what one eager call does;
-phase 18 holds a replay's count against the kernels the card ran).
+counts are those of replays or of kernel C's direct launches (a capture
+counts what one eager call does; phase 18 holds a replay's count against
+the kernels the card ran).
 
 Phases 6-12 run 65,536 rows each (phase 11's second forest 4,096) against
 the numpy oracle at ORACLE_ATOL,
@@ -249,8 +255,8 @@ def main() -> int:
         DEEP_KERNELS, FOLD, FOLD_DEEP, FOLD_DEEP_NONGE, FOLD_DEEP_SIGN,
         FOLD_KERNELS, FOLD_NONGE, FOLD_SIGN, FoldKernelEngine, deep_block_walk,
         deep_blocks, deep_groups, deep_launch, descent_paths, fold_c_table,
-        fold_deep_cuda, fold_launch, fold_margins_cuda, fold_margins_plain,
-        fold_table_bytes, fold_wavefronts)
+        fold_deep_cuda, fold_launch, fold_margins_at, fold_margins_cuda,
+        fold_margins_plain, fold_rows_plain, fold_table_bytes, fold_wavefronts)
     from tahoe_tpu_torch.ops.probes import (
         PROBE_INT8, PROBE_OVERHEAD, PROBE_RANK_PARTS)
     from tahoe_tpu_torch.ops.rank_kernel import (
@@ -359,6 +365,14 @@ def main() -> int:
                      + 4 * rows,
                      (rows * trees * (t.depth + 1), SCALAR_OPS_PER_S))
 
+    def raw_plain(raw, eng):
+        """The plain version of kernel C on ``eng``'s raw rows, read in
+        place: its row staging's (``fold_rows_plain``), then the fold's."""
+        t = eng.tables
+        return fold_margins_plain(fold_rows_plain(
+            raw.reshape(-1), *raw.shape, t.col_index, t.num_cols, eng.missing,
+            t.form == "dual"), t)
+
     def wavefronts(x, t, launch):
         """Kernel C's shared-memory wavefronts per (warp, tree), reckoned
         from the walks of the first 2,048 rows: this layout (16-byte node
@@ -441,15 +455,34 @@ def main() -> int:
             fail(f"{name} kernel differs from its plain version by {c_err}")
         record[name] = [("3", c_err, cuda_median_ms(fn), p_ms,
                          *fold_cost(x2, ft, *tables), None)]
+    raw = torch.as_tensor(data, device=dev)
+    if fold._predict.in_place is not None:
+        # the main path's launch of kernel C, on the raw rows where they lie,
+        # held to the plain version of its staging: the first check, whose
+        # time and bound the kernels line gives
+        def at():
+            return fold_margins_at(raw, ft, c_table, c_launch, fold.missing, fold._cols)
+
+        c_k, c_p = at(), raw_plain(raw, fold)
+        c_err = float((c_k - c_p).abs().max())
+        if not (torch.isfinite(c_k).all() and c_err <= KERNEL_ATOL):
+            fail(f"fold kernel on the raw rows differs from its plain version by "
+                 f"{c_err}")
+        record["fold"].insert(0, (
+            "3", c_err, cuda_median_ms(at),
+            cuda_median_ms(lambda: raw_plain(raw, fold), warmup=1, iters=5),
+            *fold_cost(raw, ft, c_table), None))
     print(f"[3] SPLIT_FOREST takes {fold.kernel.symbol}; deep kernel {d_launch}, "
-          f"kernel C {c_launch}")
+          f"kernel C {c_launch}; rows read in place: "
+          f"{fold._predict.in_place is not None}")
     tolerance = {"rank_transform": 0, "rank_fold": KERNEL_ATOL, "fold": KERNEL_ATOL,
                  "fold_deep": KERNEL_ATOL}
-    for name, [(_, err, ms, plain_ms, b_ms, b_by, lib_ms)] in record.items():
-        print(f"[3] {name}: max |kernel - plain| {err} (tolerance "
-              f"{tolerance[name]}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), library {lib_ms} ms ({card})")
-    del a_k, a_p, b_k, b_p, c_k, c_p, x, xt, x2, rank, fold, c_table, blocks
+    for name, checks in record.items():
+        for _, err, ms, plain_ms, b_ms, b_by, lib_ms in checks:
+            print(f"[3] {name}: max |kernel - plain| {err} (tolerance "
+                  f"{tolerance[name]}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}), library {lib_ms} ms ({card})")
+    del a_k, a_p, b_k, b_p, c_k, c_p, x, xt, x2, raw, rank, fold, c_table, blocks
 
     # -- 4. main path through the facade ------------------------------------
     def drive(spec, rows_np, missing, tag, timed, **out_kw):
@@ -629,10 +662,13 @@ def main() -> int:
             return set().union(*(engine_kernels(e) for e in eng.sub))
         return set()  # the plain torch engines
 
-    def both_folds(tag, eng, x, note=True):
+    def both_folds(tag, eng, x, note=True, raw=None):
         """Kernel C and the deep kernel in the tables' form, each in the block
         fold_plan gives it where it takes the forest, else in its own, held
-        to the plain version; their names, C's first."""
+        to the plain version; their names, C's first. Where the engine reads
+        ``raw`` (the device table of raw rows) in place, as its main path
+        does, kernel C on them too, held to the plain version of its
+        staging: the check claim() puts first."""
         t = eng.tables
         c_launch = (eng.launch if eng.c_table is not None else fold_launch(
             t.width, t.depth, eng.num_trees, limits))
@@ -653,6 +689,11 @@ def main() -> int:
             if note:
                 notes[c_name] = wavefronts(x, t, c_launch)
         hold(tag, fns, lambda: fold_margins_plain(x, t), costs, notes=notes)
+        if raw is not None and eng._predict.in_place is not None:
+            hold(tag, {c_name: lambda: fold_margins_at(raw, t, eng.c_table, eng.launch,
+                                                       eng.missing, eng._cols)},
+                 lambda: raw_plain(raw, eng), {c_name: fold_cost(raw, t, eng.c_table)},
+                 notes={c_name: f"the raw {tuple(raw.shape)} rows, read in place"})
 
     # 6. the sign form: cup98-class and svhn-class, each on fold_plan's
     # kernel, both kernels held to the plain version
@@ -676,12 +717,13 @@ def main() -> int:
         eng = f.engine(Strategy.SPLIT_FOREST)
         if eng.form != "sign":
             fail(f"[6] {f.spec.num_trees} trees take the {eng.form} form, not sign")
-        x = eng.canonicalize(torch.as_tensor(rows_np, device=dev))
-        both_folds("6", eng, x)
+        raw = torch.as_tensor(rows_np, device=dev)
+        x = eng.canonicalize(raw)
+        both_folds("6", eng, x, raw=raw)
         own = name_of(eng.kernel)
         claim([own], run_path("6", f, Strategy.SPLIT_FOREST, rows_np,
                               f.predict_oracle(rows_np), {own}))
-        del f, eng, x
+        del f, eng, x, raw
 
     # 7. deep15-class in the dual and the sign form, which no tile of kernel
     # C holds, on the deep kernel; both kernels at deep12-class
@@ -716,14 +758,15 @@ def main() -> int:
     if eng.kernel is not FOLD or eng.launch.tile_trees != 800:
         fail(f"[8] VMEM_FOREST runs {eng.kernel.symbol} with {eng.launch}")
     print(f"[8] {eng.launch}; SPLIT_FOREST {f.engine(Strategy.SPLIT_FOREST).launch}")
-    x = eng.canonicalize(torch.as_tensor(stump_rows, device=dev))
-    both_folds("8", eng, x)
+    raw = torch.as_tensor(stump_rows, device=dev)
+    x = eng.canonicalize(raw)
+    both_folds("8", eng, x, raw=raw)
     want = f.predict_oracle(stump_rows)
     run_path("8", f, Strategy.VMEM_FOREST, stump_rows, want, {"fold"})
     split = name_of(f.engine(Strategy.SPLIT_FOREST).kernel)
     claim(["fold"], run_path("8", f, Strategy.SPLIT_FOREST, stump_rows, want,
                              {split}))
-    del f, eng, x
+    del f, eng, x, raw
 
     # 9. DEPTH_BUCKETED: rank variant, then the fold variant in non-ge form
     mix = synthetic.generate_mixed_depth_forest(300, 12, 26, seed=1)
@@ -1377,9 +1420,12 @@ def main() -> int:
                 r2 = call(inp)
                 torch.cuda.synchronize()
                 where = f"[18] {label}, {n} rows, {method}"
-                if captured is None or set(g.graphs) != keys | {key} or g.graphs[key] is not captured:
+                # the in-place route (kernel C) launches directly: no capture
+                direct = g.in_place is not None
+                if (set(g.graphs) != (keys if direct else keys | {key})
+                        or not direct and g.graphs[key] is not captured):
                     fail(f"{where}: graphs {sorted(keys)} -> {sorted(g.graphs)}; "
-                         f"one capture at {key} expected")
+                         f"{'none' if direct else 'one'} capture at {key} expected")
                 if not all(torch.equal(r, eager) for r in (first, r1, r2)):
                     fail(f"{where}: the graphed result differs from _{method}_impl's")
                 if r1.data_ptr() == r2.data_ptr() or first.data_ptr() == r1.data_ptr():
@@ -1410,7 +1456,8 @@ def main() -> int:
                     device_us_per_sample=cuda_device_ms(
                         lambda: call(inp), warmup=1, calls=20 if iters >= 20 else 2) * 1e3 / n,
                     replay_host_ms=host_ms(lambda: call(inp), iters),
-                    capture_s=g.graphs[key].seconds, launches=counts)
+                    capture_s=None if direct else g.graphs[key].seconds,
+                    launches=counts)
             line.update(graphs={m: len(getattr(eng, f"_{m}").graphs) for m in methods},
                         card=card)
             print(json.dumps(line))
@@ -1470,8 +1517,9 @@ def main() -> int:
                 torch.cuda.synchronize()
                 chain_memory = torch.cuda.max_memory_allocated(dev) - base
                 # the chain's own buffers: the rows it stages from, and the
-                # static input it stages into
-                held = nbytes(g._chain_shapes[key].src, g._chain_shapes[key].staged)
+                # static input it stages into (none on the in-place route)
+                bufs = g._chain_shapes[key]
+                held = nbytes(*(b for b in (bufs.src, bufs.staged) if b is not None))
                 if chain_memory > 2 * one_bytes + held + (1 << 20):
                     fail(f"{where}: a chain of {m + 1} steps peaked at "
                          f"{chain_memory} bytes, one call at {one_bytes} (and its "
@@ -1497,7 +1545,13 @@ def main() -> int:
                 # guard's least delta is derived from (utils/profiling.py)
                 runs = [chain_seconds(run_k, k1, dev, n=1) for _ in range(10)]
                 spreads.append(max(runs) - min(runs))
-                staged = g.stage(inp).clone()
+                # a chain's step: the staging and the graph's function, or on
+                # the in-place route the kernel's launch on the rows alone
+                if g.in_place is not None:
+                    step = lambda: g.in_place(inp)  # noqa: E731
+                else:
+                    staged = g.stage(inp).clone()
+                    step = lambda: g.fn(g.stage(inp, staged))  # noqa: E731
                 # the slope against one staged predict's device time (a
                 # chain's step), in alternating rounds where it is judged
                 # (csrc's paths at 65,536 rows), so that a drift of the
@@ -1507,8 +1561,7 @@ def main() -> int:
                 for _ in range(3 if judged else 1):
                     slopes.append(slope_time(run_k, k1, k2, device=dev) * 1e3)
                     devices.append(cuda_device_ms(
-                        lambda: g.fn(g.stage(inp, staged)), warmup=1,
-                        calls=20 if iters >= 20 else 2))
+                        step, warmup=1, calls=20 if iters >= 20 else 2))
                 slope = statistics.median(slopes)
                 device_ms = statistics.median(devices)
                 event_ms = cuda_median_ms(lambda: call(inp), iters=iters)

@@ -32,7 +32,16 @@
 //   to their first use;
 // - the block's rows are staged at an odd stride (conflict-free while a
 //   warp reads one feature) by cp.async, every copy of a thread issued
-//   before it waits: the whole block's rows are in flight at once;
+//   before it waits: the whole block's rows are in flight at once. The
+//   staging reads the caller's raw rows where they lie (ops/graphed.py's
+//   in-place route): element (r, c) of the staged rows is x[(row0 + r) * ld
+//   + cols[c]], the column map (used-feature compaction) and the row stride
+//   ld applied as each element is copied; after the copies land, each thread
+//   sets its own elements within MISSING_EPS of a finite sentinel to NaN and,
+//   where the dual form's rows arrive at width F = W / 2, writes lane F + c
+//   as -x (a sign flip, NaN kept), as ops/rows.py finish_rows does. Rows
+//   already canonicalized (no map, ld = W, a NaN sentinel) take the same
+//   path with nothing to do after the copies;
 // - tiles of whole trees (ops/fold_kernel.py fold_c_table: each tree's
 //   blocks, then its leaves, so a tile is one contiguous span) arrive by one
 //   bulk copy (TMA, counted on an mbarrier) each, into a ring of two buffers:
@@ -74,6 +83,9 @@ constexpr int kBarrierBytes = 16;  // two mbarriers (C_BARRIER_BYTES)
 // the runtime's shared memory per resident block (config.GpuLimits
 // SMEM_RESERVED_PER_BLOCK)
 constexpr int kReservedSmemPerBlock = 1024;
+// the reference's missing test, |x - sentinel| <= MISSING_EPS in f32
+// (config.MISSING_EPS)
+constexpr float kMissingEps = 1.0e-6f;
 
 // One tree's 4-byte words in the table (ops/fold_kernel.py fold_c_table):
 // its blocks, then its leaves padded to a multiple of 4.
@@ -198,11 +210,49 @@ static __device__ __forceinline__ void issue_tile(int* dst, const int* table, in
                     bar);
 }
 
+// Each element of the block's rows that this thread stages, as fn(dst,
+// src): its place in the staged rows (row r at xs + r * Ws) and in the
+// caller's rows (``x`` at the block's first row, ``ld`` apart). Rows that
+// lie end to end with no map (ld = F) are one span: element i of the block's
+// nrows * F goes to row i / F, column i % F, each thread walking its
+// elements BR apart with no division. Otherwise each warp takes its lanes'
+// columns c = lane, lane + 32, ..., reading the map once a column, down
+// every (BR / 32)-th row: no load of the map waits between two copies.
+template <class Fn>
+static __device__ __forceinline__ void each_staged(float* xs, int Ws,
+                                                   const float* x, long long ld,
+                                                   const int* __restrict__ cols,
+                                                   int F, int nrows, int tid, int BR,
+                                                   Fn fn) {
+    if (cols == nullptr && ld == F) {
+        const int dr = BR / F;
+        const int dc = BR - dr * F;
+        int r = tid / F;
+        int c = tid - r * F;
+        for (int i = tid; i < nrows * F; i += BR) {
+            fn(xs + r * Ws + c, x + i);
+            r += dr;
+            c += dc;
+            if (c >= F) {
+                c -= F;
+                ++r;
+            }
+        }
+        return;
+    }
+    const int warps = BR >> 5;
+    for (int c = tid & 31; c < F; c += 32) {
+        const float* src = x + (cols ? __ldg(cols + c) : c) + (tid >> 5) * ld;
+        for (int r = tid >> 5; r < nrows; r += warps, src += warps * ld)
+            fn(xs + r * Ws + c, src);
+    }
+}
+
 template <int Form, bool Batch>
 __global__ void __launch_bounds__(256)
-fold_kernel(const float* __restrict__ x, int rows, int W,
-            const int* __restrict__ table, int T, int D, int tile_trees,
-            float* __restrict__ out) {
+fold_kernel(const float* __restrict__ x, long long ld, const int* __restrict__ cols,
+            int F, float missing, int rows, int W, const int* __restrict__ table,
+            int T, int D, int tile_trees, float* __restrict__ out) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int BR = blockDim.x;
     const int nw = node_words(D);
@@ -225,27 +275,27 @@ fold_kernel(const float* __restrict__ x, int rows, int W,
                        &full[s]);
     }
     {
-        // Element i of the block's rows goes to row i / W, column i % W, at
-        // an odd stride (conflict-free same-lane reads); each thread walks
-        // its elements with no division and issues every copy before it
-        // waits, so the whole block's rows are in flight at once.
+        // The block's rows at an odd stride (conflict-free same-lane reads),
+        // every copy of a thread issued before it waits, so the whole
+        // block's rows are in flight at once; then this thread's own
+        // elements: the missing test (a NaN sentinel needs none: its
+        // missing values are NaN already) and the dual lanes.
         const int Ws = W | 1;
-        const int dr = BR / W;
-        const int dc = BR - dr * W;
-        int r = tid / W;
-        int c = tid - r * W;
-        const float* src = x + row0 * W + tid;
-        for (int i = tid; i < nrows * W; i += BR) {
-            tahoe_cp_async4(xs + r * Ws + c, src);
-            src += BR;
-            r += dr;
-            c += dc;
-            if (c >= W) {
-                c -= W;
-                ++r;
-            }
-        }
+        const float* xb = x + row0 * ld;
+        each_staged(xs, Ws, xb, ld, cols, F, nrows, tid, BR,
+                    [](float* dst, const float* src) { tahoe_cp_async4(dst, src); });
         tahoe_cp_async_wait_all();
+        const bool lanes = Form == kDual && F != W;
+        if (lanes || missing == missing)
+            each_staged(xs, Ws, xb, ld, cols, F, nrows, tid, BR,
+                        [&](float* dst, const float*) {
+                            float v = *dst;
+                            if (fabsf(__fsub_rn(v, missing)) <= kMissingEps) {
+                                v = __int_as_float(0x7fc00000);
+                                *dst = v;
+                            }
+                            if (lanes) dst[F] = __int_as_float(__float_as_int(v) ^ INT_MIN);
+                        });
     }
     __syncthreads();  // rows staged, mbarriers initialised
 
@@ -267,13 +317,23 @@ fold_kernel(const float* __restrict__ x, int rows, int W,
     if (tid < nrows) out[row0 + tid] = static_cast<float>(acc);
 }
 
+// The widest rows of each form's tables (ops/fold_kernel.py MAX_*_COLS)
 template <int Form>
-int launch_fold(const float* x, int rows, int W, const int* table, int T, int D,
-                int rows_per_block, int tile_trees, int smem_bytes, float* out,
-                cudaStream_t stream) {
+constexpr int max_width() {
+    return Form == kSign ? 512 : 128;
+}
+
+template <int Form>
+int launch_fold(const float* x, long long ld,
+                const int* cols, int F, float missing, int rows, int W,
+                const int* table, int T, int D, int rows_per_block, int tile_trees,
+                int smem_bytes, float* out, cudaStream_t stream) {
     if (rows == 0) return 0;
-    // whole warps and the sizes fold_launch gave
-    if (T < 0 || D < 0 || D > 15 || W < 1 || rows_per_block < 32 ||
+    // the rows, F columns of them (half the dual lanes where the kernel
+    // makes the other half), whole warps and the sizes fold_launch gave
+    if (x == nullptr || ld < 0 || F < 1 ||
+        !(F == W || (Form == kDual && 2 * F == W)) || W > max_width<Form>() ||
+        T < 0 || D < 0 || D > 15 || rows_per_block < 32 ||
         rows_per_block > 256 || rows_per_block % 32 || tile_trees < 1 ||
         reinterpret_cast<uintptr_t>(table) % 16 ||
         smem_bytes < buffer_bytes(T, D, tile_trees) + row_bytes(rows_per_block, W) +
@@ -293,33 +353,32 @@ int launch_fold(const float* x, int rows, int W, const int* table, int T, int D,
     cudaError_t err = tahoe_grant_smem(kernel, static_cast<size_t>(smem_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     const int grid = (rows + rows_per_block - 1) / rows_per_block;
-    kernel<<<grid, rows_per_block, smem_bytes, stream>>>(x, rows, W, table, T, D,
-                                                         tile_trees, out);
+    kernel<<<grid, rows_per_block, smem_bytes, stream>>>(
+        x, ld, cols, F, missing, rows, W, table, T, D, tile_trees, out);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-TAHOE_EXPORT int tahoe_fold(const float* x2, int rows, int W, const int* table,
-                            int T, int D, int rows_per_block, int tile_trees,
-                            int smem_bytes, float* out, cudaStream_t stream) {
-    return launch_fold<kDual>(x2, rows, W, table, T, D, rows_per_block, tile_trees,
-                              smem_bytes, out, stream);
-}
+// Each form's launcher. The rows: ``x``, rows ``ld`` floats apart, F
+// columns read of each, column c at cols[c] (int32; null: at c);
+// ``missing`` the finite sentinel whose values are missing, or NaN for none
+// to test. The dual form takes its [x, -x] rows at width W = 2F,
+// or their first half (F = W / 2), whose negated lanes the staging writes.
+#define TAHOE_FOLD_EXPORT(name, form)                                               \
+    TAHOE_EXPORT int name(const float* x, long long ld,                             \
+                          const int* cols, int F, float missing, int rows, int W,   \
+                          const int* table, int T, int D, int rows_per_block,       \
+                          int tile_trees, int smem_bytes, float* out,               \
+                          cudaStream_t stream) {                                    \
+        return launch_fold<form>(x, ld, cols, F, missing, rows, W, table, T,        \
+                                 D, rows_per_block, tile_trees, smem_bytes, out,    \
+                                 stream);                                           \
+    }
 
-TAHOE_EXPORT int tahoe_fold_sign(const float* x, int rows, int W, const int* table,
-                                 int T, int D, int rows_per_block, int tile_trees,
-                                 int smem_bytes, float* out, cudaStream_t stream) {
-    return launch_fold<kSign>(x, rows, W, table, T, D, rows_per_block, tile_trees,
-                              smem_bytes, out, stream);
-}
-
-TAHOE_EXPORT int tahoe_fold_nonge(const float* x, int rows, int W, const int* table,
-                                  int T, int D, int rows_per_block, int tile_trees,
-                                  int smem_bytes, float* out, cudaStream_t stream) {
-    return launch_fold<kNonGe>(x, rows, W, table, T, D, rows_per_block, tile_trees,
-                               smem_bytes, out, stream);
-}
+TAHOE_FOLD_EXPORT(tahoe_fold, kDual)
+TAHOE_FOLD_EXPORT(tahoe_fold_sign, kSign)
+TAHOE_FOLD_EXPORT(tahoe_fold_nonge, kNonGe)
 
 // Registers a thread of the instance of kernel C for ``form`` (0 dual, 1
 // sign, 2 non-ge) with or without its batched block loads.

@@ -31,7 +31,12 @@ which arrive by TMA into a ring of two buffers while the last tile
 descends, beside the block's rows at an odd stride; the deep kernel
 (csrc/fold_deep.cu, the counterpart of the subtree-split fold) stages only
 the rows and reads the blocks through the read-only cache. ``fold_plan``
-picks the one measured faster, in every form (PERF.md section 6). The TPU
+picks the one measured faster, in every form (PERF.md section 6). Where it
+picks kernel C, the engine launches it directly on the caller's raw rows,
+where they lie (``fold_margins_at``, ops/graphed.py's in-place route):
+kernel C's row staging applies the column map, the missing test and the
+dual lanes that ops/rows.py ``finish_rows(stage_rows(...))`` applies
+elsewhere. The TPU
 tiling, VMEM estimates, split grid and compile walls have no counterpart
 here.
 """
@@ -44,11 +49,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tahoe_tpu_torch.config import GpuLimits, resolve_device
+from tahoe_tpu_torch.config import MISSING_EPS, GpuLimits, resolve_device
 from tahoe_tpu_torch.forest.compiler import compact_leveled, ge_normalize, levelize
 from tahoe_tpu_torch.forest.spec import ForestSpec, LeveledForest
 from tahoe_tpu_torch.ops._build import CudaKernel, check_operand, ptr
-from tahoe_tpu_torch.ops.graphed import GraphedEngine
+from tahoe_tpu_torch.ops.graphed import GraphedEngine, row_stride
 from tahoe_tpu_torch.ops.rows import finish_rows, stage_rows
 
 # the dual-lane form's feature cap: [x, -x] within the fold's 128 lanes
@@ -87,9 +92,13 @@ BLOCK_NONGE_SEL_LT = 1 << 7
 BLOCK_NONGE_FLIP = 1 << 8
 BLOCK_NONGE_FID = BLOCK_NONGE_SEL_LT - 1
 
-_FOLD_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_void_p]
+# kernel C's launchers (csrc/fold.cu TAHOE_FOLD_EXPORT): the rows, their
+# row stride, the column map, the columns read, the missing sentinel; rows,
+# W, then the table and the block
+_FOLD_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 FOLD = CudaKernel("tahoe_fold", _FOLD_ARGS,
                   source="tahoe_tpu_torch/csrc/fold.cu",
                   replaces="tahoe_tpu/ops/fold_kernel.py:531")
@@ -396,12 +405,49 @@ def _check(x: torch.Tensor, t: FoldTables) -> None:
 
 def fold_margins_cuda(x: torch.Tensor, t: FoldTables, table: torch.Tensor,
                       launch: FoldLaunch) -> torch.Tensor:
-    """Kernel C on the card (csrc/fold.cu), in the tables' form; ``table``
-    is ``fold_c_table(t)``."""
+    """Kernel C on the card (csrc/fold.cu) on canonicalized rows, in the
+    tables' form; ``table`` is ``fold_c_table(t)``."""
     _check(x, t)
-    dev = x.device
-    check_operand(table, "table", torch.int32, dev, 2)
     R, W = x.shape
+    return _fold_c(t, table, launch, x.device, R, ptr(x), ld=W, F=W)
+
+
+def fold_margins_at(x: torch.Tensor, t: FoldTables, table: torch.Tensor,
+                    launch: FoldLaunch, missing: float,
+                    cols: torch.Tensor | None) -> torch.Tensor:
+    """Kernel C on the caller's raw f32 rows ``x`` [R, C], read where they
+    lie (ops/graphed.py's in-place route: any row stride, adjacent
+    columns): its row staging applies ``cols`` (int32 ``t.col_index``), the
+    missing test and the dual lanes that ``finish_rows(stage_rows(...))``
+    applies (``fold_rows_plain`` is its plain version). The margins equal
+    kernel C's on those canonicalized rows bit for bit."""
+    dev = x.device
+    ld = row_stride(x, dev)
+    if ld is None:
+        raise ValueError(f"kernel C reads in place only f32 [R, C] rows with "
+                         f"adjacent columns, not {x.dtype} {tuple(x.shape)} "
+                         f"at strides {x.stride()}")
+    F = t.num_cols
+    if cols is None:
+        if x.shape[1] != F:
+            raise ValueError(f"rows of {x.shape[1]} columns are not {F} wide "
+                             f"({t.form} form, no column map)")
+    else:
+        check_operand(cols, "cols", torch.int32, dev, 1)
+        if cols.shape != (F,):
+            raise ValueError(f"a column map of {tuple(cols.shape)} for {F} "
+                             f"features")
+    return _fold_c(t, table, launch, dev, x.shape[0], ptr(x), ld=ld, F=F,
+                   cols=None if cols is None else ptr(cols),
+                   missing=float(np.float32(missing)))
+
+
+def _fold_c(t: FoldTables, table: torch.Tensor, launch: FoldLaunch,
+            dev: torch.device, R: int, x, *, ld: int, F: int, cols=None,
+            missing: float = float("nan")) -> torch.Tensor:
+    """One launch of kernel C over R rows at ``x`` (csrc/fold.cu
+    TAHOE_FOLD_EXPORT's arguments)."""
+    check_operand(table, "table", torch.int32, dev, 2)
     T = t.leaf.shape[0]
     if table.shape != (T, tree_bytes(t.depth) // 4):
         raise ValueError(f"table {tuple(table.shape)} does not match the "
@@ -411,9 +457,27 @@ def fold_margins_cuda(x: torch.Tensor, t: FoldTables, table: torch.Tensor,
                          "(its tiles arrive by bulk copy)")
     out = torch.empty(R, dtype=torch.float32, device=dev)
     FOLD_KERNELS[t.form].launch(
-        dev, ptr(x), R, W, ptr(table), T, t.depth, launch.rows_per_block,
-        launch.tile_trees, launch.smem_bytes, ptr(out))
+        dev, x, ld, cols, F, missing, R, t.width, ptr(table), T, t.depth,
+        launch.rows_per_block, launch.tile_trees, launch.smem_bytes, ptr(out))
     return out
+
+
+def fold_rows_plain(x: torch.Tensor, rows: int, ld: int,
+                    cols: torch.Tensor | None, num_cols: int, missing: float,
+                    dual: bool) -> torch.Tensor:
+    """Plain PyTorch version of kernel C's row staging on raw rows:
+    ``x`` the caller's f32 values from its first row on (flat), ``rows``
+    rows ``ld`` apart. Element (r, c) is x[r * ld + cols[c]] (or c), set to
+    NaN where it lies within MISSING_EPS of a finite ``missing``, and in the
+    dual form lane F + c is its negation: ops/rows.py ``finish_rows(
+    stage_rows(...))`` bit for bit."""
+    c = (torch.arange(num_cols, device=x.device) if cols is None
+         else cols.to(torch.int64))
+    v = x[torch.arange(rows, device=x.device)[:, None] * ld + c[None, :]]
+    if not np.isnan(np.float32(missing)):
+        far = torch.abs(v - float(np.float32(missing)))
+        v = v.masked_fill(far <= float(np.float32(MISSING_EPS)), float("nan"))
+    return torch.cat([v, v.neg()], dim=1) if dual else v
 
 
 def block_codes(t: FoldTables) -> torch.Tensor:
@@ -669,6 +733,11 @@ class FoldKernelEngine(GraphedEngine):
         # kernel C's trees of blocks and leaves
         self.blocks = deep_blocks(t) if deep else None
         self.c_table = None if deep else fold_c_table(t)
+        # kernel C's column map, and the columns raw rows need for it
+        self._cols = (None if deep or t.col_index is None
+                      else t.col_index.to(torch.int32))
+        self._raw_cols = (0 if self._cols is None or not self._cols.numel()
+                          else int(self._cols.max()) + 1)
         # one CUDA graph a shape on the card (ops/graphed.py), as the JAX
         # engine jits _predict_impl
         self._graph()
@@ -699,3 +768,15 @@ class FoldKernelEngine(GraphedEngine):
 
     def _margins_staged(self, x: torch.Tensor) -> torch.Tensor:
         return self.margins_rows(self.finish(x))
+
+    def _reads_in_place(self) -> bool:
+        """Kernel C reads the raw rows where they lie (ops/graphed.py's
+        in-place route); the deep kernel takes them staged."""
+        return self.c_table is not None
+
+    def _margins_in_place(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 2 and x.shape[1] < self._raw_cols:  # as index_select
+            raise ValueError(f"rows of {x.shape[1]} columns; the forest reads "
+                             f"column {self._raw_cols - 1}")
+        return fold_margins_at(x, self.tables, self.c_table, self.launch,
+                               self.missing, self._cols)

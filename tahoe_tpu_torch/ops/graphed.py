@@ -35,27 +35,57 @@ the counts it added, sets them back (a capture runs nothing on the card),
 and every replay adds them again: one replay counts what one eager call
 counts.
 
+**The in-place route** (``graphed(fn, device, stage, in_place)``). An
+engine whose kernel reads the raw rows itself gives ``in_place(x)``, its
+call on the caller's f32 rows where they lie (``row_stride``: any row
+stride, adjacent columns): the kernel applies the column gather and the
+engine's own transforms as it stages the rows. On this route a call
+captures no graph: it launches ``in_place(rows)`` directly on the current
+stream, as an eager op would, and ``stage`` does not run. A graph bakes
+the address of its input into the capture, so a graph here would need the
+rows copied into a static input, or their address passed through device
+memory, and a direct launch needs neither (PERF.md section 6 times the
+two against each other). The engine's output transform, where the forest
+has one (an average, a bias, a sigmoid), runs as eager elementwise ops
+after the kernel. Rows that cannot be read in place
+(numpy, host tensors, other dtypes, strided columns) are first made a
+contiguous f32 tensor on the device. A chain captures its steps reading
+its own device copy of the rows. Kernel C's engine takes the route
+(ops/fold_kernel.py ``FoldKernelEngine`` where ``fold_plan`` picks kernel
+C, ``SPLIT_FOREST`` and ``VMEM_FOREST``): its row staging copies each
+element anyway, so the gather, the copy into the static input and the dual
+lanes were passes of their own over the same rows. The deep kernel's route
+and every other engine stage as above.
+
 Spans and counters. While a profiler records, each call on ``cuda`` marks
 host spans (utils/profiling.py ``span``) that the trace ties to the device
 work they launch: ``tahoe_stage`` around the staging into the static
-input (the copy, or the column gather), ``tahoe_replay`` around the
-graph's launch, ``tahoe_clone`` around the clone of its output, and
-``tahoe_capture`` around a shape's warm-up and capture (a predict's, or a
-chain graph's), so that a capture in steady state shows in any trace.
-The CPU path and a call inline in an outer capture mark none; Forest.predict
+input (the copy, or the column gather; on the in-place route only the
+conversion of rows that cannot be read in place), ``tahoe_replay`` around
+the graph's launch (on the in-place route, the kernel's own launch),
+``tahoe_clone`` around the clone of its output, and ``tahoe_capture``
+around a shape's warm-up and capture (a predict's, or a chain graph's), so
+that a capture in steady state shows in any trace.
+The CPU path and a staged call inline in an outer capture mark none; Forest.predict
 marks ``tahoe_predict`` around the whole call. With no profiler a span is
 one test of a flag. ``counters()`` snapshots monotonic totals over every
 graphed callable: ``captures`` and ``capture_s`` (each capture's
-``_Graph.seconds``), ``replays`` (each replay of a predict's graph),
+``_Graph.seconds``), ``replays`` (each call served without a capture: a
+replay of a predict's graph, or on the in-place route the kernel's direct
+launch, which takes the graph's place),
 ``staged_bytes`` (the static input's bytes, each time a call stages into it
-outside the graph) and ``launches`` (the kernels' counts above, summed).
+outside the graph, or the rows the in-place route converts),
+``direct_calls`` (the in-place route's calls whose rows the kernel read
+where they lie) and ``launches`` (the kernels' counts above, summed).
 They are plain adds on the host. An operator checks the graph cache with
 them: in steady state ``captures`` stays flat, ``replays`` counts the calls,
-and ``staged_bytes`` a row is what the staging step moves. On a chain
-``captures`` and ``capture_s`` count its graphs (the one-step graph and
-each m-step graph) and ``launches`` k calls' launches; its staging runs
-inside its graphs and its replays are the timing's, so ``replays`` and
-``staged_bytes`` do not move.
+and ``staged_bytes`` a row is what the staging step moves; on the in-place
+route, with rows on the card, ``captures`` and ``staged_bytes`` stay flat
+and ``direct_calls`` equals ``replays``. On a
+chain ``captures`` and ``capture_s`` count its graphs (the one-step graph
+and each m-step graph) and ``launches`` k calls' launches; its staging runs
+inside its graphs and its replays are the timing's, so ``replays``,
+``staged_bytes`` and ``direct_calls`` do not move.
 
 Memory: every graph of one callable keeps its intermediates in one memory
 pool, shared by its shapes: the replays run one at a time on one stream and
@@ -119,13 +149,14 @@ CHAIN_PROBE_REPLAYS = 10
 
 
 # the totals counters() reads, besides the kernels' launch counts
-_TOTALS = {"captures": 0, "capture_s": 0.0, "replays": 0, "staged_bytes": 0}
+_TOTALS = {"captures": 0, "capture_s": 0.0, "replays": 0, "staged_bytes": 0,
+           "direct_calls": 0}
 
 
 def counters() -> dict:
     """Monotonic totals over every graphed callable (the module docstring,
-    "Spans and counters"): captures, capture_s, replays, staged_bytes and
-    launches."""
+    "Spans and counters"): captures, capture_s, replays, staged_bytes,
+    direct_calls and launches."""
     return {**_TOTALS, "launches": sum(k.launches for k in _build.KERNELS)}
 
 
@@ -188,10 +219,23 @@ def _weak(fn: Callable):
     return weakref.WeakMethod(fn) if inspect.ismethod(fn) else (lambda: fn)
 
 
+def row_stride(rows, device: torch.device) -> int | None:
+    """The row stride at which the in-place route reads ``rows`` where
+    they lie: a 2-D f32 tensor on ``device`` whose columns are adjacent.
+    None for any other rows, which are staged first."""
+    if not (isinstance(rows, torch.Tensor) and rows.dtype == torch.float32
+            and rows.dim() == 2 and rows.device == device):
+        return None
+    R, C = rows.shape
+    if C > 1 and rows.stride(1) != 1:
+        return None
+    return rows.stride(0) if R > 1 else C
+
+
 class _Graph(NamedTuple):
-    """One capture: the graph, its static buffers, the launches it holds
-    and the seconds its warm-up and capture took (a chain's graph: its
-    capture's)."""
+    """One capture: the graph, its static buffers (a chain on the in-place
+    route has no static input), the launches it holds and the seconds its
+    warm-up and capture took (a chain's graph: its capture's)."""
 
     graph: torch.cuda.CUDAGraph
     static_in: torch.Tensor
@@ -202,8 +246,9 @@ class _Graph(NamedTuple):
 
 class _Chain(NamedTuple):
     """A chain's buffers at one input shape: the rows on the device that
-    every step stages from, the static input every step stages into, and
-    m, the steps a replay."""
+    every step stages from (or reads in place), the static input every step
+    stages into (None on the in-place route), and m, the steps a
+    replay."""
 
     src: torch.Tensor
     staged: torch.Tensor
@@ -212,11 +257,13 @@ class _Chain(NamedTuple):
 
 class graphed:
     """``fn(stage(rows))`` on ``device``, ``fn`` in one CUDA graph per
-    input shape (the module docstring). ``graphs`` maps each key to its
-    capture; ``chains`` maps (rows, columns, steps) to a chain's graph of
-    that many steps."""
+    input shape (the module docstring); with ``in_place``, the in-place
+    route's ``in_place(rows)`` launched directly in its place on the card.
+    ``graphs`` maps each key to its capture; ``chains`` maps (rows, columns,
+    steps) to a chain's graph of that many steps."""
 
-    def __init__(self, fn: Callable, device, stage: Callable):
+    def __init__(self, fn: Callable, device, stage: Callable,
+                 in_place: Callable | None = None):
         self.device = resolve_device(device)
         owner = getattr(fn, "__self__", None)
         # a bound method is named by its engine's class, not by the class
@@ -224,6 +271,7 @@ class graphed:
         self.name = (f"{type(owner).__name__}.{fn.__name__}"
                      if owner is not None else fn.__qualname__)
         self._fn, self._stage = _weak(fn), _weak(stage)
+        self._in_place = None if in_place is None else _weak(in_place)
         self.graphs: dict = {}
         self.chains: dict = {}
         self._chain_shapes: dict = {}
@@ -243,6 +291,11 @@ class graphed:
     def stage(self) -> Callable:
         return self._held(self._stage)
 
+    @property
+    def in_place(self) -> Callable | None:
+        """The in-place route's call, or None where the callable stages."""
+        return None if self._in_place is None else self._held(self._in_place)
+
     def release(self) -> None:
         """Drop every graph and their pool."""
         self.graphs.clear()
@@ -251,10 +304,14 @@ class graphed:
         self._pool = None
 
     def __call__(self, rows):
-        if self.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        if self.device.type != "cuda":
             return self.fn(self.stage(rows))
         key = tuple(np.shape(rows))
         if not key or key[0] == 0:
+            return self.fn(self.stage(rows))
+        if self._in_place is not None:
+            return self._call_in_place(rows)
+        if torch.cuda.is_current_stream_capturing():
             return self.fn(self.stage(rows))
         g = self.graphs.get(key)
         if g is None:
@@ -274,6 +331,21 @@ class graphed:
         _TOTALS["replays"] += 1
         add_launches(g.launches)
         return out
+
+    def _call_in_place(self, rows) -> torch.Tensor:
+        """A call on the in-place route (the module docstring): no graph,
+        the engine's own launch on the rows where they lie."""
+        fn = self.in_place
+        if row_stride(rows, self.device) is None:
+            with span("tahoe_stage"):
+                rows = torch.as_tensor(rows, dtype=torch.float32,
+                                       device=self.device).contiguous()
+            _TOTALS["staged_bytes"] += rows.nbytes
+        else:
+            _TOTALS["direct_calls"] += 1
+        _TOTALS["replays"] += 1
+        with span("tahoe_replay"):
+            return fn(rows)
 
     def _capture(self, key: tuple, rows) -> torch.Tensor:
         """The first call at ``key``: the warm-up's output, and the graph."""
@@ -312,9 +384,8 @@ class graphed:
         key = tuple(np.shape(rows))
         if (self.device.type != "cuda" or torch.cuda.is_current_stream_capturing()
                 or not key or key[0] == 0):
-            fn, stage = self.fn, self.stage
-            for _ in range(k):
-                out = fn(stage(rows))
+            for _ in range(k):  # each call inline
+                out = self(rows)
             return out
         c = self._chain_shapes.get(key)
         if c is None:
@@ -338,21 +409,25 @@ class graphed:
     def _chain_shape(self, key: tuple, rows) -> _Chain:
         """The first chain at ``key``: its buffers, a warm-up step on a side
         stream (uncounted), the one-step graph, and m from its replays."""
-        fn = self.fn
-        src = torch.as_tensor(rows, device=self.device).clone(
+        in_place = self._in_place is not None
+        src = torch.as_tensor(rows, dtype=torch.float32 if in_place else None,
+                              device=self.device).clone(
             memory_format=torch.contiguous_format)
-        staged = self.stage(src).clone(memory_format=torch.contiguous_format)
+        staged = (None if in_place else
+                  self.stage(src).clone(memory_format=torch.contiguous_format))
+        first = _Chain(src, staged, 1)
+        step = self._chain_step(first)
         before = launch_counts()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            out = fn(self.stage(src, staged))
+            out = step()
         current.wait_stream(side)
         out.record_stream(current)
         del out
         take_launches(before)
-        one = self._chain_graph(key, _Chain(src, staged, 1), 1)
+        one = self._chain_graph(key, first, 1)
         try:
             one.graph.replay()  # the first replay uploads the graph
             start = torch.cuda.Event(enable_timing=True)
@@ -370,13 +445,22 @@ class graphed:
         c = self._chain_shapes[key] = _Chain(src, staged, steps)
         return c
 
+    def _chain_step(self, c: _Chain) -> Callable:
+        """One step of a chain: the staging from ``c.src`` and ``fn``, or
+        the in-place call on ``c.src``."""
+        if self._in_place is not None:
+            fn, src = self.in_place, c.src
+            return lambda: fn(src)
+        fn, stage = self.fn, self.stage
+        return lambda: fn(stage(c.src, c.staged))
+
     def _chain_graph(self, key: tuple, c: _Chain, steps: int) -> _Graph:
         """The graph of ``steps`` chained calls at ``key``, captured on
         first use."""
         g = self.chains.get(chain_key(key, steps))
         if g is not None:
             return g
-        fn, stage = self.fn, self.stage
+        step = self._chain_step(c)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         before = launch_counts()
@@ -387,7 +471,7 @@ class graphed:
                 # and the synchronize that open every capture
                 t0 = time.perf_counter()
                 for _ in range(steps):
-                    out = fn(stage(c.src, c.staged))
+                    out = step()
         except Exception as e:
             take_launches(before)
             raise RuntimeError(f"{self.name}: the capture of a chain at rows, "
@@ -404,11 +488,25 @@ class GraphedEngine:
     transform's fields (``num_trees``, ``output``, ``global_bias``,
     ``threshold``), ``_stage(rows, out=None)`` (its step that reads the raw
     rows, ops/rows.py ``stage_rows``) and ``_margins_staged(x)`` (the
-    margins of staged rows), and calls ``_graph()`` once it can stage."""
+    margins of staged rows), and calls ``_graph()`` once it can stage; one
+    whose kernel reads raw rows itself also gives ``_reads_in_place()`` and
+    ``_margins_in_place(x)``."""
 
     def _graph(self) -> None:
-        self._predict = graphed(self._predict_staged, self.device, self._stage)
-        self._margins = graphed(self._margins_staged, self.device, self._stage)
+        in_place = self._reads_in_place()
+        self._predict = graphed(self._predict_staged, self.device, self._stage,
+                                self._predict_in_place if in_place else None)
+        self._margins = graphed(self._margins_staged, self.device, self._stage,
+                                self._margins_in_place if in_place else None)
+
+    def _reads_in_place(self) -> bool:
+        """Whether the engine's kernel reads raw rows where they lie, as
+        ``_margins_in_place(x)``, x f32 rows with adjacent columns on the
+        card (the module docstring's in-place route)."""
+        return False
+
+    def _predict_in_place(self, x: torch.Tensor) -> torch.Tensor:
+        return self._finish(self._margins_in_place(x))
 
     def _finish(self, margins: torch.Tensor) -> torch.Tensor:
         return apply_output_transform(margins, self.num_trees, self.output,

@@ -15,6 +15,18 @@ gather, or a copy into a given buffer), outside an engine's CUDA graph;
 it. A value's missing test does not depend on its column, so testing after
 the gather gives the same rows.
 
+Kernel C reads raw rows itself (ops/graphed.py's in-place route, which
+``FoldKernelEngine`` takes where ``fold_plan`` picks kernel C): its row
+staging applies the column gather, the missing test and the dual lanes to
+each element as it copies it into shared memory (csrc/fold.cu;
+ops/fold_kernel.py ``fold_rows_plain`` is its plain version, equal to
+``finish_rows(stage_rows(...))`` bit for bit), so on that route neither
+step runs: each call launches kernel C directly on the caller's rows,
+where they lie, on the current stream. Rows the kernel cannot read where
+they lie are first made a contiguous f32 tensor on the device, unchanged.
+Every other engine, and kernel C's callers that pass canonicalized rows
+(the depth-bucketed fold, ``margins_rows``), stage and finish as above.
+
 The CUDA kernels need no lane padding, so none is added. ``missing_mask``
 is the missing test on its own, for the plain torch engines that test rows
 as they gather them, and ``map_row_chunks`` runs those engines over a batch

@@ -226,6 +226,7 @@ def measure(device="cuda") -> Calibration:
         fold_c_table, fold_deep_cuda, fold_launch, fold_margins_cuda,
         fold_smem_bytes, fold_tables)
     from tahoe_tpu_torch.ops.gather_engine import GatherEngine
+    from tahoe_tpu_torch.ops.graphed import graphed
     from tahoe_tpu_torch.ops.rank_kernel import (
         RANK_FOLD, rank_margins_cuda, rank_tables)
     from tahoe_tpu_torch.ops.rank_transform import RANK_PLANES, rank_planes_cuda
@@ -489,15 +490,17 @@ def measure(device="cuda") -> Calibration:
 
         # -- the host ----------------------------------------------------
         # a whole graphed call of the shortest kernel path: FoldKernelEngine's
-        # predict (dual rows: two ops, one launch, no output op), issued back
-        # to back
+        # predict on its staged route (dual rows: two ops, one launch, no
+        # output op; its engine launches kernel C directly instead), issued
+        # back to back
         tiny = synthetic.generate_forest(1, 1, 2, seed=5)
         teng = FoldKernelEngine(tiny, device=dev)
+        tcall = graphed(teng._predict_staged, dev, teng._stage)
         trow = rows_d[:32, :2]
 
         def calls():
             for _ in range(HOST_CALLS):
-                teng.predict(trow)
+                tcall(trow)
 
         call_us = host_us(calls, dev) / HOST_CALLS
         # a graph node's part of a replay's issue: graphs of 1 and of
@@ -520,7 +523,7 @@ def measure(device="cuda") -> Calibration:
         node_us = max(0.0, (issue[1] - issue[0]) / (GRAPH_NODES - 1))
         # what an event pair around a call reads past its host issue, in
         # calls back to back as the enumeration times them
-        latency_us = max(0.0, cuda_median_ms(lambda: teng.predict(trow),
+        latency_us = max(0.0, cuda_median_ms(lambda: tcall(trow),
                                              iters=HOST_CALLS) * 1e3 - call_us)
     for k, c in zip(kernels, counts):
         k.launches = c

@@ -678,8 +678,10 @@ def run_c(other_lib, libs: dict, rounds: int) -> dict:
 
             def call(fn=fn, x=x, t=t):
                 m = torch.empty(R, dtype=torch.float32, device=dev)
-                checked(fn(ptr(x), R, W, ptr(table), T, t.depth, launch.rows_per_block,
-                           launch.tile_trees, launch.smem_bytes, ptr(m), stream()),
+                # canonicalized rows: W columns, W apart, no map, nothing to test
+                checked(fn(ptr(x), W, None, W, float("nan"), R, W, ptr(table), T,
+                           t.depth, launch.rows_per_block, launch.tile_trees,
+                           launch.smem_bytes, ptr(m), stream()),
                         symbol)
                 return m
             fns[name] = call

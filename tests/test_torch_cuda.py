@@ -37,8 +37,10 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     fold_c_table,
     fold_deep_cuda,
     fold_launch,
+    fold_margins_at,
     fold_margins_cuda,
     fold_margins_plain,
+    fold_rows_plain,
     fold_smem_bytes,
     fold_tables,
 )
@@ -320,6 +322,63 @@ def test_fold_sign_kernel(dev, depth):
     np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
                                Forest(forest, device="cpu").predict_oracle(data),
                                atol=ORACLE_ATOL, rtol=0)
+
+
+# kernel C on raw rows, one case a form: (forest, columns, missing, ge_mode)
+RAW_CASES = {
+    "cup98_sign": (lambda: compiler.hot_child_swap(_wide_forest(
+        150, 8, 479, 300, seed=21, leaf_prob=0.05)), 479, float("nan"), True),
+    "susy_dual": (lambda: synthetic.susy_class_forest(seed=0), 18, float("nan"), True),
+    "nonge_sentinel": (lambda: _wide_forest(40, 6, 150, 60, seed=22, leaf_prob=0.1,
+                                            missing=-999.0), 150, -999.0, False),
+}
+
+
+@pytest.mark.parametrize("pad", [0, 5], ids=["ld_cols", "ld_wider"])
+@pytest.mark.parametrize("case", sorted(RAW_CASES))
+def test_kernel_c_on_raw_rows(dev, case, pad):
+    """Kernel C reading raw rows where they lie (the column map, a row
+    stride, the missing test and the dual lanes in its staging) gives the
+    margins of kernel C on ``finish(stage(rows))`` bit for bit, on
+    cup98-class (479 columns, 300 mapped, sign form), SUSY-class (18
+    columns, dual, 2% NaN) and a non-ge forest with a finite sentinel;
+    4,999 rows, a last block part full."""
+    build, cols, missing, ge_mode = RAW_CASES[case]
+    forest = build()
+    eng = FoldKernelEngine(forest, device=dev, ge_mode=ge_mode)
+    t = eng.tables
+    assert isinstance(eng.launch, FoldLaunch)
+    data = synthetic.generate_data(4999, cols, missing=missing, missing_prob=0.02,
+                                   seed=23)
+    data[0, 0], data[1, 1], data[2, 2] = -0.0, np.inf, 1e-40
+    raw = torch.as_tensor(data, device=dev)
+    buf = torch.full((4999, cols + pad), 5.0, device=dev)
+    buf[:, :cols] = raw
+    x = buf[:, :cols]
+    want = fold_margins_cuda(eng.canonicalize(raw), t, eng.c_table, eng.launch)
+    kernel = FOLD_KERNELS[t.form]
+    before = kernel.launches
+    got = fold_margins_at(x, t, eng.c_table, eng.launch, eng.missing, eng._cols)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, want)
+    plain = fold_margins_plain(fold_rows_plain(
+        buf.reshape(-1), 4999, cols + pad, t.col_index, t.num_cols, eng.missing,
+        t.form == "dual"), t)
+    assert torch.allclose(got, plain, atol=KERNEL_ATOL, rtol=0)
+    # rows it cannot read in place are refused, and so are no rows, or a
+    # width the form does not allow, at the launcher
+    with pytest.raises(ValueError, match="in place"):
+        fold_margins_at(buf[:, :2 * cols:2], t, eng.c_table, eng.launch,
+                        eng.missing, eng._cols)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernel.launch(dev, None, cols, None, t.num_cols, float("nan"), 8, t.width,
+                      ptr(eng.c_table), t.leaf.shape[0], t.depth, *eng.launch,
+                      ptr(got))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernel.launch(dev, ptr(x), cols, None, t.num_cols + 1, float("nan"), 8,
+                      t.width, ptr(eng.c_table), t.leaf.shape[0], t.depth,
+                      *eng.launch, ptr(got))
 
 
 @pytest.mark.parametrize("depth,cols", [(6, 90), (13, 40)])

@@ -6,6 +6,7 @@ Margins are held to the JAX engine within 1e-5 (the port sums leaves in f64,
 the TPU kernel in f32 tiles) and to the oracle within ORACLE_ATOL.
 """
 import dataclasses
+import functools
 import types
 
 import numpy as np
@@ -47,6 +48,7 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     fold_launch,
     fold_margins_plain,
     fold_plan,
+    fold_rows_plain,
     fold_smem_bytes,
     fold_table_bytes,
     fold_tables,
@@ -193,6 +195,59 @@ def test_sign_form_matches_jax_and_oracle(name):
     np.testing.assert_allclose(got, np.asarray(jeng.predict(data)),
                                atol=JAX_ATOL, rtol=0)
     np.testing.assert_allclose(got, oracle.predict(forest, data),
+                               atol=ORACLE_ATOL, rtol=0)
+
+
+# each form over rows wider than its compaction cap, so that its tables
+# carry a column map: (trees, depth, num_cols, active, ge_mode)
+RAW_FORMS = {"dual": (10, 4, 100, 30, True), "sign": (20, 5, 479, 300, True),
+             "nonge": (10, 4, 150, 60, False)}
+RAW_MISSING = {"nan": float("nan"), "sentinel": -999.0}
+
+
+@functools.lru_cache(maxsize=None)
+def _raw_case(form, missing):
+    """A forest of ``form`` with a column map, 40 rows with missing values
+    and exact threshold hits, and the JAX engine's predictions of them."""
+    trees, depth, num_cols, active, ge_mode = RAW_FORMS[form]
+    forest = _sparse_wide_forest(trees, depth, num_cols, active, seed=trees + depth,
+                                 leaf_prob=0.1, missing=RAW_MISSING[missing])
+    data = synthetic.generate_data(40, num_cols, missing=RAW_MISSING[missing],
+                                   missing_prob=0.15, seed=active)
+    data[0, forest.fids[0, :7]] = forest.values[0, :7]
+    jeng = JaxFoldKernelEngine(compiler.levelize(forest), row_tile=8,
+                               tree_tile=32, ge_mode=ge_mode, interpret=True)
+    return forest, data, np.asarray(jeng.predict(data))
+
+
+@pytest.mark.parametrize("pad", [0, 3], ids=["ld_cols", "ld_wider"])
+@pytest.mark.parametrize("missing", sorted(RAW_MISSING))
+@pytest.mark.parametrize("mapped", [True, False], ids=["map", "no_map"])
+@pytest.mark.parametrize("form", sorted(RAW_FORMS))
+def test_kernel_c_staging_of_raw_rows(form, mapped, missing, pad):
+    """``fold_rows_plain``, kernel C's row staging from raw rows (the
+    column map, a row stride, the missing test, the dual lanes), equals
+    ``finish_rows(stage_rows(rows))`` bit for bit; the margins of its rows
+    hold to the JAX engine and the oracle. Without a map the raw rows are
+    the used columns already."""
+    forest, data, jax_pred = _raw_case(form, missing)
+    eng = FoldKernelEngine(_port(forest), device=CPU, ge_mode=RAW_FORMS[form][4])
+    t = eng.tables
+    assert eng.form == form and t.col_index is not None
+    raw, cols = torch.as_tensor(data), t.col_index
+    if not mapped:
+        raw, cols = raw[:, cols], None
+    R, C = raw.shape
+    buf = torch.full((R, C + pad), 5.0)
+    buf[:, :C] = raw
+    got = fold_rows_plain(buf.reshape(-1), R, C + pad, cols, t.num_cols,
+                          eng.missing, form == "dual")
+    want = eng.canonicalize(data)
+    assert got.shape == want.shape == (R, t.width)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    pred = eng._finish(fold_margins_plain(got, t)).numpy()
+    np.testing.assert_allclose(pred, jax_pred, atol=JAX_ATOL, rtol=0)
+    np.testing.assert_allclose(pred, oracle.predict(forest, data),
                                atol=ORACLE_ATOL, rtol=0)
 
 

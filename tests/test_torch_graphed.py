@@ -115,6 +115,51 @@ def test_predict_is_predict_impl_and_the_jax_forest(strategy):
                                f.predict_oracle(data), atol=ORACLE_ATOL, rtol=0)
 
 
+# the strategies whose engine runs kernel C on _forest(), which reads raw
+# rows in place on the card
+IN_PLACE = {Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST}
+
+
+@pytest.mark.parametrize("strategy", list(Strategy), ids=lambda s: s.name)
+def test_only_kernel_c_takes_the_in_place_route(strategy):
+    """FoldKernelEngine offers the in-place route where fold_plan picks
+    kernel C; every other engine stages. A graph's function on the staged
+    rows is the eager call either way."""
+    eng = Forest(_forest(), device="cpu").engine(strategy)
+    for method in ("predict", "margins"):
+        g = getattr(eng, f"_{method}")
+        assert (g.in_place is not None) == (strategy in IN_PLACE), method
+        if g.in_place is not None:
+            assert g.in_place.__func__ is getattr(type(eng), f"_{method}_in_place")
+
+
+def test_the_deep_kernel_route_stages():
+    """Past depth 14 SPLIT_FOREST runs the deep kernel, which takes its
+    rows staged."""
+    from tahoe_tpu_torch.ops.fold_kernel import DeepLaunch
+
+    spec = synthetic.generate_forest(2, 15, 9, seed=4)
+    eng = Forest(spec, device="cpu").engine(Strategy.SPLIT_FOREST)
+    assert isinstance(eng.launch, DeepLaunch)
+    assert eng._predict.in_place is None and eng._margins.in_place is None
+
+
+def test_row_stride_reads_only_f32_rows_with_adjacent_columns():
+    cpu = torch.device("cpu")
+    table = torch.zeros(10, 12)
+    assert graphed.row_stride(table, cpu) == 12
+    assert graphed.row_stride(table[2:7], cpu) == 12
+    assert graphed.row_stride(table[:, 3:9], cpu) == 12  # a row stride past C
+    assert graphed.row_stride(table[4:5, 3:9], cpu) == 6  # one row: C
+    assert graphed.row_stride(table[:, :1], cpu) == 12  # one column
+    assert graphed.row_stride(table.t(), cpu) is None  # strided columns
+    assert graphed.row_stride(table[:, ::2], cpu) is None
+    assert graphed.row_stride(table.double(), cpu) is None
+    assert graphed.row_stride(table.numpy(), cpu) is None
+    assert graphed.row_stride(table[0], cpu) is None
+    assert graphed.row_stride(table, torch.device("cuda", 0)) is None
+
+
 def _stand_ins(n):
     return [_build.CudaKernel(f"stand_in_{i}", [], source="none",
                               replaces="none") for i in range(n)]
@@ -219,6 +264,8 @@ def _card_rows(n, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("strategy", list(Strategy), ids=lambda s: s.name)
 def test_graphed_equals_eager_and_captures_once_a_shape(dev, strategy):
+    """A staging engine captures once a shape; on the in-place route
+    (kernel C) a call captures nothing."""
     f = Forest(_card_forest(), device=dev)
     eng = f.engine(strategy)
     want = f.predict_oracle(_card_rows(1000, 5))
@@ -230,8 +277,9 @@ def test_graphed_equals_eager_and_captures_once_a_shape(dev, strategy):
             x = _input(eng, method, torch.as_tensor(_card_rows(n, seed), device=dev))
             assert torch.equal(getattr(eng, method)(x), impl(x)), (method, n, seed)
             key = tuple(x.shape)
-            assert g.graphs[key] is first.setdefault(key, g.graphs[key])
-        assert len(g.graphs) == 2, method
+            if g.in_place is None:
+                assert g.graphs[key] is first.setdefault(key, g.graphs[key])
+        assert len(g.graphs) == (2 if g.in_place is None else 0), method
     np.testing.assert_allclose(eng.predict(_card_rows(1000, 5)).cpu().numpy(),
                                want, atol=ORACLE_ATOL, rtol=0)
 
@@ -357,7 +405,8 @@ def test_a_chain_is_k_predicts(dev, strategy):
         assert {kn: kn.launches - n for kn, n in before.items()} == {
             kn: k * n for kn, n in one.items()}, k
     assert set(g.chains) <= {(1500, 18, n) for n in (1, 2, m)}
-    assert (1500, 18, m) in g.chains and list(g.graphs) == [(1500, 18)]
+    assert (1500, 18, m) in g.chains
+    assert list(g.graphs) == ([(1500, 18)] if g.in_place is None else [])
 
 
 @pytest.mark.cuda
@@ -402,3 +451,84 @@ def test_a_failed_chain_capture_raises_and_names_the_key(dev):
     with pytest.raises(RuntimeError, match=r"syncs.*chain.*\(8, 3\), m 1"):
         g.chain(torch.ones(8, 3, device=dev), 4)
     assert g.chains == {}
+
+
+@pytest.mark.cuda
+def test_queued_in_place_predicts_read_their_own_rows(dev):
+    """Twenty predicts on twenty slices of one device table, queued back to
+    back behind 20 ms of work with no synchronize: each launch reads the
+    rows of its own call, with no graph and nothing staged; each call is
+    served (a replay's count) by a direct launch."""
+    eng = Forest(_card_forest(), device=dev).engine(Strategy.SPLIT_FOREST)
+    assert eng._predict.in_place is not None
+    table = torch.as_tensor(_card_rows(20 * 512, 14), device=dev)
+    slices = [table[i * 512:(i + 1) * 512] for i in range(20)]
+    eng.predict(slices[0])
+    torch.cuda.synchronize()
+    before = graphed.counters()
+    torch.cuda._sleep(int(4e7))
+    got = [eng.predict(x) for x in slices]
+    torch.cuda.synchronize()
+    after = graphed.counters()
+    for i, (x, pred) in enumerate(zip(slices, got)):
+        assert torch.equal(pred, eng._predict_impl(x)), i
+    assert after["direct_calls"] - before["direct_calls"] == 20
+    assert after["replays"] - before["replays"] == 20
+    assert after["captures"] == before["captures"]
+    assert after["staged_bytes"] == before["staged_bytes"]
+    assert eng._predict.graphs == {}
+
+
+@pytest.mark.cuda
+def test_the_in_place_route_takes_any_rows(dev):
+    """Rows it cannot read in place (numpy, strided columns, f64) are made
+    a contiguous f32 tensor on the card first; rows at a row stride past
+    their columns are read in place; predict_k reads its own copy. Every
+    result equals the eager call's, and no call captures a graph."""
+    eng = Forest(_card_forest(), device=dev).engine(Strategy.SPLIT_FOREST)
+    data = _card_rows(700, 15)
+    x = torch.as_tensor(data, device=dev)
+    want = eng._predict_impl(x)
+    wide = torch.zeros(700, 25, device=dev)
+    wide[:, 3:21] = x
+    before = graphed.counters()
+    for rows in (data, data, x.t().contiguous().t(), x.double(),
+                 wide[:, 3:21], wide[:, 3:21]):
+        assert torch.equal(eng.predict(rows), want)
+    after = graphed.counters()
+    g = eng._predict
+    assert g.graphs == {}
+    assert after["replays"] - before["replays"] == 6
+    assert after["staged_bytes"] - before["staged_bytes"] == 4 * 700 * 18 * 4
+    assert after["direct_calls"] - before["direct_calls"] == 2
+    for k in (1, 3):
+        assert torch.equal(eng.predict_k(x, k), want), k
+        assert torch.equal(eng.predict_k(data, k), want), k
+    assert g._chain_shapes[(700, 18)].staged is None
+    # a call after a chain reads its own rows, not the chain's copy
+    assert torch.equal(eng.predict(wide[:, 3:21]), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["depth_bucketed", "deep_split"])
+def test_staged_routes_make_no_direct_call(dev, case):
+    """DEPTH_BUCKETED and the deep kernel's SPLIT_FOREST keep the staged
+    route: every replay stages its rows, none is read in place."""
+    from tahoe_tpu_torch.ops.fold_kernel import DeepLaunch
+
+    if case == "deep_split":
+        spec = synthetic.generate_forest(4, 16, 18, missing=-999.0, seed=6)
+        eng = Forest(spec, device=dev).engine(Strategy.SPLIT_FOREST)
+        assert isinstance(eng.launch, DeepLaunch)
+    else:
+        eng = Forest(_card_forest(), device=dev).engine(Strategy.DEPTH_BUCKETED)
+    assert eng._predict.in_place is None
+    x = torch.as_tensor(_card_rows(640, 16), device=dev)
+    want = eng._predict_impl(x)
+    before = graphed.counters()
+    for _ in range(3):
+        assert torch.equal(eng.predict(x), want)
+    after = graphed.counters()
+    assert after["direct_calls"] == before["direct_calls"]
+    assert (after["staged_bytes"] - before["staged_bytes"]
+            == 2 * eng._predict.graphs[(640, 18)].static_in.nbytes)

@@ -5,8 +5,8 @@
 On the CPU: with no profiler recording a span is one shared null context
 and no record-function scope is made; under ``torch.profiler`` a predict
 marks exactly one ``tahoe_predict`` and nothing of the graph's steps; the
-counters do not move on the CPU path and only grow. The ``cuda`` test
-skips here and runs on the card:
+counters do not move on the CPU path and only grow. The ``cuda`` tests
+skip here and run on the card:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_spans.py
 """
@@ -80,7 +80,7 @@ def test_a_cpu_predict_marks_one_tahoe_predict(strategy):
 def test_counters_grow_only_and_the_cpu_path_moves_none(monkeypatch):
     before = graphed.counters()
     assert set(before) == {"captures", "capture_s", "replays", "staged_bytes",
-                           "launches"}
+                           "direct_calls", "launches"}
     f = Forest(_forest(), device="cpu")
     for strategy in (Strategy.SPLIT_FOREST, Strategy.RANK_MXU, Strategy.TENSOR):
         f.predict(_rows(5), strategy)
@@ -95,8 +95,8 @@ def test_counters_grow_only_and_the_cpu_path_moves_none(monkeypatch):
     assert after["captures"] == before["captures"] + 1
     assert after["capture_s"] == pytest.approx(before["capture_s"] + 0.25)
     assert after["launches"] == before["launches"] + 2
-    assert (after["replays"], after["staged_bytes"]) == (before["replays"],
-                                                         before["staged_bytes"])
+    assert ((after["replays"], after["staged_bytes"], after["direct_calls"])
+            == (before["replays"], before["staged_bytes"], before["direct_calls"]))
 
 
 # -- on the card ----------------------------------------------------------
@@ -141,10 +141,13 @@ def _innermost(spans, t):
     return max(held, key=lambda s: s[1]) if held else None
 
 
-@pytest.mark.cuda
-def test_on_the_card_spans_hold_the_work_they_launch(tmp_path):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU")
+def _profiled_predicts(strategy, tmp_path):
+    """Four predicts of ``strategy`` under the profiler, with 20 ms queued
+    ahead of the first two; every device operation held to the step that
+    launched it. A staging engine's first call captures and the three after
+    it replay, each through STEPS; on the in-place route every call is one
+    direct launch in ``tahoe_replay``. The engine, the counters' change and
+    a call's launches."""
     dev = torch.device("cuda", 0)
     forest = synthetic.generate_mixed_depth_forest(60, 8, 18, missing=-999.0,
                                                    seed=3)
@@ -152,32 +155,37 @@ def test_on_the_card_spans_hold_the_work_they_launch(tmp_path):
     # the profiler has come back empty on the card: a fresh engine, up to 3 times
     for _ in range(3):
         f = Forest(forest, device=dev)
-        f.engine(Strategy.SPLIT_FOREST)  # its tables go up outside the profile
+        f.engine(strategy)  # its tables go up outside the profile
         torch.cuda.synchronize(dev)
         before = graphed.counters()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for i in range(4):  # the capture, then three replays
+            for i in range(4):
                 if i < 2:
                     _queue_ahead()
-                f.predict(x)
+                f.predict(x, strategy)
             torch.cuda.synchronize(dev)
         after = graphed.counters()
         spans, calls, ops = _read(_trace(prof, tmp_path))
         if ops:
             break
     assert ops, "the profiler recorded no device operation in 3 profiles"
+    eng = f.engine(strategy)
+    direct = eng._predict.in_place is not None
+    steps, captured = (("tahoe_replay",), 0) if direct else (STEPS, 1)
     names = [s[0] for s in spans]
-    assert names.count("tahoe_predict") == 4 and names.count("tahoe_capture") == 1
+    assert names.count("tahoe_predict") == 4
+    assert names.count("tahoe_capture") == captured
     ahead = [s for s in spans if s[0] == "queue_ahead"]
     spans = [s for s in spans if s[0].startswith("tahoe_")]
     predicts = sorted(s for s in spans if s[0] == "tahoe_predict")
-    capture = next(s for s in spans if s[0] == "tahoe_capture")
-    assert predicts[0][1] <= capture[1] and capture[2] <= predicts[0][2]
-    for p in predicts[1:]:
+    if captured:
+        capture = next(s for s in spans if s[0] == "tahoe_capture")
+        assert predicts[0][1] <= capture[1] and capture[2] <= predicts[0][2]
+    for p in predicts[captured:]:
         inside = sorted((s[1], s[0]) for s in spans
                         if s[0] in STEPS and p[1] <= s[1] and s[2] <= p[2])
-        assert [n for _, n in inside] == list(STEPS), p
+        assert [n for _, n in inside] == list(steps), p
     # every device operation goes to the step that launched it, and starts
     # after that step's span opened: the spans and the device share a clock
     launched = {}
@@ -186,18 +194,44 @@ def test_on_the_card_spans_hold_the_work_they_launch(tmp_path):
         if _innermost(ahead, calls[corr]) is not None:
             continue
         owner = _innermost(spans, calls[corr])
-        assert owner is not None and owner[0] in ("tahoe_capture", *STEPS), (ts, owner)
+        assert owner is not None and owner[0] in ("tahoe_capture", *steps), (ts, owner)
         assert ts >= owner[1], (ts, owner)
         launched[owner[0]] = launched.get(owner[0], 0) + 1
-    assert set(launched) == {"tahoe_capture", *STEPS}
-    g = f.engine(Strategy.SPLIT_FOREST)._predict.graphs[tuple(x.shape)]
-    per_call = sum(n for _, n in g.launches)
+    assert set(launched) == set(steps) | ({"tahoe_capture"} if captured else set())
+    if direct:
+        per_call = (after["launches"] - before["launches"]) // 4
+    else:
+        g = eng._predict.graphs[tuple(x.shape)]
+        per_call = sum(n for _, n in g.launches)
+        assert after["capture_s"] - before["capture_s"] == pytest.approx(g.seconds)
     assert per_call >= 1
-    assert after["captures"] - before["captures"] == 1
-    assert after["capture_s"] - before["capture_s"] == pytest.approx(g.seconds)
-    assert after["replays"] - before["replays"] == 3
-    assert after["staged_bytes"] - before["staged_bytes"] == 3 * g.static_in.nbytes
+    assert after["captures"] - before["captures"] == captured
     assert after["launches"] - before["launches"] == 4 * per_call
-    np.testing.assert_array_equal(f.predict(x).cpu().numpy(),
-                                  f.engine(Strategy.SPLIT_FOREST)._predict_impl(x)
-                                  .cpu().numpy())
+    np.testing.assert_array_equal(f.predict(x, strategy).cpu().numpy(),
+                                  eng._predict_impl(x).cpu().numpy())
+    return eng, {k: after[k] - before[k] for k in after}, per_call
+
+
+@pytest.mark.cuda
+def test_on_the_card_spans_hold_the_work_they_launch(tmp_path):
+    """Kernel C's SPLIT_FOREST reads the rows in place: no capture and no
+    staging; each call served by one direct launch of kernel C."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    eng, moved, per_call = _profiled_predicts(Strategy.SPLIT_FOREST, tmp_path)
+    assert eng._predict.graphs == {} and per_call == 1
+    assert moved["replays"] == 4 and moved["staged_bytes"] == 0
+    assert moved["direct_calls"] == 4
+
+
+@pytest.mark.cuda
+def test_on_the_card_a_staging_engine_counts_its_staged_bytes(tmp_path):
+    """An engine that stages (the rank engine) copies its rows into the
+    static input at every replay and makes no direct call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    eng, moved, _ = _profiled_predicts(Strategy.RANK_MXU, tmp_path)
+    g = eng._predict.graphs[(777, 18)]
+    assert moved["replays"] == 3
+    assert moved["staged_bytes"] == 3 * g.static_in.nbytes
+    assert moved["direct_calls"] == 0
