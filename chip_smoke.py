@@ -52,9 +52,10 @@ Phases, each of which exits non-zero when it fails:
    ops/sparse_kernel.py sparse_blocks), with the records and the slots
    (each within one 32-byte sector) a descent reads per (row, tree); then
    SPLIT_FOREST on the deep kernel over 0.9 GB of dense tables (their
-   host build seconds and device bytes printed), the kernel by device time
-   within 1e-5 of the walk of its blocks on every row, the walk within 1e-5
-   of the plain fold (2^18 nodes a (row, tree)) on a slice of rows, its
+   host build seconds and device bytes printed: thresholds and codes, and
+   the deep kernel's heap-ordered blocks and leaves), the kernel by device time
+   within 1e-5 of the walk of its heap tables on every row, the walk
+   within 1e-5 of the plain fold (2^18 nodes a (row, tree)) on a slice of rows, its
    bound from the 32-byte sectors of blocks and leaves the run's descents
    read; DEPTH_BUCKETED where the check admits it, else its reason; then a
    forest of 1,440 live features, past the rank planes, through the plain
@@ -254,9 +255,9 @@ def main() -> int:
     from tahoe_tpu_torch.ops.fold_kernel import (
         DEEP_KERNELS, FOLD, FOLD_DEEP, FOLD_DEEP_NONGE, FOLD_DEEP_SIGN,
         FOLD_KERNELS, FOLD_NONGE, FOLD_SIGN, FoldKernelEngine, deep_block_walk,
-        deep_blocks, deep_groups, deep_launch, descent_paths, fold_c_table,
-        fold_deep_cuda, fold_launch, fold_margins_at, fold_margins_cuda,
-        fold_margins_plain, fold_rows_plain, fold_table_bytes, fold_wavefronts)
+        deep_groups, deep_launch, descent_paths, fold_c_table, fold_deep_cuda,
+        fold_launch, fold_margins_at, fold_margins_cuda, fold_margins_plain,
+        fold_rows_plain, fold_table_bytes, fold_wavefronts, heap_tables)
     from tahoe_tpu_torch.ops.probes import (
         PROBE_INT8, PROBE_OVERHEAD, PROBE_RANK_PARTS)
     from tahoe_tpu_torch.ops.rank_kernel import (
@@ -272,7 +273,8 @@ def main() -> int:
     from tahoe_tpu_torch import cli
     from tahoe_tpu_torch.engine import autotune
     from tahoe_tpu_torch.scripts import (
-        bench, int8_cast_probe, make_fixtures, overhead_bench, unit_bench)
+        bench, int8_cast_probe, kernel_ab, make_fixtures, overhead_bench,
+        unit_bench)
     from tahoe_tpu_torch.utils.profiling import (
         alternating, chain_seconds, cuda_device_ms, cuda_median_ms, slope_time)
     from tahoe_tpu_torch.perf_model.model import KERNEL_REGISTERS
@@ -439,14 +441,14 @@ def main() -> int:
     c_launch = (fold.launch if fold.c_table is not None
                 else fold_launch(ft.width, ft.depth, fold.num_trees, limits))
     c_table = fold.c_table if fold.c_table is not None else fold_c_table(ft)
-    d_launch = (fold.launch if fold.blocks is not None
+    d_launch = (fold.launch if fold.heap is not None
                 else deep_launch(ft.width, limits))
-    blocks = fold.blocks if fold.blocks is not None else deep_blocks(ft)
+    heap = fold.heap if fold.heap is not None else heap_tables(ft)
     c_p = fold_margins_plain(x2, ft)
     p_ms = cuda_median_ms(lambda: fold_margins_plain(x2, ft), warmup=1, iters=5)
     for name, fn, tables in (
-            ("fold_deep", lambda: fold_deep_cuda(x2, ft, blocks, d_launch),
-             (blocks, ft.leaf)),
+            ("fold_deep", lambda: fold_deep_cuda(x2, ft, heap, d_launch),
+             (heap.blocks, heap.leaf)),
             ("fold", lambda: fold_margins_cuda(x2, ft, c_table, c_launch),
              (c_table,))):
         c_k = fn()
@@ -482,7 +484,7 @@ def main() -> int:
             print(f"[3] {name}: max |kernel - plain| {err} (tolerance "
                   f"{tolerance[name]}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by}), library {lib_ms} ms ({card})")
-    del a_k, a_p, b_k, b_p, c_k, c_p, x, xt, x2, raw, rank, fold, c_table, blocks
+    del a_k, a_p, b_k, b_p, c_k, c_p, x, xt, x2, raw, rank, fold, c_table, heap
 
     # -- 4. main path through the facade ------------------------------------
     def drive(spec, rows_np, missing, tag, timed, **out_kw):
@@ -672,12 +674,12 @@ def main() -> int:
         t = eng.tables
         c_launch = (eng.launch if eng.c_table is not None else fold_launch(
             t.width, t.depth, eng.num_trees, limits))
-        d_launch = (eng.launch if eng.blocks is not None
+        d_launch = (eng.launch if eng.heap is not None
                     else deep_launch(t.width, limits))
-        blocks = eng.blocks if eng.blocks is not None else deep_blocks(t)
+        heap = eng.heap if eng.heap is not None else heap_tables(t)
         c_name, d_name = name_of(FOLD_KERNELS[t.form]), name_of(DEEP_KERNELS[t.form])
-        fns = {d_name: lambda: fold_deep_cuda(x, t, blocks, d_launch)}
-        costs = {d_name: fold_cost(x, t, blocks, t.leaf)}
+        fns = {d_name: lambda: fold_deep_cuda(x, t, heap, d_launch)}
+        costs = {d_name: fold_cost(x, t, heap.blocks, heap.leaf)}
         notes = {}
         print(f"[{tag}] {eng.num_trees} trees, depth {t.depth}, {t.num_cols} live "
               f"features ({t.form}): kernel C {c_launch}, deep kernel {d_launch}; "
@@ -732,7 +734,7 @@ def main() -> int:
         deep_rows = synthetic.generate_data(ROWS, cols, missing_prob=0.02, seed=seed)
         f = Forest(deep, device="cuda")
         eng = f.engine(Strategy.SPLIT_FOREST)
-        if eng.blocks is None:
+        if eng.heap is None:
             fail(f"[7] deep15-class runs {eng.kernel.symbol}, not the deep kernel")
         x = eng.canonicalize(torch.as_tensor(deep_rows, device=dev))
         both_folds("7", eng, x)
@@ -913,38 +915,33 @@ def main() -> int:
     t_dense = time.perf_counter() - t0
     dt = split.tables
     T = dt.leaf.shape[0]
-    if split.blocks is None or split.kernel is not DEEP_KERNELS[dt.form]:
+    if split.heap is None or split.kernel is not DEEP_KERNELS[dt.form]:
         fail(f"[10] SPLIT_FOREST runs {split.kernel.symbol}, not the deep kernel")
     deep_name = name_of(split.kernel)
-    dense_bytes = nbytes(dt.thresholds, dt.fids, dt.leaf, split.blocks)
+    dense_bytes = nbytes(dt.thresholds, dt.fids, split.heap.blocks,
+                         split.heap.leaf)
     print(f"[10] SPLIT_FOREST: {dt.form} form, depth {dt.depth}, "
           f"{split.launch}; dense tables built in {t_dense:.1f} s (host), "
-          f"{dense_bytes / 1e9:.4f} GB on the card (thresholds, codes, leaves "
-          f"and blocks; fold_table_bytes {fold_table_bytes(T, dt.depth) / 1e9:.4f})")
+          f"{dense_bytes / 1e9:.4f} GB on the card (thresholds, codes, and "
+          f"heap-ordered blocks and leaves; fold_table_bytes "
+          f"{fold_table_bytes(T, dt.depth) / 1e9:.4f})")
     x = split.canonicalize(torch.as_tensor(deep_rows, device=dev))
-    walk = deep_block_walk(x, dt, split.blocks)
+    walk = deep_block_walk(x, dt, split.heap)
     plain = fold_margins_plain(x[:PLAIN_FOLD_ROWS], dt)
     p_err = float((walk[:PLAIN_FOLD_ROWS].double() - plain.double()).abs().max())
     if p_err > KERNEL_ATOL:
         fail(f"[10] the walk of the blocks differs from the plain fold by {p_err}")
     # the bound: the 32-byte sectors of blocks and leaves the run's descents
-    # read, each once (a block's group index is the leaf index's low bits),
-    # the rows and the margins; a compare a visited node and an add a leaf
-    leaf_j = descent_paths(x, dt)[-1]
-    tree = torch.arange(T, device=dev)
-    B = split.blocks.shape[1]
-    distinct, off, d = 0, 0, 0
-    for size in deep_groups(dt.depth):
-        block = tree * B + off + (leaf_j & ((1 << d) - 1))
-        distinct += int(torch.unique(block // 2).numel())  # 16-byte blocks
-        off += 1 << d
-        d += size
-    distinct += int(torch.unique(((tree << dt.depth) + leaf_j) // 8).numel())
+    # read in heap order, each once, the rows and the margins; a compare a
+    # visited node and an add a leaf
+    loads = kernel_ab.deep_loads(descent_paths(x, dt), dt.depth, "heap")
+    distinct = sum(int(torch.unique(a // 32).numel())
+                   for a in (*loads["blocks"], loads["leaf"]))
     per_descent = len(deep_groups(dt.depth)) + 1
     deep_bound = bound(32 * distinct + nbytes(x) + 4 * ROWS,
                        (ROWS * T * (dt.depth + 1), SCALAR_OPS_PER_S))
-    hold("10", {deep_name: lambda: fold_deep_cuda(x, dt, split.blocks, split.launch)},
-         lambda: deep_block_walk(x, dt, split.blocks), {deep_name: deep_bound},
+    hold("10", {deep_name: lambda: fold_deep_cuda(x, dt, split.heap, split.launch)},
+         lambda: deep_block_walk(x, dt, split.heap), {deep_name: deep_bound},
          timer=cuda_device_ms,
          notes={deep_name: f"{distinct} distinct 32-byte sectors of blocks and "
                            f"leaves, {per_descent} loads a (row, tree), "
@@ -957,7 +954,7 @@ def main() -> int:
     # the kernels line reads the deep kernel on this path
     launches[deep_name] = counts[deep_name]
     record[deep_name].insert(0, record[deep_name].pop())
-    del split, x, walk, plain, leaf_j
+    del split, x, walk, plain, loads
 
     # DEPTH_BUCKETED where admitted (the trees' reachable depths differ)
     depths = np.unique(compiler.reachable_depths(f.spec))

@@ -5,8 +5,8 @@
 //
 // Replaces the Pallas kernel tahoe_tpu/ops/fold_kernel.py _make_split_kernel
 // (:688, launched from fold_margins' split branch :829-865). It computes the
-// same margins as kernel C (csrc/fold.cu) on the same tables, with the node
-// compare of common.cuh:
+// same margins as kernel C (csrc/fold.cu) from the same blocks and leaves,
+// laid out in another order (below), with the node compare of common.cuh:
 //   tahoe_fold_deep        dual, rows as [x, -x]
 //   tahoe_fold_deep_sign   sign, rows at width F
 //   tahoe_fold_deep_nonge  non-ge (fold_kernel.py:551-586), rows at width F;
@@ -29,10 +29,17 @@
 // wide rows leave few threads an SM (cup98-class: 192 rows), the chain's
 // latency. So a node costs less than one load: the nodes are read as
 // 16-byte blocks of two levels (ops/fold_kernel.py deep_blocks), three
-// threshold words and one word of three 10-bit codes, one load a block. The
-// next block's index follows by arithmetic (block q + (u << d) of the next
-// group, u the two branch bits), so no pointer is stored; the last block's
-// path is the leaf index. At odd D the root group takes one level. The
+// threshold words and one word of three 10-bit codes, one load a block.
+// The deep kernel reads its own copy of the blocks and leaves, in heap order
+// (ops/fold_kernel.py heap_tables): within a group, block q's successors
+// are 4q + u of the next group (u = c0 << 1 | c1, the two branch bits, the
+// upper one first; 2q + c0 after a root group of one level), so no pointer
+// is stored, and the last group's path is the leaf index in the same order.
+// A block's four successors, and the leaves of one last-group block, lie
+// side by side: rows of a warp that share a long prefix and split late read
+// neighbouring blocks, most in one 32-byte sector or 128-byte line, where
+// the order of deep_blocks (kernel C's, the root's branch the lowest bit)
+// set them 2^d blocks apart. At odd D the root group takes one level. The
 // block's rows are staged in shared memory at an odd stride as in kernel C,
 // and each thread descends kTrees trees together, their block loads issued
 // before any is used. One thread owns a row (fold_deep_kernel), or, where
@@ -80,7 +87,7 @@ __global__ void fold_deep_kernel(const float* __restrict__ x, int rows, int W,
     double acc = 0.0;
     for (int t0 = 0; t0 < T; t0 += kTrees) {
         const int4* tb[kTrees];
-        int j[kTrees];  // the path's branch bits so far: the node index
+        int j[kTrees];  // the path's branch bits so far, root first: heap order
 #pragma unroll
         for (int k = 0; k < kTrees; ++k) {
             // tail slots repeat the last tree and are not summed
@@ -98,13 +105,13 @@ __global__ void fold_deep_kernel(const float* __restrict__ x, int rows, int W,
             for (int k = 0; k < kTrees; ++k) {
                 const int c0 = tahoe_node_cond<Form>(xr, tahoe_block_code(b[k].w, 0),
                                                      __int_as_float(b[k].x));
-                int u = c0;
+                int q = j[k] << 1 | c0;
                 if (!one) {
                     const int thr = c0 ? b[k].z : b[k].y;
                     const int code = tahoe_block_code(b[k].w, 1 + c0);
-                    u |= tahoe_node_cond<Form>(xr, code, __int_as_float(thr)) << 1;
+                    q = q << 1 | tahoe_node_cond<Form>(xr, code, __int_as_float(thr));
                 }
-                j[k] += u << d;
+                j[k] = q;
             }
             off += 1LL << d;
             d += one ? 1 : 2;
@@ -162,13 +169,13 @@ __global__ void fold_deep_pair_kernel(const float* __restrict__ x, int rows, int
             for (int k = 0; k < kTrees; ++k) {
                 const int c0 = tahoe_node_cond<Form>(xr, tahoe_block_code(b[k].w, 0),
                                                      __int_as_float(b[k].x));
-                int u = c0;
+                int q = j[k] << 1 | c0;
                 if (!one) {
                     const int thr = c0 ? b[k].z : b[k].y;
                     const int code = tahoe_block_code(b[k].w, 1 + c0);
-                    u |= tahoe_node_cond<Form>(xr, code, __int_as_float(thr)) << 1;
+                    q = q << 1 | tahoe_node_cond<Form>(xr, code, __int_as_float(thr));
                 }
-                j[k] += u << d;
+                j[k] = q;
             }
             off += 1LL << d;
             d += one ? 1 : 2;

@@ -30,7 +30,9 @@ in shared memory (``fold_c_table``: each tree's blocks, then its leaves),
 which arrive by TMA into a ring of two buffers while the last tile
 descends, beside the block's rows at an odd stride; the deep kernel
 (csrc/fold_deep.cu, the counterpart of the subtree-split fold) stages only
-the rows and reads the blocks through the read-only cache. ``fold_plan``
+the rows and reads the blocks and leaves through the read-only cache, from
+its own copy of them in heap order (``heap_tables``), so that the scattered
+loads of a warp's rows land on shared sectors. ``fold_plan``
 picks the one measured faster, in every form (PERF.md section 6). Where it
 picks kernel C, the engine launches it directly on the caller's raw rows,
 where they lie (``fold_margins_at``, ops/graphed.py's in-place route):
@@ -138,7 +140,10 @@ class FoldTables:
     - ``thresholds`` / ``fids`` [T, 2^D - 1] f32 / int32: node
       n = 2^d - 1 + j of a tree is column j of level d; ``fids`` holds the
       form's node code;
-    - ``leaf`` [T, 2^D] f32.
+    - ``leaf`` [T, 2^D] f32, each tree's in level order, or in heap order
+      (``heap_path``) where ``heap_leaf``: the deep kernel's engine keeps
+      only the copy its kernel reads (``heap_tables``); ``level_leaf``
+      reads either in level order.
     """
 
     form: str
@@ -148,6 +153,7 @@ class FoldTables:
     fids: torch.Tensor
     leaf: torch.Tensor
     depth: int
+    heap_leaf: bool = False
 
     @property
     def width(self) -> int:
@@ -300,9 +306,10 @@ def tree_bytes(depth: int) -> int:
 def fold_table_bytes(num_trees: int, depth: int) -> int:
     """Device bytes of a forest's fold tables on the deep kernel's route,
     which every forest past depth 14 takes: the thresholds, codes and leaves
-    of ``FoldTables`` and the ``deep_blocks``, about 17.3 x 2^depth a tree.
-    (Kernel C's route holds ``fold_c_table`` in place of the blocks, 4 x
-    2^depth more a tree, at depths whose tables are a few MB.)"""
+    of ``FoldTables`` (its leaves in heap order) and the ``heap_tables``'
+    blocks, about 17.3 x 2^depth a tree. (Kernel C's route holds
+    ``fold_c_table`` in place of the blocks, 4 x 2^depth more a tree, at
+    depths whose tables are a few MB.)"""
     nodes = (1 << depth) - 1
     return num_trees * (8 * nodes + 4 * (1 << depth)
                         + 16 * deep_block_count(depth))
@@ -359,7 +366,7 @@ def fold_margins_plain(x: torch.Tensor, t: FoldTables) -> torch.Tensor:
     """Plain PyTorch version of kernel C (every form) and of the deep
     kernel: per level a gather of every node's feature, the tables' compare,
     then the bottom-up where-fold of the JAX kernel; leaves summed in f64."""
-    thresholds, fids, leaf, depth, form = (t.thresholds, t.fids, t.leaf,
+    thresholds, fids, leaf, depth, form = (t.thresholds, t.fids, level_leaf(t),
                                            t.depth, t.form)
     T = leaf.shape[0]
     levels = []
@@ -515,7 +522,7 @@ def fold_c_table(t: FoldTables) -> torch.Tensor:
     ``leaf_slots``."""
     T, D = t.leaf.shape[0], t.depth
     leaves = torch.zeros(T, leaf_slots(D), dtype=torch.int32, device=t.leaf.device)
-    leaves[:, :1 << D] = t.leaf.view(torch.int32)
+    leaves[:, :1 << D] = level_leaf(t).view(torch.int32)
     return torch.cat([deep_blocks(t).reshape(T, -1), leaves], dim=1).contiguous()
 
 
@@ -566,11 +573,68 @@ def deep_blocks(t: FoldTables) -> torch.Tensor:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class HeapTables:
+    """The deep kernel's own tables: ``deep_blocks`` and the leaves with
+    each group's (and the leaf level's) rows in heap order (``heap_path``),
+    on the tables' device.
+
+    - ``blocks``: [T, B, 4] int32, B = ``deep_block_count(D)``;
+    - ``leaf``: [T, 2^D] f32.
+
+    A walk that leaves block q of a group with the branch bits c0 (the
+    group's top node) and c1 goes on to block 4q + (c0 << 1 | c1) of the
+    next group, or 2q + c0 after a root group of one level; the last group's
+    path is the leaf's index. Kernel C reads ``deep_blocks`` in their own
+    order (``fold_c_table``)."""
+
+    blocks: torch.Tensor
+    leaf: torch.Tensor
+
+
+def heap_path(j: torch.Tensor, bits: int) -> torch.Tensor:
+    """``j`` with its low ``bits`` bits reversed: a node's index within its
+    level in ``deep_blocks``' order (the root's branch the lowest bit) to
+    its heap index (the root's branch the highest bit), and back."""
+    out = torch.zeros_like(j)
+    for b in range(bits):
+        out |= ((j >> b) & 1) << (bits - 1 - b)
+    return out
+
+
+def level_leaf(t: FoldTables) -> torch.Tensor:
+    """``t.leaf`` in level order, whichever order the tables hold
+    (``FoldTables.heap_leaf``)."""
+    if not t.heap_leaf:
+        return t.leaf
+    return t.leaf[:, heap_path(torch.arange(1 << t.depth, device=t.leaf.device),
+                               t.depth)]
+
+
+def heap_tables(t: FoldTables) -> HeapTables:
+    """The deep kernel's tables (``HeapTables``): the rows of
+    ``deep_blocks(t)`` within each group, and of the leaves, permuted into
+    heap order; the block contents stay as they are. Leaves that ``t``
+    holds in heap order already are taken as they are."""
+    blocks = deep_blocks(t)
+    dev = blocks.device
+    order, off, d = [], 0, 0
+    for size in deep_groups(t.depth):
+        order.append(off + heap_path(torch.arange(1 << d, device=dev), d))
+        off += 1 << d
+        d += size
+    rows = torch.cat([torch.zeros(0, dtype=torch.int64, device=dev), *order])
+    leaf = (t.leaf if t.heap_leaf else
+            t.leaf[:, heap_path(torch.arange(1 << t.depth, device=dev), t.depth)])
+    return HeapTables(blocks=blocks[:, rows].contiguous(), leaf=leaf.contiguous())
+
+
 def deep_block_walk(x: torch.Tensor, t: FoldTables,
-                    blocks: torch.Tensor) -> torch.Tensor:
-    """The fold kernels' walk over ``deep_blocks`` in torch, the same decode,
-    arithmetic and compare; leaves summed in f64 in tree order, as the plain
-    version sums them."""
+                    heap: HeapTables) -> torch.Tensor:
+    """The deep kernel's walk over its heap-ordered tables in torch, the
+    same decode, next-block rule and compare; leaves summed in f64 in tree
+    order, as the plain version sums them."""
+    blocks = heap.blocks
     T = blocks.shape[0]
     tree = torch.arange(T, device=x.device)
     j = torch.zeros(x.shape[0], T, dtype=torch.int64, device=x.device)
@@ -587,14 +651,14 @@ def deep_block_walk(x: torch.Tensor, t: FoldTables,
     off, d = 0, 0
     for size in deep_groups(t.depth):
         b = blocks[tree, off + j]
-        u = cond(b[..., 0].contiguous(), b[..., 3], 0)
+        c0 = cond(b[..., 0].contiguous(), b[..., 3], 0)
+        j = j << 1 | c0
         if size == 2:
-            thr = torch.where(u == 1, b[..., 2], b[..., 1]).contiguous()
-            u = u | cond(thr, b[..., 3], 1 + u) << 1
-        j = j + (u << d)
+            thr = torch.where(c0 == 1, b[..., 2], b[..., 1]).contiguous()
+            j = j << 1 | cond(thr, b[..., 3], 1 + c0)
         off += 1 << d
         d += size
-    return t.leaf[tree, j].double().sum(dim=1).float()
+    return heap.leaf[tree, j].double().sum(dim=1).float()
 
 
 def descent_paths(x: torch.Tensor, t: FoldTables) -> torch.Tensor:
@@ -678,21 +742,28 @@ def fold_wavefronts(x: torch.Tensor, t: FoldTables,
     }
 
 
-def fold_deep_cuda(x: torch.Tensor, t: FoldTables, blocks: torch.Tensor,
+def fold_deep_cuda(x: torch.Tensor, t: FoldTables, heap: HeapTables,
                    launch: DeepLaunch) -> torch.Tensor:
     """The deep kernel on the card (csrc/fold_deep.cu) in the tables' form;
-    ``blocks`` is ``deep_blocks(t)``."""
+    ``heap`` is ``heap_tables(t)``: a tensor of ``deep_blocks`` (kernel
+    C's order) is refused."""
+    if not isinstance(heap, HeapTables):
+        raise TypeError(f"the deep kernel reads heap_tables(t), not "
+                        f"{type(heap).__name__}")
     _check(x, t)
     dev = x.device
-    check_operand(blocks, "blocks", torch.int32, dev, 3)
+    check_operand(heap.blocks, "blocks", torch.int32, dev, 3)
+    check_operand(heap.leaf, "heap leaf", torch.float32, dev, 2)
     R, W = x.shape
     T = t.leaf.shape[0]
-    if blocks.shape != (T, deep_block_count(t.depth), 4):
-        raise ValueError(f"blocks {tuple(blocks.shape)} do not match the "
-                         f"tables' {T} trees of depth {t.depth}")
+    if (heap.blocks.shape != (T, deep_block_count(t.depth), 4)
+            or heap.leaf.shape != t.leaf.shape):
+        raise ValueError(f"heap tables {tuple(heap.blocks.shape)} / "
+                         f"{tuple(heap.leaf.shape)} do not match the tables' "
+                         f"{T} trees of depth {t.depth}")
     out = torch.empty(R, dtype=torch.float32, device=dev)
-    DEEP_KERNELS[t.form].launch(dev, ptr(x), R, W, ptr(blocks), ptr(t.leaf), T,
-                                t.depth, launch.rows_per_block, launch.lanes,
+    DEEP_KERNELS[t.form].launch(dev, ptr(x), R, W, ptr(heap.blocks), ptr(heap.leaf),
+                                T, t.depth, launch.rows_per_block, launch.lanes,
                                 launch.smem_bytes, ptr(out))
     return out
 
@@ -729,10 +800,15 @@ class FoldKernelEngine(GraphedEngine):
                 f"shared memory")
         deep = isinstance(self.launch, DeepLaunch)
         self.kernel = (DEEP_KERNELS if deep else FOLD_KERNELS)[t.form]
-        # the table the engine's kernel reads: the deep kernel's blocks, or
-        # kernel C's trees of blocks and leaves
-        self.blocks = deep_blocks(t) if deep else None
+        # the tables the engine's kernel reads: the deep kernel's blocks and
+        # leaves in heap order, or kernel C's trees of blocks and leaves
+        self.heap = heap_tables(t) if deep else None
         self.c_table = None if deep else fold_c_table(t)
+        if deep:
+            # the card keeps one copy of the leaves, the heap's
+            # (fold_table_bytes)
+            self.tables = t = dataclasses.replace(t, leaf=self.heap.leaf,
+                                                  heap_leaf=True)
         # kernel C's column map, and the columns raw rows need for it
         self._cols = (None if deep or t.col_index is None
                       else t.col_index.to(torch.int32))
@@ -762,8 +838,8 @@ class FoldKernelEngine(GraphedEngine):
         the engine's kernel on a CUDA one."""
         if x.device.type == "cpu":
             return fold_margins_plain(x, self.tables)
-        if self.blocks is not None:
-            return fold_deep_cuda(x, self.tables, self.blocks, self.launch)
+        if self.heap is not None:
+            return fold_deep_cuda(x, self.tables, self.heap, self.launch)
         return fold_margins_cuda(x, self.tables, self.c_table, self.launch)
 
     def _margins_staged(self, x: torch.Tensor) -> torch.Tensor:

@@ -67,7 +67,7 @@ CAL_BLOCK_ROWS = 256
 DEEP_DEPTH = 12
 DEEP_TREES = (8, 64)
 # ... and random tables of depth 18 whose lower levels do not (96 trees,
-# 436 MB; rf_deep18-class holds 0.9 GB)
+# 537 MB with the deep kernel's heap tables; rf_deep18-class holds 1.1 GB)
 DEEP_FAR_DEPTH = 18
 DEEP_FAR_TREES = 96
 COPY_BYTES = 256 << 20
@@ -222,7 +222,7 @@ def measure(device="cuda") -> Calibration:
     from tahoe_tpu_torch.forest import compiler, synthetic
     from tahoe_tpu_torch.ops.fold_kernel import (
         DEEP_KERNELS, FOLD_KERNELS, FoldKernelEngine, FoldLaunch, FoldTables,
-        deep_blocks, deep_launch,
+        deep_launch, heap_tables,
         fold_c_table, fold_deep_cuda, fold_launch, fold_margins_cuda,
         fold_smem_bytes, fold_tables)
     from tahoe_tpu_torch.ops.gather_engine import GatherEngine
@@ -386,13 +386,13 @@ def measure(device="cuda") -> Calibration:
                                 col_index=t.col_index, dual=t.form == "dual")
               for f, t in zip(deep_forests, tabs)]
         d_launch = deep_launch(tabs[0].width, limits)
-        blocks = [deep_blocks(t) for t in tabs]
+        heaps = [heap_tables(t) for t in tabs]
         d_per_sm = blocks_per_sm(d_launch.smem_bytes,
                                  d_launch.rows_per_block * d_launch.lanes, limits,
                                  KERNEL_REGISTERS[register_query(tabs[0].form,
                                                                  d_launch, limits)])
         fold_deep = descent(lambda i, n: fold_deep_cuda(
-            xs[i][:n], tabs[i], blocks[i], d_launch), d_launch.rows_per_block,
+            xs[i][:n], tabs[i], heaps[i], d_launch), d_launch.rows_per_block,
             d_per_sm, [t * DEEP_DEPTH for t in DEEP_TREES])
         # the same kernel on random dual-form tables of DEEP_FAR_DEPTH, past
         # the L2: its time over what the terms above price, per load past
@@ -407,13 +407,13 @@ def measure(device="cuda") -> Calibration:
                                dtype=torch.int32, generator=gen),
             leaf=torch.randn(T_far, 1 << D_far, device=dev, generator=gen),
             depth=D_far)
-        far_blocks = deep_blocks(far)
+        far_heap = heap_tables(far)
         chain = T_far * D_far
 
         def far_ms(n):
             """The far tables' launch on ``n`` rows, and its loads a row past
             the L2."""
-            return (ms(lambda: fold_deep_cuda(xs[0][:n], far, far_blocks, d_launch)),
+            return (ms(lambda: fold_deep_cuda(xs[0][:n], far, far_heap, d_launch)),
                     T_far * deep_misses(T_far, D_far, n, limits.l2_bytes))
 
         n = min(rows_d.shape[0], CAL_WAVES * d_per_sm * d_launch.rows_per_block * sms)
@@ -423,7 +423,7 @@ def measure(device="cuda") -> Calibration:
         f_far, misses = far_ms(sms * d_launch.rows_per_block)
         fold_deep_miss_floor_ns = max(0.0, (f_far * 1e6 - fold_deep[2] * chain
                                             - fold_deep[3] * 1e3) / misses)
-        del xs, blocks, tabs, far, far_blocks
+        del xs, heaps, tabs, far, far_heap
 
         # -- kernels A and B, one plane group and two --------------------
         rts = [rank_tables(f, device=dev) for f in forests]

@@ -3,7 +3,7 @@
     python -m tahoe_tpu_torch.scripts.kernel_ab a OTHER.cu [--rounds 7]
     python -m tahoe_tpu_torch.scripts.kernel_ab b [OTHER.cu] [--rounds 5]
     python -m tahoe_tpu_torch.scripts.kernel_ab sparse OTHER.cu [--rounds 5]
-    python -m tahoe_tpu_torch.scripts.kernel_ab deep OTHER.cu [--rounds 5]
+    python -m tahoe_tpu_torch.scripts.kernel_ab deep OTHER.cu [--rounds 5] [--seeds 1]
     python -m tahoe_tpu_torch.scripts.kernel_ab c OTHER.cu [--rounds 5]
     python -m tahoe_tpu_torch.scripts.kernel_ab route [--rounds 5]
     python -m tahoe_tpu_torch.scripts.kernel_ab fused OTHER.cu [--rounds 5]
@@ -41,14 +41,18 @@ version's within 1e-5. Each layout's reads per (row, tree) come from the
 walks (``record_depths``, ``sparse_block_walk``), each read one 32-byte
 sector.
 
-``deep``: OTHER.cu is an earlier ``csrc/fold_deep.cu``, one 8-byte node a
-level (``[T, 2^D - 1, 2]`` in level order; ``tahoe_fold_deep(x, rows, W,
-nodes, leaf, T, D, rows_per_block, smem_bytes, out)`` and ``_sign``), run in
-its own block (``parent_deep_launch``). This tree's is rebuilt at
-``TAHOE_DEEP_TREES`` 4, 8 and 16, and its kernel also runs in the earlier
-block and with the other number of lanes a row, on cup98-class (sign form),
-deep15-class and deep12-class (dual), all on the same tables, margins bit
-for bit this tree's kernel's.
+``deep``: OTHER.cu is an earlier ``csrc/fold_deep.cu`` with this tree's
+entry points, which walks ``deep_blocks`` and ``t.leaf`` in their own order
+(the root's branch the lowest bit of a path: the deep kernel before its heap
+tables), run in this tree's block. This tree's is rebuilt at
+``TAHOE_DEEP_TREES`` 4, 8 and 16, and its kernel also runs with the other
+number of lanes a row, on cup98-class (sign form, two lanes), deep15-class
+(dual and sign), deep12-class (dual), a depth-13 non-ge forest of 90
+columns, and higgs_rf16-class (100 trees of depth 16 over 28 columns,
+uniform rows, none missing) at ``--seeds`` forest seeds; every build's
+margins must equal this tree's kernel's bit for bit, on the same tables in
+either order; beside the times, the distinct sectors and lines a warp-wide
+load touches in either order (``deep_sectors``, on the first 2,048 rows).
 
 ``c``: OTHER.cu is an earlier ``csrc/fold.cu`` (the one before the blocks: rows at an odd
 stride, (threshold, code) tables a node, every thread staging each tile;
@@ -437,90 +441,150 @@ def run_sparse(other_lib, libs: dict, levels: dict, rounds: int) -> dict:
         "reads_per_row_tree": reads, "rates": rates, "times": times}}
 
 
-def deep_cases():
+def deep_loads(paths, depth: int, order: str) -> dict:
+    """The byte offsets that the deep kernel's loads read per (row, tree),
+    from the level-order paths of ``descent_paths`` ([D + 1, R, T]):
+    ``blocks``, one [R, T] tensor a group, within one table of every tree's
+    16-byte blocks, and ``leaf``, within one table of every tree's 4-byte
+    leaves; both in ``deep_blocks``' order (``"bits"``, the root's branch the
+    lowest bit of a path) or in the deep kernel's heap order (``"heap"``,
+    ops/fold_kernel.py ``heap_tables``)."""
+    import torch
+
+    from tahoe_tpu_torch.ops.fold_kernel import deep_block_count, deep_groups, heap_path
+
+    def index(j, bits):
+        return heap_path(j, bits) if order == "heap" else j
+
+    tree = torch.arange(paths.shape[2], device=paths.device)
+    B = deep_block_count(depth)
+    blocks, off, d = [], 0, 0
+    for size in deep_groups(depth):
+        blocks.append(16 * (tree * B + off + index(paths[d], d)))
+        off += 1 << d
+        d += size
+    return {"blocks": blocks,
+            "leaf": 4 * ((tree << depth) + index(paths[depth], depth))}
+
+
+def deep_sectors(x, t) -> dict:
+    """The deep kernel's global-memory footprint per (warp, tree), reckoned
+    from the real walks of ``x``'s rows (whole warps of 32): the distinct
+    32-byte sectors and 128-byte lines that each warp-wide load touches,
+    summed over a descent's block loads (one a group) and its leaf load,
+    in either order of ``deep_loads``."""
+    from tahoe_tpu_torch.ops.fold_kernel import deep_groups, descent_paths
+
+    R = x.shape[0] // 32 * 32
+    paths = descent_paths(x[:R], t)
+    T = paths.shape[2]
+
+    def distinct(addr, unit):  # [R, T] byte offsets -> [R / 32, T]
+        s = (addr // unit).view(R // 32, 32, T).sort(dim=1).values
+        return 1 + (s[:, 1:] != s[:, :-1]).sum(dim=1)
+
+    out = {"rows": R, "loads_per_row_tree": len(deep_groups(t.depth)) + 1}
+    for order in ("bits", "heap"):
+        loads = deep_loads(paths, t.depth, order)
+        loads["leaf"] = [loads["leaf"]]
+        out[order] = {
+            f"{what}_{unit_name}": float(sum(distinct(a, unit) for a in addrs)
+                                         .double().mean())
+            for what, addrs in loads.items()
+            for unit_name, unit in (("sectors", 32), ("lines", 128))}
+        for unit_name in ("sectors", "lines"):
+            out[order][unit_name] = (out[order][f"blocks_{unit_name}"]
+                                     + out[order][f"leaf_{unit_name}"])
+    return out
+
+
+def deep_cases(seeds: int):
+    """name -> (forest, rows, ge_mode)."""
     from tahoe_tpu_torch.forest import synthetic
 
-    return {
+    out = {
         "cup98_sign": (synthetic.generate_forest(150, 8, 479, active_cols=300, seed=1),
-                       synthetic.generate_data(ROWS, 479, missing_prob=0.02, seed=4)),
+                       synthetic.generate_data(ROWS, 479, missing_prob=0.02, seed=4),
+                       True),
         "deep15_dual": (synthetic.generate_forest(30, 15, 16, seed=1),
-                        synthetic.generate_data(ROWS, 16, missing_prob=0.02, seed=5)),
+                        synthetic.generate_data(ROWS, 16, missing_prob=0.02, seed=5),
+                        True),
+        "deep15_sign": (synthetic.generate_forest(30, 15, 100, seed=1),
+                        synthetic.generate_data(ROWS, 100, missing_prob=0.02, seed=14),
+                        True),
         "deep12_dual": (synthetic.generate_forest(100, 12, 28, seed=1),
-                        synthetic.generate_data(ROWS, 28, missing_prob=0.01, seed=6)),
+                        synthetic.generate_data(ROWS, 28, missing_prob=0.01, seed=6),
+                        True),
+        "nonge_d13": (synthetic.generate_forest(20, 13, 90, seed=1),
+                      synthetic.generate_data(ROWS, 90, missing=-999.0,
+                                              missing_prob=0.05, seed=7),
+                      False),
     }
+    higgs_rows = synthetic.generate_data(ROWS, 28, missing_prob=0.0, seed=8)
+    for i in range(seeds):
+        out[f"higgs_rf16_seed{i}"] = (
+            synthetic.generate_forest(100, 16, 28, seed=300 + i), higgs_rows, True)
+    return out
 
 
-def parent_deep_launch(width: int, limits):
-    """The earlier deep kernel's block rule: the most rows of 256, 128, 64,
-    32 whose staged rows fit half an SM, else the whole opt-in budget."""
-    from tahoe_tpu_torch.ops.fold_kernel import DeepLaunch
-
-    for b in (limits.smem_half_sm, limits.smem_per_block):
-        for rows in (256, 128, 64, 32):
-            if rows * (width | 1) * 4 <= b:
-                return DeepLaunch(rows, rows * (width | 1) * 4)
-    return None
-
-
-def run_deep(other_lib, libs: dict, rounds: int) -> dict:
+def run_deep(other_lib, libs: dict, rounds: int, seeds: int) -> dict:
     import torch
 
     from tahoe_tpu_torch.config import GpuLimits
     from tahoe_tpu_torch.ops._build import ptr
     from tahoe_tpu_torch.ops.fold_kernel import (
-        DEEP_KERNELS, deep_blocks, deep_launch, fold_deep_cuda, fold_margins_plain,
-        fold_tables)
+        DEEP_KERNELS, deep_blocks, deep_launch, fold_deep_cuda,
+        fold_margins_plain, fold_tables, heap_tables)
     from tahoe_tpu_torch.ops.rows import canonicalize_rows
 
     dev = torch.device("cuda", 0)
     limits = GpuLimits.for_device(dev)
     out = {}
-    for case, (forest, data) in deep_cases().items():
-        t = fold_tables(forest, device=dev)
+    for case, (forest, data, ge_mode) in deep_cases(seeds).items():
+        t = fold_tables(forest, device=dev, ge_mode=ge_mode)
         x = canonicalize_rows(data, forest.missing, device=dev,
                               col_index=t.col_index, dual=t.form == "dual")
         R, W = x.shape
         T = t.leaf.shape[0]
         launch = deep_launch(t.width, limits)
-        parent = parent_deep_launch(t.width, limits)
         symbol = DEEP_KERNELS[t.form].symbol
-        nodes = torch.stack([t.thresholds.view(torch.int32), t.fids],
-                            dim=-1).contiguous()
-        old = bind(other_lib, symbol,
-                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_void_p])
-        blocks = deep_blocks(t)
+        argtypes = DEEP_KERNELS[t.form].argtypes
+        heap, blocks = heap_tables(t), deep_blocks(t)
 
-        def call(fn, *block_args, table=blocks, x=x, t=t, T=T):
+        def call(fn, table, leaf, x=x, t=t, T=T, launch=launch):
             def run():
                 m = torch.empty(R, dtype=torch.float32, device=dev)
-                checked(fn(ptr(x), R, W, ptr(table), ptr(t.leaf), T, t.depth,
-                           *block_args, ptr(m), stream()), symbol)
+                checked(fn(ptr(x), R, W, ptr(table), ptr(leaf), T, t.depth,
+                           launch.rows_per_block, launch.lanes, launch.smem_bytes,
+                           ptr(m), stream()), symbol)
                 return m
             return run
 
-        def this(lo, x=x, t=t):
-            return lambda: fold_deep_cuda(x, t, blocks, lo)
+        def this(lo, x=x, t=t, heap=heap):
+            return lambda: fold_deep_cuda(x, t, heap, lo)
 
         fns = {"this": this(launch),
-               "this_parent_block": this(parent._replace(lanes=1)),
                f"this_lanes{3 - launch.lanes}": this(
                    launch._replace(lanes=3 - launch.lanes)),
-               "other": call(old, parent.rows_per_block, parent.smem_bytes,
-                             table=nodes)}
-        fns.update({name: call(bind(lib, symbol, DEEP_KERNELS[t.form].argtypes),
-                               launch.rows_per_block, launch.lanes,
-                               launch.smem_bytes)
+               "other": call(bind(other_lib, symbol, argtypes), blocks, t.leaf)}
+        fns.update({name: call(bind(lib, symbol, argtypes), heap.blocks, heap.leaf)
                     for name, lib in libs.items()})
         want = fns["this"]()
-        plain_err = float((want - fold_margins_plain(x, t)).abs().max())
+        # the plain fold evaluates 2^D nodes a (row, tree): to depth 15 only
+        plain_err = (float((want - fold_margins_plain(x, t)).abs().max())
+                     if t.depth <= 15 else None)
         exact = {k: bool(torch.equal(fn(), want)) for k, fn in fns.items()}
+        times = timed_rounds(fns, rounds)
         out[case] = {"form": t.form, "width": W, "depth": t.depth, "trees": T,
-                     "launch": list(launch), "parent_launch": list(parent),
-                     "exact": exact, "max_abs_err_vs_plain": plain_err,
-                     "ok": all(exact.values()) and plain_err <= KERNEL_ATOL,
-                     "times": timed_rounds(fns, rounds)}
+                     "launch": list(launch), "exact": exact,
+                     "max_abs_err_vs_plain": plain_err,
+                     "ok": all(exact.values()) and (plain_err is None
+                                                     or plain_err <= KERNEL_ATOL),
+                     "this_over_other": (times["this"]["median_ms"]
+                                         / times["other"]["median_ms"]),
+                     "sectors": deep_sectors(x[:WAVEFRONT_ROWS], t),
+                     "times": times}
+        del t, x, heap, blocks, fns
     return out
 
 
@@ -812,6 +876,8 @@ def main() -> int:
                                      "fused", "int8"])
     ap.add_argument("other", type=Path, nargs="?")
     ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--seeds", type=int, default=1,
+                    help="deep: higgs_rf16-class forests, one a seed")
     args = ap.parse_args()
     if args.mode in ("a", "sparse", "deep", "c", "fused", "int8") and args.other is None:
         ap.error(f"mode {args.mode} takes OTHER.cu")
@@ -855,7 +921,7 @@ def main() -> int:
         builds = {f"trees{n}": (src, [f"-DTAHOE_DEEP_TREES={n}"]) for n in TREES}
         builds["other"] = (args.other.resolve(), [])
         libs = build_alone(builds)
-        res = run_deep(libs.pop("other"), libs, args.rounds or 5)
+        res = run_deep(libs.pop("other"), libs, args.rounds or 5, args.seeds)
     elif args.mode == "c":
         from tahoe_tpu_torch.ops.fold_kernel import C_TREES_IN_FLIGHT
 

@@ -32,8 +32,8 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     FOLD_DEEP_NONGE,
     FOLD_NONGE,
     deep_block_walk,
-    deep_blocks,
     fold_margins_plain,
+    heap_tables,
 )
 
 CPU = torch.device("cpu")
@@ -131,7 +131,7 @@ def test_bucketed_fold_non_ge_deep_buckets():
                                atol=ORACLE_ATOL, rtol=0)
     x = eng.sub[0].canonicalize(data)
     for e in eng.sub:
-        assert torch.equal(deep_block_walk(x, e.tables, deep_blocks(e.tables)),
+        assert torch.equal(deep_block_walk(x, e.tables, heap_tables(e.tables)),
                            fold_margins_plain(x, e.tables))
 
 
@@ -225,6 +225,6 @@ def test_depth17_bucket_matches_jax(cols, variant):
         assert [e.kernel for e in eng.sub] == [FOLD, FOLD_DEEP]
         x = eng.sub[0].canonicalize(data)
         deep = eng.sub[1]
-        assert torch.equal(deep_block_walk(x, deep.tables, deep.blocks),
+        assert torch.equal(deep_block_walk(x, deep.tables, deep.heap),
                            fold_margins_plain(x, deep.tables))
     _check(eng.predict(data).numpy(), jeng, f, data)

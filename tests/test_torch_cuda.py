@@ -32,7 +32,6 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     FoldKernelEngine,
     FoldLaunch,
     deep_block_walk,
-    deep_blocks,
     deep_launch,
     fold_c_table,
     fold_deep_cuda,
@@ -43,6 +42,7 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     fold_rows_plain,
     fold_smem_bytes,
     fold_tables,
+    heap_tables,
 )
 from tahoe_tpu_torch.ops.probes import (
     INT8_MODES,
@@ -400,7 +400,7 @@ def test_fold_nonge_kernel(dev, depth, cols):
         got = fold_margins_cuda(x, t, fold_c_table(t), c_launch)
         torch.cuda.synchronize()
         assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
-    got = fold_deep_cuda(x, t, deep_blocks(t), deep_launch(t.width, limits))
+    got = fold_deep_cuda(x, t, heap_tables(t), deep_launch(t.width, limits))
     torch.cuda.synchronize()
     assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
     np.testing.assert_allclose(eng.predict(data).cpu().numpy(),
@@ -424,7 +424,7 @@ def test_fold_deep_kernel(dev, depth, cols, active):
     assert eng.kernel is (FOLD_SIGN if active > 64 else FOLD_DEEP)
     x = eng.canonicalize(data)
     before = kernel.launches
-    got = fold_deep_cuda(x, t, deep_blocks(t),
+    got = fold_deep_cuda(x, t, heap_tables(t),
                          deep_launch(t.width, GpuLimits.for_device(dev)))
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
@@ -446,7 +446,7 @@ def test_kernel_c_and_deep_kernel_agree_at_depth_12(dev):
     limits = GpuLimits.for_device(dev)
     c = fold_margins_cuda(x, t, fold_c_table(t),
                           fold_launch(t.width, t.depth, 10, limits))
-    deep = fold_deep_cuda(x, t, deep_blocks(t), deep_launch(t.width, limits))
+    deep = fold_deep_cuda(x, t, heap_tables(t), deep_launch(t.width, limits))
     assert torch.allclose(c, deep, atol=KERNEL_ATOL, rtol=0)
 
 
@@ -724,14 +724,16 @@ def test_redesigned_kernels_at_row_counts(dev, rows):
         x = eng.canonicalize(_data(rows, forest.num_cols, 75,
                                    missing=forest.missing))
         want = fold_margins_plain(x, eng.tables)
-        blocks = deep_blocks(eng.tables)
+        heap = heap_tables(eng.tables)
+        walk = deep_block_walk(x, eng.tables, heap)
         # one thread a row and two, each in a partial last block
         for lanes in (1, 2):
             launch = deep_launch(eng.tables.width, GpuLimits.for_device(dev))._replace(
                 rows_per_block=48, lanes=lanes)
-            got = fold_deep_cuda(x, eng.tables, blocks, launch)
+            got = fold_deep_cuda(x, eng.tables, heap, launch)
             torch.cuda.synchronize()
             assert got.shape == (rows,)
+            assert torch.equal(got, walk), lanes
             assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)
 
 
@@ -758,21 +760,21 @@ def test_deep_kernel_past_depth_15(dev, depth):
         eng = FoldKernelEngine(forest, device=dev, ge_mode=form != "nonge")
         t = eng.tables
         assert t.form == form and t.depth == depth
-        assert eng.kernel is DEEP_KERNELS[form] and eng.blocks is not None
+        assert eng.kernel is DEEP_KERNELS[form] and eng.heap is not None
         for rows in (1, 31, 65537):
             x = eng.canonicalize(_data(rows, forest.num_cols, rows + depth,
                                        missing=forest.missing))
-            want = deep_block_walk(x, t, eng.blocks)
+            want = deep_block_walk(x, t, eng.heap)
             for lanes in (1, 2):
                 launch = deep_launch(t.width, limits)._replace(
                     rows_per_block=48, lanes=lanes)
                 before = eng.kernel.launches
-                got = fold_deep_cuda(x, t, eng.blocks, launch)
+                got = fold_deep_cuda(x, t, eng.heap, launch)
                 torch.cuda.synchronize()
                 assert eng.kernel.launches == before + 1
                 assert got.shape == (rows,)
-                assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0), (form, rows, lanes)
-            assert torch.allclose(eng.margins_rows(x), want, atol=KERNEL_ATOL, rtol=0)
+                assert torch.equal(got, want), (form, rows, lanes)
+            assert torch.equal(eng.margins_rows(x), want)
 
 
 def test_deep_kernel_captures_at_depth_18(dev):
@@ -783,11 +785,12 @@ def test_deep_kernel_captures_at_depth_18(dev):
     eng = FoldKernelEngine(forest, device=dev)
     data = _data(4096, forest.num_cols, 18)
     x = eng.canonicalize(data)
-    want = fold_deep_cuda(x, eng.tables, eng.blocks, eng.launch)
+    want = fold_deep_cuda(x, eng.tables, eng.heap, eng.launch)
     torch.cuda.synchronize()
+    assert torch.equal(want, deep_block_walk(x, eng.tables, eng.heap))
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        got = fold_deep_cuda(x, eng.tables, eng.blocks, eng.launch)
+        got = fold_deep_cuda(x, eng.tables, eng.heap, eng.launch)
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -820,7 +823,7 @@ def test_depth_bucketed_with_a_depth17_bucket(dev, cols, kernels):
         assert tuple(e.kernel for e in eng.sub) == kernels
         x = eng.sub[0].canonicalize(data)
         for e in eng.sub:
-            want = deep_block_walk(x, e.tables, deep_blocks(e.tables))
+            want = deep_block_walk(x, e.tables, heap_tables(e.tables))
             assert torch.allclose(e.margins_rows(x), want, atol=KERNEL_ATOL, rtol=0)
     else:
         assert isinstance(eng, DepthBucketedRankEngine)
@@ -865,13 +868,13 @@ def test_launchers_capture_in_a_cuda_graph(dev):
     assert 48 * 1024 < sl.smem_bytes < dl.smem_bytes
     assert nl.smem_bytes > 48 * 1024 and nl.tile_trees < 40  # a ring
     deep = FoldKernelEngine(_wide_forest(30, 10, 479, 300, seed=67), device=dev)
-    deep_blocks_w = deep_blocks(deep.tables)
+    deep_heap_w = heap_tables(deep.tables)
     deep_launch_w = deep_launch(deep.tables.width, limits)
     assert deep_launch_w.smem_bytes > 48 * 1024
     xw = deep.canonicalize(_data(4096, 479, 68))
     nonge_launch = deep_launch(nonge.tables.width, limits)
     assert nonge_launch.smem_bytes > 48 * 1024
-    nonge_blocks = deep_blocks(nonge.tables)
+    nonge_heap = heap_tables(nonge.tables)
     sparse = SparseRankEngine(synthetic.generate_forest(40, 6, 480, seed=69),
                               device=dev)
     st = sparse.tables
@@ -889,9 +892,9 @@ def test_launchers_capture_in_a_cuda_graph(dev):
             fold_margins_cuda(xd, dual.tables, tables[dual], dl),
             fold_margins_cuda(xs, sign.tables, tables[sign], sl),
             fold_margins_cuda(xn, nonge.tables, tables[nonge], nl)]),
-        "fold_deep_sign": lambda: fold_deep_cuda(xw, deep.tables, deep_blocks_w,
+        "fold_deep_sign": lambda: fold_deep_cuda(xw, deep.tables, deep_heap_w,
                                                  deep_launch_w),
-        "fold_deep_nonge": lambda: fold_deep_cuda(xn, nonge.tables, nonge_blocks,
+        "fold_deep_nonge": lambda: fold_deep_cuda(xn, nonge.tables, nonge_heap,
                                                   nonge_launch),
         "sparse_rank": lambda: sparse_margins_cuda(sp, st.slots, st.roots.shape[0],
                                                    st.steps),
@@ -953,13 +956,13 @@ def test_fold_deep_nonge_kernel(dev, depth):
     eng = FoldKernelEngine(forest, device=dev, ge_mode=False)
     t = eng.tables
     x = eng.canonicalize(_data(3001, 90, depth, missing=-999.0))
-    blocks = deep_blocks(t)
+    heap = heap_tables(t)
     want = fold_margins_plain(x, t)
     for lanes in (1, 2):
         launch = deep_launch(t.width, GpuLimits.for_device(dev))._replace(
             rows_per_block=48, lanes=lanes)
         before = FOLD_DEEP_NONGE.launches
-        got = fold_deep_cuda(x, t, blocks, launch)
+        got = fold_deep_cuda(x, t, heap, launch)
         torch.cuda.synchronize()
         assert FOLD_DEEP_NONGE.launches == before + 1
         assert torch.allclose(got, want, atol=KERNEL_ATOL, rtol=0)

@@ -155,12 +155,14 @@ def test_leveled_depth_cap_matches_jax(depth, trees):
 
 @pytest.mark.parametrize("trees,depth,feasible", [(120, 16, True),
                                                   (200, 18, True),
+                                                  (400, 18, True),
                                                   (500, 20, False)])
 def test_fold_table_cap(trees, depth, feasible):
     """The fold strategies' tables at the deep kernel's route, 17.3 bytes
-    a tree-node of 2^depth (thresholds, codes, leaves, blocks): rf_deep16-
-    (0.14 GB) and rf_deep18-class (0.91 GB) pass the 2 GiB cap, 500 trees
-    of depth 20 (8.5 GiB) do not; the JAX package states no such cap for
+    a tree-node of 2^depth (thresholds, codes, one copy of the leaves,
+    blocks): rf_deep16- (0.14 GB), rf_deep18-class (0.91 GB) and 400 trees
+    of depth 18 (1.81 GB) pass the 2 GiB cap, 500 trees of depth 20
+    (8.5 GiB) do not; the JAX package states no such cap for
     SPLIT_FOREST, so this refusal is the port's own."""
     nbytes = fold_table_bytes(trees, depth)
     assert 17.3 < nbytes / (trees << depth) < 17.4

@@ -39,12 +39,14 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     FoldKernelEngine,
     FoldLaunch,
     FoldTables,
+    HeapTables,
     block_codes,
     deep_block_count,
     deep_block_walk,
     deep_blocks,
     deep_groups,
     fold_c_table,
+    fold_deep_cuda,
     fold_launch,
     fold_margins_plain,
     fold_plan,
@@ -53,9 +55,13 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     fold_table_bytes,
     fold_tables,
     fold_wavefronts,
+    heap_path,
+    heap_tables,
+    level_leaf,
     tree_bytes,
 )
 from tahoe_tpu_torch.ops.transform import apply_output_transform
+from tahoe_tpu_torch.scripts.kernel_ab import deep_sectors
 
 CPU = torch.device("cpu")
 JAX_ATOL = 1e-5
@@ -315,7 +321,7 @@ def test_depth15_matches_oracle_on_the_deep_route():
     data = synthetic.generate_data(50, 6, missing_prob=0.1, seed=96)
     eng = FoldKernelEngine(_port(forest), device=CPU)
     assert eng.kernel is FOLD_DEEP and isinstance(eng.launch, DeepLaunch)
-    blocks = eng.blocks.numpy()
+    blocks = eng.heap.blocks.numpy()
     assert blocks.shape == (3, deep_block_count(15), 4)
     # the root group is level 0 alone; every other block holds 3 nodes
     thr = eng.tables.thresholds.numpy()
@@ -417,7 +423,7 @@ def test_split_forest_past_depth_15_matches_jax(depth):
     assert eng.kernel is FOLD_DEEP and t.depth == depth
     assert deep_groups(depth)[0] == 2 - depth % 2
     x = eng.canonicalize(data)
-    assert torch.equal(deep_block_walk(x, t, eng.blocks), fold_margins_plain(x, t))
+    assert torch.equal(deep_block_walk(x, t, eng.heap), fold_margins_plain(x, t))
     got = eng.predict(data).numpy()
     want = np.asarray(JaxForest(forest).predict(data, JaxStrategy.SPLIT_FOREST))
     np.testing.assert_allclose(got, want, atol=JAX_ATOL, rtol=0)
@@ -459,7 +465,7 @@ def test_deep_blocks_layout_at_depth_18():
     x = torch.rand(16, 2 * F, generator=g) * 2 - 1
     x[:, F:] = -x[:, :F]
     x[3, [1, F + 1]] = float("nan")
-    assert torch.equal(deep_block_walk(x, t, blocks), fold_margins_plain(x, t))
+    assert torch.equal(deep_block_walk(x, t, heap_tables(t)), fold_margins_plain(x, t))
 
 
 # (form, width, depth, trees, whole_forest) -> kernel C block or deep kernel,
@@ -581,11 +587,14 @@ def test_deep_block_walk_matches_plain_and_jax(name):
     blocks = deep_blocks(t)
     assert blocks.shape == (trees, deep_block_count(depth), 4)
     assert sum(deep_groups(depth)) == depth and set(deep_groups(depth)) <= {1, 2}
+    heap = heap_tables(t)
     if deep:
-        assert torch.equal(eng.blocks, blocks)
+        assert torch.equal(eng.heap.blocks, heap.blocks)
+        assert torch.equal(eng.heap.leaf, heap.leaf)
     else:
+        assert eng.heap is None
         assert torch.equal(eng.c_table, fold_c_table(t))
-    assert torch.equal(deep_block_walk(x, t, blocks), fold_margins_plain(x, t))
+    assert torch.equal(deep_block_walk(x, t, heap), fold_margins_plain(x, t))
     jeng = JaxFoldKernelEngine(compiler.levelize(forest), row_tile=8,
                                tree_tile=16, interpret=True)
     np.testing.assert_allclose(eng.predict(data).numpy(),
@@ -611,7 +620,7 @@ def test_deep_block_walk_zero_and_denormal_thresholds(form):
     eng = FoldKernelEngine(_port(forest), device=CPU)
     assert eng.form == form and eng.kernel is FOLD_KERNELS[form]
     x = eng.canonicalize(data)
-    walked = deep_block_walk(x, eng.tables, deep_blocks(eng.tables))
+    walked = deep_block_walk(x, eng.tables, heap_tables(eng.tables))
     assert torch.equal(walked, fold_margins_plain(x, eng.tables))
     np.testing.assert_allclose(walked.numpy(), oracle.predict_margins(forest, data),
                                atol=JAX_ATOL, rtol=0)
@@ -639,7 +648,7 @@ def test_deep_blocks_pack_the_code_range(depth):
                                              np.nan], np.float32), (64, F)))
     blocks = deep_blocks(t)
     assert blocks.shape == (T, deep_block_count(depth), 4)
-    assert torch.equal(deep_block_walk(x, t, blocks), fold_margins_plain(x, t))
+    assert torch.equal(deep_block_walk(x, t, heap_tables(t)), fold_margins_plain(x, t))
     bad = dataclasses.replace(t, fids=t.fids.clone().fill_(512))
     with pytest.raises(ValueError):
         deep_blocks(bad)
@@ -661,7 +670,7 @@ def test_non_ge_block_walk_matches_plain_and_jax(name):
     x = eng.canonicalize(data)
     blocks = deep_blocks(t)
     assert blocks.shape == (trees, deep_block_count(depth), 4)
-    walked = deep_block_walk(x, t, blocks)
+    walked = deep_block_walk(x, t, heap_tables(t))
     assert torch.equal(walked, fold_margins_plain(x, t))
     jeng = JaxFoldKernelEngine(compiler.levelize(forest), row_tile=8,
                                tree_tile=32, ge_mode=False, interpret=True)
@@ -702,17 +711,125 @@ def _special_rows(t, rng, rows=96):
     return torch.as_tensor(x)
 
 
+# the code field's ends in each form: the dual form's last lane at 64
+# features, the sign form's ~511 (= -512) and 511, the non-ge form's
+# feature 127 with sel_lt and flip
+CODE_ENDS = {"dual": (64, [0, 127]),
+             "sign": (512, [-512, 511]),
+             "nonge": (128, [127, 127 | NONGE_SEL_LT | NONGE_FLIP])}
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 5, 6, 15, 16, 17])
 @pytest.mark.parametrize("form", ["dual", "sign", "nonge"])
-def test_block_walk_zero_denormal_nan_thresholds_all_forms(form):
+def test_block_walk_zero_denormal_nan_thresholds_all_forms(form, depth):
     """±0, denormal and NaN thresholds against ±0, denormal and NaN rows, in
-    all three forms, at an odd and an even depth: the blocks both kernels
-    read route as the plain version's compares, bit for bit."""
-    rng = np.random.default_rng({"dual": 1, "sign": 2, "nonge": 3}[form])
-    for depth in (5, 6):
-        t = _special_tables(form, depth, 30, rng)
-        x = _special_rows(t, rng)
-        assert torch.equal(deep_block_walk(x, t, deep_blocks(t)),
-                           fold_margins_plain(x, t))
+    all three forms, at odd and even depths (a root group of one level or
+    two) from a lone leaf to depth 17, with codes at both ends of the
+    10-bit field: the deep kernel's walk of its heap-ordered tables routes
+    as the plain version's compares, bit for bit."""
+    rng = np.random.default_rng({"dual": 1, "sign": 2, "nonge": 3}[form] + 10 * depth)
+    F, ends = CODE_ENDS[form]
+    t = _special_tables(form, depth, F, rng, T=3 if depth > 6 else 9)
+    if depth:
+        fids = t.fids.clone()
+        fids[0, ::2], fids[0, 1::2], fids[1] = ends[0], ends[1], ends[1]
+        t = dataclasses.replace(t, fids=fids)
+    x = _special_rows(t, rng, rows=64 if depth > 6 else 96)
+    assert torch.equal(deep_block_walk(x, t, heap_tables(t)),
+                       fold_margins_plain(x, t))
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 5, 16, 17])
+def test_heap_tables_permute_deep_blocks(depth):
+    """The heap tables hold each tree's ``deep_blocks`` rows and leaves,
+    permuted: heap block h of the group from level d is block
+    ``heap_path(h, d)`` of that group in ``deep_blocks``, heap leaf h is
+    leaf ``heap_path(h, D)``; the root block stays first, the four
+    successors of a block lie side by side, and kernel C's table keeps the
+    order of ``deep_blocks``."""
+    rng = np.random.default_rng(60 + depth)
+    t = _special_tables("sign", depth, 40, rng, T=2 if depth > 5 else 4)
+    blocks, heap = deep_blocks(t), heap_tables(t)
+    assert isinstance(heap, HeapTables)
+    assert heap.blocks.shape == blocks.shape and heap.leaf.shape == t.leaf.shape
+    for T in range(blocks.shape[0]):  # the same rows, each once
+        assert torch.equal(torch.unique(heap.blocks[T], dim=0),
+                           torch.unique(blocks[T], dim=0))
+        assert torch.equal(heap.leaf[T].view(torch.int32).sort().values,
+                           t.leaf[T].view(torch.int32).sort().values)
+    off, d = 0, 0
+    for size in deep_groups(depth):
+        h = torch.arange(1 << d)
+        assert torch.equal(heap_path(heap_path(h, d), d), h)
+        assert torch.equal(heap.blocks[:, off + h], blocks[:, off + heap_path(h, d)])
+        off += 1 << d
+        d += size
+    h = torch.arange(1 << depth)
+    assert torch.equal(heap.leaf, t.leaf[:, heap_path(h, depth)])
+    if depth >= 3:  # the root block's successors: blocks 0-3 of the next group
+        first = deep_groups(depth)[0]
+        nxt = torch.arange(1 << first)
+        assert torch.equal(heap.blocks[:, 1 + nxt], blocks[:, 1 + heap_path(nxt, first)])
+    assert torch.equal(fold_c_table(t)[:, :4 * blocks.shape[1]],
+                       blocks.reshape(blocks.shape[0], -1))
+
+
+def test_deep_kernel_refuses_kernel_c_blocks():
+    """``fold_deep_cuda`` takes the heap tables alone: ``deep_blocks``, in
+    kernel C's order, is refused before any launch."""
+    rng = np.random.default_rng(70)
+    t = _special_tables("dual", 5, 8, rng)
+    x = _special_rows(t, rng)
+    launch = DeepLaunch(256, 256 * (t.width | 1) * 4)
+    with pytest.raises(TypeError, match="heap_tables"):
+        fold_deep_cuda(x, t, deep_blocks(t), launch)
+    bad = HeapTables(blocks=deep_blocks(t)[:, 1:].contiguous(), leaf=t.leaf)
+    with pytest.raises(ValueError, match="do not match"):
+        fold_deep_cuda(x, t, bad, launch)
+
+
+@pytest.mark.parametrize("depth,deep", [(8, False), (15, True)])
+def test_heap_counter_counts_deep_engines(depth, deep):
+    """An engine on the deep kernel's route holds one heap table, none on
+    kernel C's; the deep engine keeps one copy of the leaves, the heap's,
+    so that its tables take ``fold_table_bytes``, and its plain version
+    reads them back in level order."""
+    forest = _port(synthetic.generate_forest(3, depth, 6, leaf_prob=0.02, seed=depth))
+    eng = FoldKernelEngine(forest, device=CPU)
+    t, fresh = eng.tables, fold_tables(forest, device=CPU)
+    assert (eng.heap is not None) == deep == isinstance(eng.launch, DeepLaunch)
+    assert t.heap_leaf == deep
+    assert torch.equal(level_leaf(t), fresh.leaf)
+    x = eng.canonicalize(synthetic.generate_data(64, 6, missing_prob=0.1, seed=depth))
+    assert torch.equal(fold_margins_plain(x, t), fold_margins_plain(x, fresh))
+    if deep:
+        assert t.leaf is eng.heap.leaf
+        assert eng.heap.blocks.shape == (3, deep_block_count(depth), 4)
+        held = {id(v): v.numel() * v.element_size()
+                for v in (t.thresholds, t.fids, t.leaf, eng.heap.blocks, eng.heap.leaf)}
+        assert sum(held.values()) == fold_table_bytes(3, depth)
+        assert torch.equal(heap_tables(t).leaf, eng.heap.leaf)
+
+
+def test_heap_order_touches_fewer_sectors():
+    """On the walks of whole warps over a seeded depth-16, 28-column dual
+    forest (higgs_rf16's widths, uniform rows, none missing), each
+    warp-wide block load and leaf load of the deep kernel touches fewer
+    distinct 32-byte sectors, on average per (warp, tree), with its tables
+    in heap order than in the order of ``deep_blocks``."""
+    forest = synthetic.generate_forest(4, 16, 28, seed=16)
+    data = synthetic.generate_data(1024, 28, missing_prob=0.0, seed=17)
+    eng = FoldKernelEngine(_port(forest), device=CPU)
+    assert isinstance(eng.launch, DeepLaunch)
+    x = eng.canonicalize(data)
+    got = deep_sectors(x, eng.tables)
+    assert got["rows"] == 1024 and got["loads_per_row_tree"] == 9
+    bits, heap = got["bits"], got["heap"]
+    for what in ("blocks_sectors", "leaf_sectors", "blocks_lines", "leaf_lines"):
+        assert heap[what] < bits[what], what
+    assert bits["sectors"] == bits["blocks_sectors"] + bits["leaf_sectors"]
+    # nine loads of 32 lanes: at most 288 sectors, at least one a load
+    assert 9 <= heap["sectors"] < bits["sectors"] <= 9 * 32
 
 
 @pytest.mark.parametrize("depth", [1, 2, 5])
@@ -739,7 +856,7 @@ def test_non_ge_code_field_ends(depth):
     assert torch.equal(packed[:4] & BLOCK_NONGE_FID,
                        torch.full((4, n), F - 1, dtype=torch.int32))
     x = _special_rows(t, rng, rows=64)
-    assert torch.equal(deep_block_walk(x, t, deep_blocks(t)),
+    assert torch.equal(deep_block_walk(x, t, heap_tables(t)),
                        fold_margins_plain(x, t))
     bad = dataclasses.replace(t, fids=t.fids.clone().fill_(F))
     with pytest.raises(ValueError):

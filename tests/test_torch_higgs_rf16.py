@@ -23,10 +23,12 @@ from tahoe_tpu_torch import Forest, GpuLimits, Strategy
 from tahoe_tpu_torch.forest.spec import from_arrays
 from tahoe_tpu_torch.ops.fold_kernel import (
     DeepLaunch,
+    deep_block_walk,
     fold_plan,
     fold_table_bytes,
     row_width,
 )
+from tahoe_tpu_torch.ops.transform import apply_output_transform
 from tahoe_tpu_torch.perf_model.model import choose_strategy
 
 CONFIG = json.loads((Path(__file__).resolve().parents[1] / "portbench" / "configs"
@@ -91,3 +93,10 @@ def test_the_pick_matches_the_reference_on_the_card(forest):
     want, _ = reference.predict(forest, x)
     gap = drive.max_gap(got.cpu().numpy(), want.cpu().numpy())
     assert gap <= CONFIG["max_abs_gap"], (strategy.name, gap)
+    # the deep kernel reads its heap-ordered tables: the predictions are the
+    # walk's leaves summed in tree order, AVG out, bit for bit
+    eng = prog.engine(strategy)
+    assert eng.heap is not None and eng.tables.leaf is eng.heap.leaf
+    walk = deep_block_walk(eng.canonicalize(x), eng.tables, eng.heap)
+    assert torch.equal(got, apply_output_transform(walk, eng.num_trees, eng.output,
+                                                   eng.global_bias, eng.threshold))
