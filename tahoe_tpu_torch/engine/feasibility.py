@@ -1,4 +1,4 @@
-"""Per-strategy feasibility predicates.
+"""Per-strategy feasibility predicates, and the facts of a forest they read.
 
 The counterpart of tahoe_tpu/engine/feasibility.py for all eight
 strategies: where the TPU engines check VMEM budgets and compile walls, the
@@ -9,10 +9,14 @@ stored depth: the fold strategies' at the deep kernel's route
 (fold_kernel.fold_table_bytes), which takes every depth past 14, so that
 SPLIT_FOREST and DEPTH_BUCKETED reach as deep as the JAX package runs them.
 The leveled form stops at depth 14, as there.
+
+The checks read a forest's ``ForestFacts``, which the cost model and Forest
+share; the rules of each engine's choice stay in its module.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Optional
 
 import numpy as np
 
@@ -22,9 +26,9 @@ from tahoe_tpu_torch.forest.compiler import (
     rank_groups,
     reachable_depths,
     reachable_mask,
+    truncate_depth,
 )
 from tahoe_tpu_torch.forest.spec import ForestSpec
-# rank_buckets_fit is DEPTH_BUCKETED's choice of variant, read here too
 from tahoe_tpu_torch.ops.bucketed import plan_buckets, rank_buckets_fit
 from tahoe_tpu_torch.ops.fold_kernel import (
     MAX_NONGE_COLS,
@@ -43,12 +47,56 @@ from tahoe_tpu_torch.ops.sparse_kernel import RECORD_BYTES
 MAX_LEVELED_DEPTH = 14
 
 
-def fold_cols(forest: ForestSpec) -> Tuple[int, str]:
-    """(live features, form) of the ge fold, compacted and chosen exactly
-    as fold_kernel.fold_tables does (feasibility.py:20-31 of the JAX
-    package): "dual" up to 64 live features, "sign" above."""
-    lev, _, form = fold_leveled(forest)
-    return lev.num_cols, form
+class ForestFacts:
+    """What the selection layer reads of one forest, each item derived on
+    first read and at most once, by the call the engine's module makes: a
+    check that reads only ``num_trees`` and ``depth`` derives nothing."""
+
+    def __init__(self, spec: ForestSpec):
+        self.spec = spec
+        self.num_trees = spec.num_trees
+        self.depth = spec.depth
+
+    @classmethod
+    def cut(cls, spec: ForestSpec) -> ForestFacts:
+        """The facts of ``spec`` cut to its reachable depth, as Forest takes
+        it (forest.py:40-43 of the JAX package); the cut keeps each tree's
+        reachable depth."""
+        depths = reachable_depths(spec)
+        facts = cls(truncate_depth(spec, int(depths.max(initial=0))))
+        facts.depths = depths
+        return facts
+
+    @functools.cached_property
+    def depths(self) -> np.ndarray:
+        return reachable_depths(self.spec)
+
+    @functools.cached_property
+    def buckets(self) -> list[tuple[int, int]]:
+        """DEPTH_BUCKETED's (trees, depth) a bucket, stumps left out."""
+        buckets = [(idx.size, int(self.depths[idx].max()))
+                   for idx in plan_buckets(self.depths)]
+        return [(n, d) for n, d in buckets if d > 0]
+
+    @functools.cached_property
+    def vcols(self) -> int:
+        return rank_virtual_cols(self.spec)
+
+    @functools.cached_property
+    def groups(self) -> int:
+        return rank_groups(self.vcols)
+
+    @functools.cached_property
+    def fold(self) -> tuple[int, str, bool]:
+        """The ge fold's live features, form and whether it compacts the
+        columns, as fold_kernel.fold_tables chooses them
+        (feasibility.py:20-31 of the JAX package)."""
+        lev, col_index, form = fold_leveled(self.spec)
+        return lev.num_cols, form, col_index is not None
+
+    @functools.cached_property
+    def pool(self) -> int:
+        return int(reachable_mask(self.spec).sum())
 
 
 def _table_reason(what: str, nbytes: int) -> Optional[str]:
@@ -58,14 +106,13 @@ def _table_reason(what: str, nbytes: int) -> Optional[str]:
     return None
 
 
-def _rank_reason(forest: ForestSpec) -> Optional[str]:
-    vcols = rank_virtual_cols(forest)
-    if vcols > RANK_MAX_COLS:
-        return (f"forest needs {vcols} banded virtual live features "
+def _rank_reason(facts: ForestFacts) -> Optional[str]:
+    if facts.vcols > RANK_MAX_COLS:
+        return (f"forest needs {facts.vcols} banded virtual live features "
                 f"> {RANK_MAX_COLS}")
     return _table_reason(
-        f"dense rank tables (depth {forest.depth})",
-        _rank_table_bytes(forest.num_trees, forest.depth, rank_groups(vcols)))
+        f"dense rank tables (depth {facts.depth})",
+        _rank_table_bytes(facts.num_trees, facts.depth, facts.groups))
 
 
 def _rank_table_bytes(trees: int, depth: int, groups: int) -> int:
@@ -73,21 +120,20 @@ def _rank_table_bytes(trees: int, depth: int, groups: int) -> int:
     return trees * (nodes * 128 * groups + 4 * (nodes + 1))
 
 
-def _fold_reason(strategy: Strategy, forest: ForestSpec,
+def _fold_reason(strategy: Strategy, facts: ForestFacts,
                  limits: GpuLimits) -> Optional[str]:
-    T, D = forest.num_trees, forest.depth
+    T, D = facts.num_trees, facts.depth
     reason = _table_reason(f"dense fold tables ({T} trees of depth {D})",
                            fold_table_bytes(T, D))
     if reason:
         return reason
-    cols, form = fold_cols(forest)
+    cols, form, _ = facts.fold
     if cols > MAX_SIGN_COLS:
         return (f"fold kernels take <= {MAX_SIGN_COLS} live features, forest "
                 f"has {cols}")
     width = row_width(form, cols)
     whole = strategy == Strategy.VMEM_FOREST
-    if fold_plan(form, width, forest.depth, forest.num_trees, limits,
-                 whole_forest=whole) is None:
+    if fold_plan(form, width, D, T, limits, whole_forest=whole) is None:
         what = ("the whole forest's node tables and a 32-row block" if whole
                 else f"a 32-row block of {width}-wide rows")
         return (f"{what} do not fit {limits.smem_per_block} bytes of shared "
@@ -95,22 +141,20 @@ def _fold_reason(strategy: Strategy, forest: ForestSpec,
     return None
 
 
-def _bucketed_reason(forest: ForestSpec) -> Optional[str]:
-    depths = reachable_depths(forest)
-    if np.unique(depths).size < 2:
+def _bucketed_reason(facts: ForestFacts) -> Optional[str]:
+    if np.unique(facts.depths).size < 2:
         return "uniform tree depth — identical work to SPLIT_FOREST"
     # each bucket's tables at its own depth (ops/bucketed.py), the variant
     # chosen as the JAX package chooses it
-    buckets = [(idx.size, int(depths[idx].max())) for idx in plan_buckets(depths)]
-    buckets = [(n, d) for n, d in buckets if d > 0]
-    if rank_buckets_fit(forest):
-        groups = rank_groups(rank_virtual_cols(forest))
+    buckets = facts.buckets
+    num_cols = facts.spec.num_cols
+    if rank_buckets_fit(num_cols, facts.vcols):
         return _table_reason(
             f"the buckets' dense rank tables (depths {[d for _, d in buckets]})",
-            sum(_rank_table_bytes(n, d, groups) for n, d in buckets))
-    if forest.num_cols > MAX_NONGE_COLS:
+            sum(_rank_table_bytes(n, d, facts.groups) for n, d in buckets))
+    if num_cols > MAX_NONGE_COLS:
         return (f"rank variant needs <= 2 plane groups and the fold variant "
-                f"<= {MAX_NONGE_COLS} columns; forest has {forest.num_cols}")
+                f"<= {MAX_NONGE_COLS} columns; forest has {num_cols}")
     # the fold variant: the deep kernel takes every bucket too deep for a
     # tile of kernel C, in the non-ge form too, so fold_plan always has a
     # kernel
@@ -119,25 +163,25 @@ def _bucketed_reason(forest: ForestSpec) -> Optional[str]:
         sum(fold_table_bytes(n, d) for n, d in buckets))
 
 
-def check(strategy: Strategy, forest: ForestSpec,
+def check(strategy: Strategy, facts: ForestFacts,
           limits: GpuLimits = GpuLimits()) -> Optional[str]:
-    """None if the strategy's kernels take ``forest``, else the reason."""
+    """None if the strategy's kernels take the forest of ``facts``, else
+    the reason."""
     if strategy in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST):
-        return _fold_reason(strategy, forest, limits)
+        return _fold_reason(strategy, facts, limits)
     if strategy == Strategy.DEPTH_BUCKETED:
-        return _bucketed_reason(forest)
+        return _bucketed_reason(facts)
     if strategy == Strategy.RANK_MXU:
-        return _rank_reason(forest)
+        return _rank_reason(facts)
     if strategy == Strategy.SPARSE:
-        pool = int(reachable_mask(forest).sum())
-        return _table_reason(f"sparse node pool of {pool} nodes",
-                             pool * RECORD_BYTES)
+        return _table_reason(f"sparse node pool of {facts.pool} nodes",
+                             facts.pool * RECORD_BYTES)
     if strategy == Strategy.HBM_DIRECT:
         return _table_reason(
-            f"dense node tables (complete trees of depth {forest.depth})",
-            forest_num_nodes(forest.num_trees, forest.depth) * NODE_BYTES)
+            f"dense node tables (complete trees of depth {facts.depth})",
+            forest_num_nodes(facts.num_trees, facts.depth) * NODE_BYTES)
     if strategy in (Strategy.ROW_TILED, Strategy.TENSOR):
-        if forest.depth > MAX_LEVELED_DEPTH:
-            return (f"leveled form of depth {forest.depth} is too large "
+        if facts.depth > MAX_LEVELED_DEPTH:
+            return (f"leveled form of depth {facts.depth} is too large "
                     f"(> {MAX_LEVELED_DEPTH})")
     return None

@@ -10,8 +10,9 @@ The counterpart of tahoe_tpu/engine/forest.py, serving all eight strategies:
   DEPTH_BUCKETED -> make_depth_bucketed_engine (kernels A + B per bucket, or
                     the fold per bucket, non-ge for 65-128 columns)
   RANK_MXU       -> RankFoldEngine   (rank transform + traversal, kernels A, B)
-  SPARSE         -> SparseRankEngine (kernel A + the sparse kernel) where its
-                    ``feasible`` holds, else SparseGatherEngine (plain torch)
+  SPARSE         -> SparseRankEngine (kernel A + the sparse kernel) where
+                    ``sparse_rank_reason`` admits the forest, else
+                    SparseGatherEngine (plain torch)
   HBM_DIRECT     -> GatherEngine on the hot-swapped, clustered forest
   ROW_TILED      -> TensorEngine("take") on the leveled forest
   TENSOR         -> TensorEngine("onehot") on the leveled forest
@@ -44,7 +45,10 @@ from tahoe_tpu_torch.ops.fold_kernel import FoldKernelEngine
 from tahoe_tpu_torch.ops import graphed, oracle
 from tahoe_tpu_torch.ops.gather_engine import GatherEngine
 from tahoe_tpu_torch.ops.rank_kernel import RankFoldEngine
-from tahoe_tpu_torch.ops.sparse_kernel import SparseRankEngine
+from tahoe_tpu_torch.ops.sparse_kernel import (
+    SparseRankEngine,
+    sparse_rank_reason,
+)
 from tahoe_tpu_torch.ops.tensor_engine import TensorEngine
 from tahoe_tpu_torch.utils.profiling import span
 
@@ -55,13 +59,11 @@ class Forest:
     def __init__(self, spec: ForestSpec, *, device):
         self.device = resolve_device(device)
         self.limits = GpuLimits.for_device(self.device)
-        # drop unreachable filler levels once, up front (forest.py:40-43 of
-        # the JAX package): exact, and engines size against the real depth
+        # drop unreachable filler levels once, up front: the facts that
+        # feasibility and the engines' choices read are the cut forest's
         self.stored_depth = spec.depth
-        d_eff = int(compiler.reachable_depths(spec).max(initial=0))
-        if d_eff < spec.depth:
-            spec = compiler.truncate_depth(spec, d_eff)
-        self.spec = spec
+        self.facts = feasibility.ForestFacts.cut(spec)
+        self.spec = self.facts.spec
         self._engines: Dict = {}
 
     @classmethod
@@ -96,7 +98,7 @@ class Forest:
         return compiler.levelize(self.spec)
 
     def feasible(self, strategy: Strategy) -> Optional[str]:
-        return feasibility.check(strategy, self.spec, self.limits)
+        return feasibility.check(strategy, self.facts, self.limits)
 
     def engine(self, strategy: Strategy, *, fuse_transform: bool = False):
         """Build (or fetch) the engine realizing a strategy.
@@ -115,7 +117,7 @@ class Forest:
         elif strategy == Strategy.DEPTH_BUCKETED:
             eng = make_depth_bucketed_engine(self.spec, device=self.device)
         elif strategy == Strategy.SPARSE:
-            if SparseRankEngine.feasible(self.spec) is None:
+            if sparse_rank_reason(self.facts.vcols) is None:
                 eng = SparseRankEngine(self.spec, device=self.device)
             else:
                 eng = SparseGatherEngine(from_dense(self.spec), device=self.device)

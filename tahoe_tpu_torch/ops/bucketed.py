@@ -209,13 +209,13 @@ class DepthBucketedRankEngine(_Bucketed):
                                            for e in self.sub))
 
 
-def rank_buckets_fit(forest: ForestSpec) -> bool:
-    """Whether DEPTH_BUCKETED takes its rank variant: one or two plane
-    groups (bucketed.py:292-295 of the JAX package)."""
-    if forest.num_cols > RANK_MAX_COLS:
-        return False
-    vcols = rank_virtual_cols(forest)
-    return vcols <= RANK_MAX_COLS and rank_groups(vcols) <= 2
+def rank_buckets_fit(num_cols: int, vcols: int) -> bool:
+    """Whether DEPTH_BUCKETED takes its rank variant for a forest of
+    ``num_cols`` columns and ``vcols`` banded virtual live features
+    (rank_virtual_cols): one or two plane groups (bucketed.py:292-295 of
+    the JAX package)."""
+    return (num_cols <= RANK_MAX_COLS and vcols <= RANK_MAX_COLS
+            and rank_groups(vcols) <= 2)
 
 
 def make_depth_bucketed_engine(spec: ForestSpec, *, device):
@@ -225,7 +225,7 @@ def make_depth_bucketed_engine(spec: ForestSpec, *, device):
     It stops at the first variant whose tables can be built for the forest:
     a constructor compiles tables and launches no kernel, so the only errors
     passed over are the rank variant's refusals of the forest."""
-    if rank_buckets_fit(spec):
+    if rank_buckets_fit(spec.num_cols, rank_virtual_cols(spec)):
         try:
             return DepthBucketedRankEngine(spec, device=device)
         except (ValueError, NotImplementedError):

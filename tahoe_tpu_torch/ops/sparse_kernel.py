@@ -387,6 +387,16 @@ def sparse_tables(spec: ForestSpec, band: int | None = None, *,
     )
 
 
+def sparse_rank_reason(vcols: int) -> str | None:
+    """None if SparseRankEngine takes a forest of ``vcols`` banded virtual
+    live features (rank_virtual_cols), else the reason: the JAX engine's
+    rule (sparse_kernel.py:528-538), the banded live features fit the
+    planes. The pool has no cap of its own here."""
+    if vcols > RANK_MAX_COLS:
+        return f"{vcols} virtual features > {RANK_MAX_COLS}"
+    return None
+
+
 class SparseRankEngine(GraphedEngine):
     """Rank-quantize a forest, prune it to its CSR pool and run it through
     kernel A and the sparse kernel (Strategy.SPARSE where the rank planes
@@ -416,12 +426,8 @@ class SparseRankEngine(GraphedEngine):
 
     @staticmethod
     def feasible(forest: ForestSpec) -> str | None:
-        """The JAX engine's rule (sparse_kernel.py:528-538): the banded live
-        features fit the planes. The pool has no cap of its own here."""
-        vcols = rank_virtual_cols(forest)
-        if vcols > RANK_MAX_COLS:
-            return f"{vcols} virtual features > {RANK_MAX_COLS}"
-        return None
+        """``sparse_rank_reason`` of ``forest``'s banded live features."""
+        return sparse_rank_reason(rank_virtual_cols(forest))
 
     def transform(self, rows) -> torch.Tensor:
         """Raw rows [R, C] -> int8 planes [R, 128*G] (kernel A)."""

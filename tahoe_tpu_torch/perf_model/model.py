@@ -66,19 +66,13 @@ import numpy as np
 
 from tahoe_tpu_torch.config import GpuLimits, Output, Strategy
 from tahoe_tpu_torch.engine import feasibility
-from tahoe_tpu_torch.forest.compiler import (
-    rank_groups,
-    reachable_depths,
-    truncate_depth,
-)
 from tahoe_tpu_torch.forest.spec import ForestSpec
-from tahoe_tpu_torch.ops.bucketed import plan_buckets
+from tahoe_tpu_torch.ops.bucketed import rank_buckets_fit
 from tahoe_tpu_torch.ops.fold_kernel import (
     MAX_DUAL_COLS,
     DeepLaunch,
     FoldLaunch,
     deep_groups,
-    fold_leveled,
     fold_plan,
     row_width,
     tree_bytes,
@@ -87,10 +81,9 @@ from tahoe_tpu_torch.ops.rank_kernel import (
     RANK_PAIR_GROUPS,
     rank_block_rows,
     rank_row_words,
-    rank_virtual_cols,
 )
 from tahoe_tpu_torch.ops.rows import ROW_CHUNK_BYTES
-from tahoe_tpu_torch.ops.sparse_kernel import SparseRankEngine
+from tahoe_tpu_torch.ops.sparse_kernel import sparse_rank_reason
 from tahoe_tpu_torch.perf_model.calibrate import (
     CAL_BLOCK_ROWS,
     SPARSE_BLOCK_ROWS,
@@ -376,80 +369,72 @@ def _chunks(rows: int, bytes_per_row: int) -> int:
     return -(-max(rows, 1) // max(1, ROW_CHUNK_BYTES // max(1, bytes_per_row)))
 
 
-def predict_cost(strategy: Strategy, forest: ForestSpec, rows: int,
-                 cal: Calibration, limits: GpuLimits = GpuLimits()
+def predict_cost(strategy: Strategy, facts: feasibility.ForestFacts,
+                 rows: int, cal: Calibration, limits: GpuLimits = GpuLimits()
                  ) -> Optional[CostBreakdown]:
-    """Predicted cost of one predict of ``rows`` rows, or None where
-    feasibility.check refuses the strategy (reference: acc=FLT_MAX skip,
-    BaseTahoeTest.h:657-679). The forest is cut to its reachable depth
-    first, as Forest does."""
-    d_eff = int(reachable_depths(forest).max(initial=0))
-    if d_eff < forest.depth:
-        forest = truncate_depth(forest, d_eff)
-    if feasibility.check(strategy, forest, limits) is not None:
+    """Predicted cost of one predict of ``rows`` rows of the forest of
+    ``facts``, or None where feasibility.check refuses the strategy
+    (reference: acc=FLT_MAX skip, BaseTahoeTest.h:657-679). ``facts`` are
+    those of the forest cut to its reachable depth (ForestFacts.cut), as
+    Forest takes it."""
+    if feasibility.check(strategy, facts, limits) is not None:
         return None
-    T, D = forest.num_trees, forest.depth
+    forest = facts.spec
+    T, D, C = facts.num_trees, facts.depth, forest.num_cols
     out_ops = _transform_ops(forest)
-    # the rows a graphed call copies into its static input where its engine
-    # gathers no columns (rank engines gather where banding or compaction
-    # changes the columns)
-    C = forest.num_cols
-    rank_copied = 0 if rank_virtual_cols(forest) != C else C
     miss_ops = 2 * _finite_missing(forest)
 
     if strategy in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST):
-        lev, col_index, form = fold_leveled(forest)
-        width = row_width(form, lev.num_cols)
+        cols, form, compacted = facts.fold
+        width = row_width(form, cols)
         device = _fold_kernel_s(form, width, D, T, rows, cal, limits,
                                 strategy == Strategy.VMEM_FOREST)
-        ops = _canon_ops(forest, col_index is not None, form == "dual") + out_ops
-        return _cost(device, 1, ops, cal, rows,
-                     0 if col_index is not None else forest.num_cols)
+        ops = _canon_ops(forest, compacted, form == "dual") + out_ops
+        return _cost(device, 1, ops, cal, rows, 0 if compacted else C)
 
+    # a graphed call copies the rows into its static input where its engine
+    # gathers no columns: the rank engines gather where banding or
+    # compaction changes the columns
     if strategy == Strategy.RANK_MXU:
-        vcols = rank_virtual_cols(forest)
+        vcols = facts.vcols
         device = (_rank_a_s(vcols, rows, cal)
-                  + _rank_b_s(rank_groups(vcols), D, T, rows, cal, limits))
-        ops = _canon_ops(forest, vcols != forest.num_cols) + out_ops
-        return _cost(device, 2, ops, cal, rows, rank_copied)
+                  + _rank_b_s(facts.groups, D, T, rows, cal, limits))
+        ops = _canon_ops(forest, vcols != C) + out_ops
+        return _cost(device, 2, ops, cal, rows, 0 if vcols != C else C)
 
     if strategy == Strategy.DEPTH_BUCKETED:
-        depths = reachable_depths(forest)
-        buckets = [(len(idx), int(depths[idx].max(initial=0)))
-                   for idx in plan_buckets(depths)]
-        buckets = [(n, d) for n, d in buckets if d > 0]
+        buckets = facts.buckets
         adds = len(buckets)  # the buckets' sum and the stumps' margin
-        if feasibility.rank_buckets_fit(forest):
-            vcols = rank_virtual_cols(forest)
-            G = rank_groups(vcols)
+        if rank_buckets_fit(C, facts.vcols):
+            vcols, G = facts.vcols, facts.groups
             device = _rank_a_s(vcols, rows, cal) + sum(
                 _rank_b_s(G, d, n, rows, cal, limits) for n, d in buckets)
-            ops = _canon_ops(forest, vcols != forest.num_cols) + adds + out_ops
-            return _cost(device, 1 + len(buckets), ops, cal, rows, rank_copied)
-        dual = forest.num_cols <= MAX_DUAL_COLS
+            ops = _canon_ops(forest, vcols != C) + adds + out_ops
+            return _cost(device, 1 + len(buckets), ops, cal, rows,
+                         0 if vcols != C else C)
+        dual = C <= MAX_DUAL_COLS
         form = "dual" if dual else "nonge"
-        width = row_width(form, forest.num_cols)
+        width = row_width(form, C)
         device = sum(_fold_kernel_s(form, width, d, n, rows, cal, limits)
                      for n, d in buckets)
         ops = _canon_ops(forest, False, dual) + adds + out_ops
         return _cost(device, len(buckets), ops, cal, rows, C)
 
     if strategy == Strategy.SPARSE:
-        if SparseRankEngine.feasible(forest) is None:
-            vcols = rank_virtual_cols(forest)
-            G = rank_groups(vcols)
+        if sparse_rank_reason(facts.vcols) is None:
+            vcols, G = facts.vcols, facts.groups
             unit = cal.sparse_ns * (1 if G == 1
                                     else cal.rank_fold_bytes_ns / cal.rank_fold_ns)
             # a warp descends each tree as deep as its deepest row: the
             # trees' reachable depths in the pruned pool
-            path = int(reachable_depths(forest).sum())
+            path = int(facts.depths.sum())
             device = _rank_a_s(vcols, rows, cal) + _descent_s(
                 unit, cal.sparse_row_ns, cal.sparse_floor_ns,
                 cal.sparse_floor_us, rows, path, *sparse_geometry(G, limits),
                 limits)
-            ops = _canon_ops(forest, vcols != forest.num_cols) + out_ops
-            return _cost(device, 2, ops, cal, rows, rank_copied)
-        depth = int(reachable_depths(forest).max(initial=0))
+            ops = _canon_ops(forest, vcols != C) + out_ops
+            return _cost(device, 2, ops, cal, rows, 0 if vcols != C else C)
+        depth = int(facts.depths.max(initial=0))
         chunks = _chunks(rows, GATHER_ROW_BYTES * T)
         device = rows * T * depth * cal.gather_step_ns * 1e-9
         ops = chunks * ((SPARSE_GATHER_LEVEL_OPS + miss_ops) * depth
@@ -481,7 +466,8 @@ def choose_strategy(forest: ForestSpec, rows: int,
     of a chain (``CostBreakdown.chained``), as the enumeration times them.
     Returns the pick and the full cost table for reporting."""
     cal = cal or Calibration.default()
-    costs = {s: predict_cost(s, forest, rows, cal, limits) for s in Strategy}
+    facts = feasibility.ForestFacts.cut(forest)
+    costs = {s: predict_cost(s, facts, rows, cal, limits) for s in Strategy}
     best = min(
         (s for s in Strategy if costs[s] is not None),
         key=lambda s: costs[s].chained,

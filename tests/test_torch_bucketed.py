@@ -26,6 +26,7 @@ from tahoe_tpu_torch.ops.bucketed import (
 )
 from tahoe_tpu_torch.config import Strategy
 from tahoe_tpu_torch.engine import feasibility
+from tahoe_tpu_torch.engine.feasibility import ForestFacts
 from tahoe_tpu_torch.ops.fold_kernel import (
     FOLD,
     FOLD_DEEP,
@@ -123,7 +124,7 @@ def test_bucketed_fold_non_ge_deep_buckets():
     data = synthetic.generate_data(24, 90, missing=-999.0, missing_prob=0.1,
                                    seed=34)
     port = _port(f)
-    assert feasibility.check(Strategy.DEPTH_BUCKETED, port) is None
+    assert feasibility.check(Strategy.DEPTH_BUCKETED, ForestFacts(port)) is None
     eng = DepthBucketedFoldEngine(port, device=CPU)
     assert [e.tables.depth for e in eng.sub] == [3, 14]
     assert [e.kernel for e in eng.sub] == [FOLD_NONGE, FOLD_DEEP_NONGE]
@@ -215,7 +216,7 @@ def test_depth17_bucket_matches_jax(cols, variant):
     f.is_leaf[:8, f.level_slice(4).start:] = True
     data = synthetic.generate_data(24, cols, missing_prob=0.1, seed=2)
     port = _port(f)
-    assert feasibility.check(Strategy.DEPTH_BUCKETED, port) is None
+    assert feasibility.check(Strategy.DEPTH_BUCKETED, ForestFacts(port)) is None
     assert jax_feasibility.check(JaxStrategy.DEPTH_BUCKETED, f) is None
     eng = make_depth_bucketed_engine(port, device=CPU)
     jeng = jax_bucketed.make_depth_bucketed_engine(f, row_tile=8, interpret=True)

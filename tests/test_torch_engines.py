@@ -23,6 +23,7 @@ from tahoe_tpu.ops.gather_engine import GatherEngine as JaxGatherEngine
 from tahoe_tpu.ops.tensor_engine import TensorEngine as JaxTensorEngine
 from tahoe_tpu_torch import Forest, Strategy
 from tahoe_tpu_torch.engine import feasibility
+from tahoe_tpu_torch.engine.feasibility import ForestFacts
 from tahoe_tpu_torch.forest import compiler as port_compiler
 from tahoe_tpu_torch.forest.spec import from_arrays
 from tahoe_tpu_torch.ops import rows as rows_mod
@@ -149,7 +150,7 @@ def test_leveled_depth_cap_matches_jax(depth, trees):
     spec = synthetic.generate_forest(trees, depth, 4, seed=11)
     for s in (Strategy.ROW_TILED, Strategy.TENSOR):
         jax_reason = jax_feasibility.check(JaxStrategy[s.name], spec)
-        port_reason = feasibility.check(s, _port(spec))
+        port_reason = feasibility.check(s, ForestFacts(_port(spec)))
         assert (jax_reason is None) == (port_reason is None)
 
 
@@ -170,7 +171,7 @@ def test_fold_table_cap(trees, depth, feasible):
     if not feasible:
         shape = types.SimpleNamespace(num_trees=trees, depth=depth)
         for s in (Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST):
-            reason = feasibility.check(s, shape)
+            reason = feasibility.check(s, ForestFacts(shape))
             assert "dense fold tables" in reason and "> 2 GiB" in reason
 
 
@@ -181,14 +182,14 @@ def test_table_caps(monkeypatch, trees, depth, feasible):
     package, priced at the port's 9 bytes a node; the dense rank tables too
     (200 trees of depth 18 would take 6.7 GB)."""
     shape = types.SimpleNamespace(num_trees=trees, depth=depth)
-    reason = feasibility.check(Strategy.HBM_DIRECT, shape)
+    reason = feasibility.check(Strategy.HBM_DIRECT, ForestFacts(shape))
     assert (reason is None) == feasible
     assert (jax_feasibility.check(JaxStrategy.HBM_DIRECT, shape) is None) == feasible
     if not feasible:
         assert "dense node tables" in reason and "> 2 GiB" in reason
     # two depth-16 trees' rank tables take 2 x 65,535 x 128 + 2 x 65,536 x 4
     # bytes, 17.3 MB
-    deep = _port(synthetic.generate_forest(2, 16, 4, seed=12))
+    deep = ForestFacts(_port(synthetic.generate_forest(2, 16, 4, seed=12)))
     assert feasibility.check(Strategy.RANK_MXU, deep) is None
     monkeypatch.setattr(feasibility, "TABLE_CAP_BYTES", 17_300_000)
     assert "dense rank tables" in feasibility.check(Strategy.RANK_MXU, deep)

@@ -18,6 +18,7 @@ from tahoe_tpu.ops.transform import apply_output_transform as np_transform
 from tahoe_tpu_torch import Forest, Output, Strategy
 from tahoe_tpu_torch.config import MISSING_EPS, resolve_device
 from tahoe_tpu_torch.engine import feasibility
+from tahoe_tpu_torch.engine.feasibility import ForestFacts
 from tahoe_tpu_torch.forest.spec import from_arrays, to_arrays
 from tahoe_tpu_torch.ops.bucketed import (
     DepthBucketedFoldEngine,
@@ -181,7 +182,7 @@ def test_feasibility_matches_jax_to_depth_18(depth):
     mixed = synthetic.generate_forest(3, depth, 6, seed=depth)
     mixed.is_leaf[0, mixed.level_slice(depth - 3).start:] = True
     for forest in (spec, mixed):
-        port = _port(forest)
+        port = ForestFacts(_port(forest))
         for s in Strategy:
             want = jax_feasibility.check(JaxStrategy[s.name], forest)
             got = feasibility.check(s, port)
@@ -191,7 +192,7 @@ def test_feasibility_matches_jax_to_depth_18(depth):
                 assert (got is None) == (want is None), (s, got, want)
         if depth > 15:
             assert feasibility.check(Strategy.SPLIT_FOREST, port) is None
-    assert feasibility.check(Strategy.DEPTH_BUCKETED, _port(mixed)) is None
+    assert feasibility.check(Strategy.DEPTH_BUCKETED, ForestFacts(_port(mixed))) is None
 
 
 def test_depth15_split_forest_matches_oracle():
@@ -271,6 +272,7 @@ def test_split_forest_feasible_where_jax_is(name):
     live = jax_feasibility.fold_cols(_jax(f.spec))[0]
     assert eng.tables.num_cols == live
     assert eng.form == ("dual" if live <= 64 else "sign")
+    assert f.facts.fold[:2] == (live, eng.form)
     assert eng.kernel is SWEEP_SHAPES[name]
 
 

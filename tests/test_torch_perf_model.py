@@ -12,8 +12,11 @@ import pytest
 
 from tahoe_tpu_torch import Forest, GpuLimits, Output, Strategy
 from tahoe_tpu_torch.engine import feasibility
+from tahoe_tpu_torch.engine import forest as forest_mod
+from tahoe_tpu_torch.engine.feasibility import ForestFacts
 from tahoe_tpu_torch.forest import synthetic
 from tahoe_tpu_torch.forest.train import train_forest
+from tahoe_tpu_torch.ops import bucketed as bucketed_mod, fold_kernel, sparse_kernel
 from tahoe_tpu_torch.ops.fold_kernel import fold_leveled, fold_plan, row_width
 from tahoe_tpu_torch.perf_model import model
 from tahoe_tpu_torch.perf_model.calibrate import Calibration
@@ -32,7 +35,7 @@ def test_cost_is_none_exactly_where_feasibility_refuses(name):
     f = Forest(spec, device="cpu")
     cal = Calibration.default()
     for s in Strategy:
-        cost = model.predict_cost(s, spec, ROWS, cal)
+        cost = model.predict_cost(s, f.facts, ROWS, cal)
         assert (cost is None) == (f.feasible(s) is not None), s
         if cost is not None:
             assert cost.total > 0 and cost.device_s > 0 and cost.launches > 0
@@ -46,7 +49,7 @@ def test_sparse_over_the_gather_tier_on_a_deep_trained_forest():
     spec = train_forest(3, 18, 24, rows=2048, seed=1)
     f = Forest(spec, device="cpu")
     cal = Calibration.default()
-    costs = {s: model.predict_cost(s, spec, ROWS, cal) for s in Strategy}
+    costs = {s: model.predict_cost(s, f.facts, ROWS, cal) for s in Strategy}
     for s, c in costs.items():
         assert (c is None) == (f.feasible(s) is not None), s
     assert costs[Strategy.SPARSE].total < costs[Strategy.HBM_DIRECT].total
@@ -62,18 +65,18 @@ def test_cost_is_none_exactly_where_check_refuses_past_depth_15(
     under which some dense tables pass it."""
     if cap is not None:
         monkeypatch.setattr(feasibility, "TABLE_CAP_BYTES", cap)
-    spec = Forest(family_spec(shape_by_name(name), num_trees=3), device="cpu").spec
-    assert spec.depth > 15
+    facts = Forest(family_spec(shape_by_name(name), num_trees=3), device="cpu").facts
+    assert facts.depth > 15
     cal = Calibration.default()
     refused = set()
     for s in Strategy:
-        reason = feasibility.check(s, spec)
-        assert (model.predict_cost(s, spec, 1500, cal) is None) == (reason is not None), s
+        reason = feasibility.check(s, facts)
+        assert (model.predict_cost(s, facts, 1500, cal) is None) == (reason is not None), s
         if reason is not None:
             refused.add(s)
     assert Strategy.SPARSE not in refused
     assert (Strategy.SPLIT_FOREST in refused) == (cap is not None
-                                                  and spec.depth == 18)
+                                                  and facts.depth == 18)
 
 
 def test_deep_misses_past_the_l2():
@@ -102,10 +105,10 @@ ORDERS = [
 
 @pytest.mark.parametrize("name,faster,slower", ORDERS)
 def test_orders_measured_pairs(name, faster, slower):
-    spec = family_spec(shape_by_name(name))
+    facts = ForestFacts.cut(family_spec(shape_by_name(name)))
     cal = Calibration.default()
-    assert (model.predict_cost(faster, spec, ROWS, cal).total
-            < model.predict_cost(slower, spec, ROWS, cal).total)
+    assert (model.predict_cost(faster, facts, ROWS, cal).total
+            < model.predict_cost(slower, facts, ROWS, cal).total)
 
 
 # measured winners on the H100 at 65,536 rows, every kernel strategy
@@ -165,7 +168,7 @@ def test_kernel_c_batched_and_tiled_as_measured():
     assert not model.fold_batches(split.smem_bytes)
     cal = Calibration.default()
     assert cal.fold_c_batch_floor_ns < cal.fold_c_floor_ns
-    costs = {s: model.predict_cost(s, spec, ROWS, cal)
+    costs = {s: model.predict_cost(s, ForestFacts.cut(spec), ROWS, cal)
              for s in (Strategy.VMEM_FOREST, Strategy.SPLIT_FOREST)}
     assert (costs[Strategy.VMEM_FOREST].device_s
             < 0.95 * costs[Strategy.SPLIT_FOREST].device_s)
@@ -176,7 +179,7 @@ def test_more_launches_raise_the_host_term():
     host's issue of it, and each op also to the card's time."""
     cal = Calibration.default()
     assert cal.node_us > 0 and cal.op_device_us > 0
-    mix = family_spec(shape_by_name("trained_mix_like"))
+    mix = ForestFacts.cut(family_spec(shape_by_name("trained_mix_like")))
     rank = model.predict_cost(Strategy.RANK_MXU, mix, ROWS, cal)
     bucketed = model.predict_cost(Strategy.DEPTH_BUCKETED, mix, ROWS, cal)
     # kernel A, then kernel B a bucket (4), and the buckets' sum
@@ -184,7 +187,7 @@ def test_more_launches_raise_the_host_term():
     assert bucketed.host_s > rank.host_s
     susy = synthetic.susy_class_forest(seed=0)
     # the tensor engine holds a depth-long chain a row chunk
-    one, many = (model.predict_cost(Strategy.TENSOR, susy, r, cal)
+    one, many = (model.predict_cost(Strategy.TENSOR, ForestFacts.cut(susy), r, cal)
                  for r in (64, ROWS))
     assert many.launches > 100 * one.launches and many.host_s > one.host_s
     assert many.device_s > 100 * one.device_s
@@ -193,10 +196,11 @@ def test_more_launches_raise_the_host_term():
         susy, missing=-999.0,
         output=int(Output.AVG | Output.SIGMOID | Output.THRESHOLD))
     for s in (Strategy.SPLIT_FOREST, Strategy.RANK_MXU, Strategy.HBM_DIRECT):
-        plain, more = (model.predict_cost(s, f, ROWS, cal) for f in (susy, edge))
+        plain, more = (model.predict_cost(s, ForestFacts.cut(f), ROWS, cal)
+                       for f in (susy, edge))
         assert more.launches > plain.launches and more.host_s > plain.host_s, s
     # host time, not device time, decides a host-bound call
-    c = model.predict_cost(Strategy.ROW_TILED, susy, ROWS, cal)
+    c = model.predict_cost(Strategy.ROW_TILED, ForestFacts.cut(susy), ROWS, cal)
     assert c.total == pytest.approx(max(c.device_s, c.host_s) + c.latency_s)
 
 
@@ -204,7 +208,7 @@ def test_a_call_is_priced_as_one_graph_replay():
     """The host issues one graphed call: the calibrated call of the
     shortest kernel path (its CALL_NODES nodes), and each node past them."""
     cal = Calibration.default()
-    susy = synthetic.susy_class_forest(seed=0)
+    susy = ForestFacts.cut(synthetic.susy_class_forest(seed=0))
     split = model.predict_cost(Strategy.SPLIT_FOREST, susy, ROWS, cal)
     assert split.launches == model.CALL_NODES  # dual rows: two ops, kernel C
     assert split.host_s == pytest.approx(cal.call_us * 1e-6)
@@ -257,3 +261,47 @@ def test_measure_needs_a_card():
 
     with pytest.raises((RuntimeError, ValueError)):
         calibrate.measure("cpu")
+
+
+# the modules of the selection layer and the engines' modules whose rules it
+# reads; each binds the derivations it calls under its own name
+SELECTION_MODULES = (feasibility, model, forest_mod, bucketed_mod, fold_kernel,
+                     sparse_kernel)
+DERIVATIONS = ("rank_virtual_cols", "levelize", "reachable_depths")
+
+
+def _count_derivations(monkeypatch) -> dict:
+    """Count the calls of each of DERIVATIONS made through the names the
+    selection modules import."""
+    calls = dict.fromkeys(DERIVATIONS, 0)
+    for mod in SELECTION_MODULES:
+        for name in DERIVATIONS:
+            if hasattr(mod, name):
+                def counted(*args, _fn=getattr(mod, name), _name=name, **kw):
+                    calls[_name] += 1
+                    return _fn(*args, **kw)
+                monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+def test_a_pick_derives_each_fact_once(monkeypatch):
+    """choose_strategy on a forest of mixed depths that all eight strategies
+    take: the banded live features, the fold's leveled form and the
+    reachable depths (those of the cut, which feed the facts) are each
+    derived once for the eight prices."""
+    spec = synthetic.generate_mixed_depth_forest(16, 8, 12, seed=4)
+    calls = _count_derivations(monkeypatch)
+    _, costs = model.choose_strategy(spec, 4096, Calibration.default())
+    assert all(c is not None for c in costs.values()), costs
+    assert calls == dict.fromkeys(DERIVATIONS, 1)
+
+
+def test_a_forest_derives_its_banding_once(monkeypatch):
+    """Forest.feasible on every strategy, then SPARSE's choice of tier and
+    its engine: the banded live features are derived once."""
+    calls = _count_derivations(monkeypatch)
+    f = Forest(synthetic.generate_mixed_depth_forest(16, 8, 12, seed=4),
+               device="cpu")
+    assert all(f.feasible(s) is None for s in Strategy)
+    assert isinstance(f.engine(Strategy.SPARSE), sparse_kernel.SparseRankEngine)
+    assert calls["rank_virtual_cols"] == 1

@@ -41,6 +41,7 @@ from tahoe_tpu_torch.ops.sparse_kernel import (
     sparse_leaves_plain,
     sparse_margins,
     sparse_margins_plain,
+    sparse_rank_reason,
     sparse_records,
     sparse_tables,
 )
@@ -205,13 +206,14 @@ def test_gather_tier_matches_jax(missing):
 
 def test_facade_picks_the_tier_by_feasibility():
     """SPARSE takes the rank engine where its planes hold the forest, the
-    gather tier otherwise, by SparseRankEngine.feasible."""
+    gather tier otherwise, by sparse_rank_reason."""
     forest = train_forest(20, 9, 12, rows=512, seed=20)
     f = Forest(_port(forest), device=CPU)
     assert isinstance(f.engine(Strategy.SPARSE), SparseRankEngine)
     wide = Forest(_port(synthetic.generate_forest(40, 6, 1440, seed=23)),
                   device=CPU)
     assert "virtual features > 480" in SparseRankEngine.feasible(wide.spec)
+    assert sparse_rank_reason(wide.facts.vcols) == SparseRankEngine.feasible(wide.spec)
     assert isinstance(wide.engine(Strategy.SPARSE), sparse.SparseGatherEngine)
     for fo in (f, wide):
         data = synthetic.generate_data(40, fo.spec.num_cols, missing_prob=0.05,
