@@ -19,7 +19,8 @@ Phases, each of which exits non-zero when it fails:
    alternating rounds; kernel C and the deep kernel both on the SUSY-class
    tables, and kernel C as the main path launches it, on the raw rows read
    in place, held to the plain version of its row staging (its time and
-   bound are kernel C's in the kernels line);
+   bound are kernel C's in the kernels line); the deep kernel on the same
+   raw rows too, bit for bit its call on the canonicalized rows;
 4. the main path through the user's entry points: Forest.from_files on the
    reference text formats, then SPLIT_FOREST (on the fold kernel fold_plan
    picks: kernel C's dual form since its redesign) and RANK_MXU (full
@@ -36,7 +37,9 @@ Phases, each of which exits non-zero when it fails:
 7. deep: deep15-class (30 trees, depth 15) in the dual (16 features) and
    the sign form (100 features) through SPLIT_FOREST on the deep kernel,
    which no tile of kernel C holds; then kernel C and the deep kernel at
-   deep12-class (100, 12, 28), where fold_plan takes the deep kernel;
+   deep12-class (100, 12, 28), where fold_plan takes the deep kernel; the
+   deep kernel also on the raw rows read in place, as the main path
+   launches it, bit for bit its call on the canonicalized rows;
 8. VMEM_FOREST: stumps-class (800 trees, depth 3, 10 features), the whole
    forest in one shared-memory tile of kernel C (on the canonical and on
    the raw rows), and SPLIT_FOREST, which routes it to kernel C's dual form
@@ -54,7 +57,9 @@ Phases, each of which exits non-zero when it fails:
    SPLIT_FOREST on the deep kernel over 0.9 GB of dense tables (their
    host build seconds and device bytes printed: thresholds and codes, and
    the deep kernel's heap-ordered blocks and leaves), the kernel by device time
-   within 1e-5 of the walk of its heap tables on every row, the walk
+   within 1e-5 of the walk of its heap tables on every row (on the
+   canonicalized rows, then on the raw rows read in place as the main path
+   launches it, bit for bit the same), the walk
    within 1e-5 of the plain fold (2^18 nodes a (row, tree)) on a slice of rows, its
    bound from the 32-byte sectors of blocks and leaves the run's descents
    read; DEPTH_BUCKETED where the check admits it, else its reason; then a
@@ -255,7 +260,8 @@ def main() -> int:
     from tahoe_tpu_torch.ops.fold_kernel import (
         DEEP_KERNELS, FOLD, FOLD_DEEP, FOLD_DEEP_NONGE, FOLD_DEEP_SIGN,
         FOLD_KERNELS, FOLD_NONGE, FOLD_SIGN, FoldKernelEngine, deep_block_walk,
-        deep_groups, deep_launch, descent_paths, fold_c_table, fold_deep_cuda,
+        deep_groups, deep_launch, descent_paths, fold_c_table, fold_deep_at,
+        fold_deep_cuda,
         fold_launch, fold_margins_at, fold_margins_cuda, fold_margins_plain,
         fold_rows_plain, fold_table_bytes, fold_wavefronts, heap_tables)
     from tahoe_tpu_torch.ops.probes import (
@@ -458,7 +464,18 @@ def main() -> int:
         record[name] = [("3", c_err, cuda_median_ms(fn), p_ms,
                          *fold_cost(x2, ft, *tables), None)]
     raw = torch.as_tensor(data, device=dev)
-    if fold._predict.in_place is not None:
+    # the deep kernel on the same raw rows where they lie, as its route
+    # launches it: bit for bit its call on the canonicalized rows
+    deep_at = fold_deep_at(raw, ft, heap, d_launch, fold.missing, fold._cols)
+    if not torch.equal(deep_at, fold_deep_cuda(x2, ft, heap, d_launch)):
+        fail("[3] the deep kernel on the raw rows differs from its call on the "
+             "canonicalized rows")
+    record["fold_deep"].append((
+        "3", float((deep_at - c_p).abs().max()),
+        cuda_median_ms(lambda: fold_deep_at(raw, ft, heap, d_launch, fold.missing,
+                                            fold._cols)),
+        p_ms, *fold_cost(raw, ft, heap.blocks, heap.leaf), None))
+    if fold.c_table is not None:
         # the main path's launch of kernel C, on the raw rows where they lie,
         # held to the plain version of its staging: the first check, whose
         # time and bound the kernels line gives
@@ -476,7 +493,8 @@ def main() -> int:
             *fold_cost(raw, ft, c_table), None))
     print(f"[3] SPLIT_FOREST takes {fold.kernel.symbol}; deep kernel {d_launch}, "
           f"kernel C {c_launch}; rows read in place: "
-          f"{fold._predict.in_place is not None}")
+          f"{fold._predict.in_place is not None}; the deep kernel on the raw rows "
+          f"bit-equal to its call on the canonicalized rows")
     tolerance = {"rank_transform": 0, "rank_fold": KERNEL_ATOL, "fold": KERNEL_ATOL,
                  "fold_deep": KERNEL_ATOL}
     for name, checks in record.items():
@@ -484,7 +502,7 @@ def main() -> int:
             print(f"[3] {name}: max |kernel - plain| {err} (tolerance "
                   f"{tolerance[name]}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by}), library {lib_ms} ms ({card})")
-    del a_k, a_p, b_k, b_p, c_k, c_p, x, xt, x2, raw, rank, fold, c_table, heap
+    del a_k, a_p, b_k, b_p, c_k, c_p, x, xt, x2, raw, rank, fold, c_table, heap, deep_at
 
     # -- 4. main path through the facade ------------------------------------
     def drive(spec, rows_np, missing, tag, timed, **out_kw):
@@ -667,10 +685,11 @@ def main() -> int:
     def both_folds(tag, eng, x, note=True, raw=None):
         """Kernel C and the deep kernel in the tables' form, each in the block
         fold_plan gives it where it takes the forest, else in its own, held
-        to the plain version; their names, C's first. Where the engine reads
-        ``raw`` (the device table of raw rows) in place, as its main path
-        does, kernel C on them too, held to the plain version of its
-        staging: the check claim() puts first."""
+        to the plain version; their names, C's first. Given ``raw`` (the
+        device table of raw rows), the engine's kernel on them too, read in
+        place as its main path launches it (``fold_margins_at`` or
+        ``fold_deep_at``), held bit for bit to its call on ``x`` and to the
+        plain version of its staging: the check claim() puts first."""
         t = eng.tables
         c_launch = (eng.launch if eng.c_table is not None else fold_launch(
             t.width, t.depth, eng.num_trees, limits))
@@ -691,11 +710,22 @@ def main() -> int:
             if note:
                 notes[c_name] = wavefronts(x, t, c_launch)
         hold(tag, fns, lambda: fold_margins_plain(x, t), costs, notes=notes)
-        if raw is not None and eng._predict.in_place is not None:
-            hold(tag, {c_name: lambda: fold_margins_at(raw, t, eng.c_table, eng.launch,
-                                                       eng.missing, eng._cols)},
-                 lambda: raw_plain(raw, eng), {c_name: fold_cost(raw, t, eng.c_table)},
-                 notes={c_name: f"the raw {tuple(raw.shape)} rows, read in place"})
+        if raw is not None:
+            if eng.heap is not None:
+                name, tables = d_name, (heap.blocks, heap.leaf)
+                at = lambda: fold_deep_at(raw, t, heap, eng.launch, eng.missing,
+                                          eng._cols)
+            else:
+                name, tables = c_name, (eng.c_table,)
+                at = lambda: fold_margins_at(raw, t, eng.c_table, eng.launch,
+                                             eng.missing, eng._cols)
+            if not torch.equal(at(), fns[name]()):
+                fail(f"[{tag}] {name} on the raw rows differs from its call on the "
+                     f"canonicalized rows")
+            hold(tag, {name: at}, lambda: raw_plain(raw, eng),
+                 {name: fold_cost(raw, t, *tables)},
+                 notes={name: f"the raw {tuple(raw.shape)} rows, read in place, "
+                              f"bit-equal to the canonicalized"})
 
     # 6. the sign form: cup98-class and svhn-class, each on fold_plan's
     # kernel, both kernels held to the plain version
@@ -736,21 +766,23 @@ def main() -> int:
         eng = f.engine(Strategy.SPLIT_FOREST)
         if eng.heap is None:
             fail(f"[7] deep15-class runs {eng.kernel.symbol}, not the deep kernel")
-        x = eng.canonicalize(torch.as_tensor(deep_rows, device=dev))
-        both_folds("7", eng, x)
+        raw = torch.as_tensor(deep_rows, device=dev)
+        x = eng.canonicalize(raw)
+        both_folds("7", eng, x, raw=raw)
         own = name_of(eng.kernel)
         claim([own], run_path("7", f, Strategy.SPLIT_FOREST, deep_rows,
                               f.predict_oracle(deep_rows), {own}))
-        del f, eng, x
+        del f, eng, x, raw
 
     d12_spec = synthetic.generate_forest(100, 12, 28, seed=1)
     d12 = FoldKernelEngine(d12_spec, device=dev)
     d12_rows = synthetic.generate_data(ROWS, 28, missing_prob=0.01, seed=6)
-    x = d12.canonicalize(torch.as_tensor(d12_rows, device=dev))
-    both_folds("7", d12, x, note=False)
+    raw = torch.as_tensor(d12_rows, device=dev)
+    x = d12.canonicalize(raw)
+    both_folds("7", d12, x, note=False, raw=raw)
     dispatch.append(("7 100 trees, depth 12, 28 columns: FoldKernelEngine", d12,
                      BOTH, d12_rows, d12_spec, None, 20))
-    del d12, x
+    del d12, x, raw
 
     # 8. VMEM_FOREST, stumps-class: the whole forest in one tile
     stumps = synthetic.generate_forest(800, 3, 10, seed=1)
@@ -925,7 +957,8 @@ def main() -> int:
           f"{dense_bytes / 1e9:.4f} GB on the card (thresholds, codes, and "
           f"heap-ordered blocks and leaves; fold_table_bytes "
           f"{fold_table_bytes(T, dt.depth) / 1e9:.4f})")
-    x = split.canonicalize(torch.as_tensor(deep_rows, device=dev))
+    raw = torch.as_tensor(deep_rows, device=dev)
+    x = split.canonicalize(raw)
     walk = deep_block_walk(x, dt, split.heap)
     plain = fold_margins_plain(x[:PLAIN_FOLD_ROWS], dt)
     p_err = float((walk[:PLAIN_FOLD_ROWS].double() - plain.double()).abs().max())
@@ -950,11 +983,26 @@ def main() -> int:
     print(f"[10] the deep kernel within {record[deep_name][-1][1]} of the walk of "
           f"its blocks on all {ROWS} rows, the walk within {p_err} of the plain "
           f"fold on the first {PLAIN_FOLD_ROWS} rows (tolerance {KERNEL_ATOL})")
+    # as the main path launches it: on the raw rows where they lie, bit for
+    # bit its call on the canonicalized rows; its bound reads the raw rows
+    def deep_at():
+        return fold_deep_at(raw, dt, split.heap, split.launch, split.missing,
+                            split._cols)
+
+    if not torch.equal(deep_at(), fold_deep_cuda(x, dt, split.heap, split.launch)):
+        fail("[10] the deep kernel on the raw rows differs from its call on the "
+             "canonicalized rows")
+    hold("10", {deep_name: deep_at}, lambda: deep_block_walk(x, dt, split.heap),
+         {deep_name: bound(32 * distinct + nbytes(raw) + 4 * ROWS,
+                           (ROWS * T * (dt.depth + 1), SCALAR_OPS_PER_S))},
+         timer=cuda_device_ms,
+         notes={deep_name: f"the raw {tuple(raw.shape)} rows, read in place, "
+                           f"bit-equal to the canonicalized"})
     counts = run_path("10", f, Strategy.SPLIT_FOREST, deep_rows, want, {deep_name})
     # the kernels line reads the deep kernel on this path
     launches[deep_name] = counts[deep_name]
     record[deep_name].insert(0, record[deep_name].pop())
-    del split, x, walk, plain, loads
+    del split, x, raw, walk, plain, loads
 
     # DEPTH_BUCKETED where admitted (the trees' reachable depths differ)
     depths = np.unique(compiler.reachable_depths(f.spec))

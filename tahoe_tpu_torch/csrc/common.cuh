@@ -3,6 +3,7 @@
 // CUDA error code of its launch, 0 on success).
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <mutex>
 #include <cuda_runtime.h>
@@ -159,6 +160,82 @@ static __device__ __forceinline__ void tahoe_cp_async4(void* dst, const void* sr
 // Waits for all of this thread's cp.async copies.
 static __device__ __forceinline__ void tahoe_cp_async_wait_all() {
     asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The fold kernels' row staging (kernel C, fold.cu, and the deep kernel,
+// fold_deep.cu), which reads the caller's raw rows where they lie
+// (ops/graphed.py's in-place route). The reference's missing test is
+// |x - sentinel| <= MISSING_EPS in f32 (config.MISSING_EPS).
+constexpr float kMissingEps = 1.0e-6f;
+
+// Each element of the block's rows that thread ``tid`` of ``nthreads``
+// (whole warps) stages, as fn(dst, src): its place in the staged rows (row
+// r at xs + r * Ws) and in the caller's rows (``x`` at the block's first
+// row, ``ld`` apart). Rows that lie end to end with no map (ld = F) are one
+// span: element i of the block's nrows * F goes to row i / F, column i % F,
+// each thread walking its elements nthreads apart with no division.
+// Otherwise each warp takes its lanes' columns c = lane, lane + 32, ...,
+// reading the map once a column, down every (nthreads / 32)-th row: no load
+// of the map waits between two copies.
+template <class Fn>
+static __device__ __forceinline__ void tahoe_each_staged(
+        float* xs, int Ws, const float* x, long long ld,
+        const int* __restrict__ cols, int F, int nrows, int tid, int nthreads,
+        Fn fn) {
+    if (cols == nullptr && ld == F) {
+        const int dr = nthreads / F;
+        const int dc = nthreads - dr * F;
+        int r = tid / F;
+        int c = tid - r * F;
+        for (int i = tid; i < nrows * F; i += nthreads) {
+            fn(xs + r * Ws + c, x + i);
+            r += dr;
+            c += dc;
+            if (c >= F) {
+                c -= F;
+                ++r;
+            }
+        }
+        return;
+    }
+    const int warps = nthreads >> 5;
+    for (int c = tid & 31; c < F; c += 32) {
+        const float* src = x + (cols ? __ldg(cols + c) : c) + (tid >> 5) * ld;
+        for (int r = tid >> 5; r < nrows; r += warps, src += warps * ld)
+            fn(xs + r * Ws + c, src);
+    }
+}
+
+// The block's ``nrows`` rows into ``xs`` at the odd stride W | 1
+// (conflict-free same-lane reads): element (r, c) is x[r * ld + cols[c]]
+// (cols null: c), for c < F, every copy of a thread issued before it waits,
+// so that the whole block's rows are in flight at once; then this thread's
+// own elements: the missing test (a NaN sentinel needs none: its missing
+// values are NaN already) and, where the dual form's rows arrive at width
+// F = W / 2, lane F + c as -x (a sign flip, NaN kept), as ops/rows.py
+// finish_rows does. Rows already canonicalized (no map, ld = W, a NaN
+// sentinel) have nothing to do after the copies. The caller synchronizes
+// the block before the rows are read.
+template <int Form>
+static __device__ __forceinline__ void tahoe_stage_rows(
+        float* xs, int W, const float* x, long long ld,
+        const int* __restrict__ cols, int F, float missing, int nrows, int tid,
+        int nthreads) {
+    const int Ws = W | 1;
+    tahoe_each_staged(xs, Ws, x, ld, cols, F, nrows, tid, nthreads,
+                      [](float* dst, const float* src) { tahoe_cp_async4(dst, src); });
+    tahoe_cp_async_wait_all();
+    const bool lanes = Form == kDual && F != W;
+    if (lanes || missing == missing)
+        tahoe_each_staged(xs, Ws, x, ld, cols, F, nrows, tid, nthreads,
+                          [&](float* dst, const float*) {
+                              float v = *dst;
+                              if (fabsf(__fsub_rn(v, missing)) <= kMissingEps) {
+                                  v = __int_as_float(0x7fc00000);
+                                  *dst = v;
+                              }
+                              if (lanes) dst[F] = __int_as_float(__float_as_int(v) ^ INT_MIN);
+                          });
 }
 
 // Waits until the phase of ``bar`` with this parity has completed. A copy

@@ -41,7 +41,8 @@
 //   where the dual form's rows arrive at width F = W / 2, writes lane F + c
 //   as -x (a sign flip, NaN kept), as ops/rows.py finish_rows does. Rows
 //   already canonicalized (no map, ld = W, a NaN sentinel) take the same
-//   path with nothing to do after the copies;
+//   path with nothing to do after the copies. The deep kernel stages its
+//   rows by the same body (common.cuh tahoe_stage_rows);
 // - tiles of whole trees (ops/fold_kernel.py fold_c_table: each tree's
 //   blocks, then its leaves, so a tile is one contiguous span) arrive by one
 //   bulk copy (TMA, counted on an mbarrier) each, into a ring of two buffers:
@@ -83,9 +84,6 @@ constexpr int kBarrierBytes = 16;  // two mbarriers (C_BARRIER_BYTES)
 // the runtime's shared memory per resident block (config.GpuLimits
 // SMEM_RESERVED_PER_BLOCK)
 constexpr int kReservedSmemPerBlock = 1024;
-// the reference's missing test, |x - sentinel| <= MISSING_EPS in f32
-// (config.MISSING_EPS)
-constexpr float kMissingEps = 1.0e-6f;
 
 // One tree's 4-byte words in the table (ops/fold_kernel.py fold_c_table):
 // its blocks, then its leaves padded to a multiple of 4.
@@ -210,44 +208,6 @@ static __device__ __forceinline__ void issue_tile(int* dst, const int* table, in
                     bar);
 }
 
-// Each element of the block's rows that this thread stages, as fn(dst,
-// src): its place in the staged rows (row r at xs + r * Ws) and in the
-// caller's rows (``x`` at the block's first row, ``ld`` apart). Rows that
-// lie end to end with no map (ld = F) are one span: element i of the block's
-// nrows * F goes to row i / F, column i % F, each thread walking its
-// elements BR apart with no division. Otherwise each warp takes its lanes'
-// columns c = lane, lane + 32, ..., reading the map once a column, down
-// every (BR / 32)-th row: no load of the map waits between two copies.
-template <class Fn>
-static __device__ __forceinline__ void each_staged(float* xs, int Ws,
-                                                   const float* x, long long ld,
-                                                   const int* __restrict__ cols,
-                                                   int F, int nrows, int tid, int BR,
-                                                   Fn fn) {
-    if (cols == nullptr && ld == F) {
-        const int dr = BR / F;
-        const int dc = BR - dr * F;
-        int r = tid / F;
-        int c = tid - r * F;
-        for (int i = tid; i < nrows * F; i += BR) {
-            fn(xs + r * Ws + c, x + i);
-            r += dr;
-            c += dc;
-            if (c >= F) {
-                c -= F;
-                ++r;
-            }
-        }
-        return;
-    }
-    const int warps = BR >> 5;
-    for (int c = tid & 31; c < F; c += 32) {
-        const float* src = x + (cols ? __ldg(cols + c) : c) + (tid >> 5) * ld;
-        for (int r = tid >> 5; r < nrows; r += warps, src += warps * ld)
-            fn(xs + r * Ws + c, src);
-    }
-}
-
 template <int Form, bool Batch>
 __global__ void __launch_bounds__(256)
 fold_kernel(const float* __restrict__ x, long long ld, const int* __restrict__ cols,
@@ -274,29 +234,7 @@ fold_kernel(const float* __restrict__ x, long long ld, const int* __restrict__ c
             issue_tile(bufs + s * tile_trees * tw, table, tw, s, tile_trees, T,
                        &full[s]);
     }
-    {
-        // The block's rows at an odd stride (conflict-free same-lane reads),
-        // every copy of a thread issued before it waits, so the whole
-        // block's rows are in flight at once; then this thread's own
-        // elements: the missing test (a NaN sentinel needs none: its
-        // missing values are NaN already) and the dual lanes.
-        const int Ws = W | 1;
-        const float* xb = x + row0 * ld;
-        each_staged(xs, Ws, xb, ld, cols, F, nrows, tid, BR,
-                    [](float* dst, const float* src) { tahoe_cp_async4(dst, src); });
-        tahoe_cp_async_wait_all();
-        const bool lanes = Form == kDual && F != W;
-        if (lanes || missing == missing)
-            each_staged(xs, Ws, xb, ld, cols, F, nrows, tid, BR,
-                        [&](float* dst, const float*) {
-                            float v = *dst;
-                            if (fabsf(__fsub_rn(v, missing)) <= kMissingEps) {
-                                v = __int_as_float(0x7fc00000);
-                                *dst = v;
-                            }
-                            if (lanes) dst[F] = __int_as_float(__float_as_int(v) ^ INT_MIN);
-                        });
-    }
+    tahoe_stage_rows<Form>(xs, W, x + row0 * ld, ld, cols, F, missing, nrows, tid, BR);
     __syncthreads();  // rows staged, mbarriers initialised
 
     // threads past the last row walk its row too, so that whole warps

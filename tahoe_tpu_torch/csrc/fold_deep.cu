@@ -40,17 +40,25 @@
 // neighbouring blocks, most in one 32-byte sector or 128-byte line, where
 // the order of deep_blocks (kernel C's, the root's branch the lowest bit)
 // set them 2^d blocks apart. At odd D the root group takes one level. The
-// block's rows are staged in shared memory at an odd stride as in kernel C,
-// and each thread descends kTrees trees together, their block loads issued
+// block's rows are staged in shared memory at an odd stride by kernel C's
+// staging (common.cuh tahoe_stage_rows): it reads the caller's raw rows
+// where they lie (ops/graphed.py's in-place route), applying the column
+// map, the row stride, the missing test and the dual lanes as it stages,
+// every cp.async of a thread issued before it waits, so that no pass of
+// its own copies, gathers or negates the rows first; rows already
+// canonicalized take the same path with nothing to do after the copies.
+// Each thread descends kTrees trees together, their block loads issued
 // before any is used. One thread owns a row (fold_deep_kernel), or, where
 // the rows' shared memory leaves fewer than 256 rows a block, two threads
 // share it (fold_deep_pair_kernel), each descending half of every group of
 // trees: twice the descents in flight. Leaf values are summed in double in
 // tree order, one pass, no atomics, and round once to f32. Built without
 // fast-math or flush-to-zero: denormal thresholds and NaN routing stay
-// exact. The two kernels keep their own bodies: written over one shared
+// exact. The two kernels keep their own walks: written over one shared
 // template or helper, the one-thread kernel compiled to a slower schedule,
-// 1.67x slower on cup98-class (PERF.md).
+// 1.67x slower on cup98-class (PERF.md). Only their staging, before the
+// walk, is one body (scripts/kernel_ab.py deep times both kernels on every
+// shape against an earlier source on staged rows).
 #include "common.cuh"
 
 namespace {
@@ -64,7 +72,9 @@ constexpr int kTrees = TAHOE_DEEP_TREES;  // trees in flight per thread
 
 // One thread a row.
 template <int Form>
-__global__ void fold_deep_kernel(const float* __restrict__ x, int rows, int W,
+__global__ void fold_deep_kernel(const float* __restrict__ x, long long ld,
+                                 const int* __restrict__ cols, int F,
+                                 float missing, int rows, int W,
                                  const int4* __restrict__ blocks,
                                  long long per_tree,
                                  const float* __restrict__ leaf, int T, int D,
@@ -76,8 +86,8 @@ __global__ void fold_deep_kernel(const float* __restrict__ x, int rows, int W,
 
     const long long row0 = static_cast<long long>(blockIdx.x) * BR;
     const int nrows = static_cast<int>(min(static_cast<long long>(BR), rows - row0));
-    for (int i = threadIdx.x; i < nrows * W; i += BR)
-        xs[(i / W) * Ws + i % W] = x[row0 * W + i];
+    tahoe_stage_rows<Form>(xs, W, x + row0 * ld, ld, cols, F, missing, nrows,
+                           threadIdx.x, BR);
     __syncthreads();
 
     const int r = threadIdx.x;
@@ -128,7 +138,9 @@ __global__ void fold_deep_kernel(const float* __restrict__ x, int rows, int W,
 // leaves are summed in tree order through shuffles. Past the last row both
 // walk it too, so that every lane of the warp takes part.
 template <int Form>
-__global__ void fold_deep_pair_kernel(const float* __restrict__ x, int rows, int W,
+__global__ void fold_deep_pair_kernel(const float* __restrict__ x, long long ld,
+                                      const int* __restrict__ cols, int F,
+                                      float missing, int rows, int W,
                                       const int4* __restrict__ blocks,
                                       long long per_tree,
                                       const float* __restrict__ leaf, int T,
@@ -140,8 +152,9 @@ __global__ void fold_deep_pair_kernel(const float* __restrict__ x, int rows, int
 
     const long long row0 = static_cast<long long>(blockIdx.x) * BR;
     const int nrows = static_cast<int>(min(static_cast<long long>(BR), rows - row0));
-    for (int i = threadIdx.x; i < nrows * W; i += blockDim.x)
-        xs[(i / W) * Ws + i % W] = x[row0 * W + i];
+    // all 2 * BR threads stage the block's BR rows
+    tahoe_stage_rows<Form>(xs, W, x + row0 * ld, ld, cols, F, missing, nrows,
+                           threadIdx.x, blockDim.x);
     __syncthreads();
 
     const int r = threadIdx.x / 2;
@@ -199,6 +212,7 @@ __global__ void fold_deep_pair_kernel(const float* __restrict__ x, int rows, int
 
 template <typename Kernel>
 cudaError_t launch_kernel(Kernel* kernel, int threads_per_row, const float* x,
+                          long long ld, const int* cols, int F, float missing,
                           int rows, int W, const int* blocks, const float* leaf,
                           int T, int D, int rows_per_block, int smem_bytes,
                           float* out, cudaStream_t stream) {
@@ -206,56 +220,58 @@ cudaError_t launch_kernel(Kernel* kernel, int threads_per_row, const float* x,
     if (err != cudaSuccess) return err;
     const int grid = (rows + rows_per_block - 1) / rows_per_block;
     kernel<<<grid, rows_per_block * threads_per_row, smem_bytes, stream>>>(
-        x, rows, W, reinterpret_cast<const int4*>(blocks), tahoe_block_count(D),
-        leaf, T, D, out);
+        x, ld, cols, F, missing, rows, W, reinterpret_cast<const int4*>(blocks),
+        tahoe_block_count(D), leaf, T, D, out);
     return cudaGetLastError();
 }
 
 template <int Form>
-int launch_deep(const float* x, int rows, int W, const int* blocks,
+int launch_deep(const float* x, long long ld, const int* cols, int F,
+                float missing, int rows, int W, const int* blocks,
                 const float* leaf, int T, int D, int rows_per_block, int lanes,
                 int smem_bytes, float* out, cudaStream_t stream) {
     if (rows == 0) return 0;
-    // two lanes a row shuffle across whole warps
-    if (T < 1 || D < 0 || D > 30 || rows_per_block < 1 ||
-        (lanes != 1 && lanes != 2) || (lanes == 2 && rows_per_block % 16) ||
+    // the rows, F columns of them (half the dual lanes where the staging
+    // makes the other half); whole warps stage them, and two lanes a row
+    // shuffle across whole warps
+    if (x == nullptr || ld < 0 || F < 1 ||
+        !(F == W || (Form == kDual && 2 * F == W)) || T < 1 || D < 0 ||
+        D > 30 || rows_per_block < 1 || (lanes != 1 && lanes != 2) ||
+        (rows_per_block * lanes) % 32 || smem_bytes < rows_per_block * (W | 1) * 4 ||
         reinterpret_cast<uintptr_t>(blocks) % 16)
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
-        lanes == 1 ? launch_kernel(fold_deep_kernel<Form>, 1, x, rows, W, blocks, leaf,
-                                   T, D, rows_per_block, smem_bytes, out, stream)
-                   : launch_kernel(fold_deep_pair_kernel<Form>, 2, x, rows, W, blocks,
-                                   leaf, T, D, rows_per_block, smem_bytes, out,
-                                   stream));
+        lanes == 1 ? launch_kernel(fold_deep_kernel<Form>, 1, x, ld, cols, F, missing,
+                                   rows, W, blocks, leaf, T, D, rows_per_block,
+                                   smem_bytes, out, stream)
+                   : launch_kernel(fold_deep_pair_kernel<Form>, 2, x, ld, cols, F,
+                                   missing, rows, W, blocks, leaf, T, D,
+                                   rows_per_block, smem_bytes, out, stream));
 }
 
 }  // namespace
 
-TAHOE_EXPORT int tahoe_fold_deep(const float* x2, int rows, int W, const int* blocks,
-                                 const float* leaf, int T, int D,
-                                 int rows_per_block, int lanes, int smem_bytes,
-                                 float* out, cudaStream_t stream) {
-    return launch_deep<kDual>(x2, rows, W, blocks, leaf, T, D, rows_per_block,
-                              lanes, smem_bytes, out, stream);
-}
+// Each form's launcher, with kernel C's row arguments (fold.cu): the rows
+// ``x``, rows ``ld`` floats apart, F columns read of each, column c at
+// cols[c] (int32; null: at c); ``missing`` the finite sentinel whose values
+// are missing, or NaN for none to test. The dual form takes its [x, -x]
+// rows at width W = 2F, or their first half (F = W / 2), whose negated
+// lanes the staging writes. Then the heap-ordered blocks and leaves
+// (ops/fold_kernel.py heap_tables), T trees of depth D, and the block.
+#define TAHOE_FOLD_DEEP_EXPORT(name, form)                                          \
+    TAHOE_EXPORT int name(const float* x, long long ld, const int* cols, int F,     \
+                          float missing, int rows, int W, const int* blocks,        \
+                          const float* leaf, int T, int D, int rows_per_block,      \
+                          int lanes, int smem_bytes, float* out,                    \
+                          cudaStream_t stream) {                                    \
+        return launch_deep<form>(x, ld, cols, F, missing, rows, W, blocks, leaf,    \
+                                 T, D, rows_per_block, lanes, smem_bytes, out,      \
+                                 stream);                                           \
+    }
 
-TAHOE_EXPORT int tahoe_fold_deep_sign(const float* x, int rows, int W,
-                                      const int* blocks, const float* leaf, int T,
-                                      int D, int rows_per_block, int lanes,
-                                      int smem_bytes, float* out,
-                                      cudaStream_t stream) {
-    return launch_deep<kSign>(x, rows, W, blocks, leaf, T, D, rows_per_block,
-                              lanes, smem_bytes, out, stream);
-}
-
-TAHOE_EXPORT int tahoe_fold_deep_nonge(const float* x, int rows, int W,
-                                       const int* blocks, const float* leaf, int T,
-                                       int D, int rows_per_block, int lanes,
-                                       int smem_bytes, float* out,
-                                       cudaStream_t stream) {
-    return launch_deep<kNonGe>(x, rows, W, blocks, leaf, T, D, rows_per_block,
-                               lanes, smem_bytes, out, stream);
-}
+TAHOE_FOLD_DEEP_EXPORT(tahoe_fold_deep, kDual)
+TAHOE_FOLD_DEEP_EXPORT(tahoe_fold_deep_sign, kSign)
+TAHOE_FOLD_DEEP_EXPORT(tahoe_fold_deep_nonge, kNonGe)
 
 // Registers a thread of the deep kernel for ``form`` (0 dual, 1 sign, 2
 // non-ge) at ``lanes`` threads a row.

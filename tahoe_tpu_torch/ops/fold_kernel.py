@@ -33,10 +33,11 @@ descends, beside the block's rows at an odd stride; the deep kernel
 the rows and reads the blocks and leaves through the read-only cache, from
 its own copy of them in heap order (``heap_tables``), so that the scattered
 loads of a warp's rows land on shared sectors. ``fold_plan``
-picks the one measured faster, in every form (PERF.md section 6). Where it
-picks kernel C, the engine launches it directly on the caller's raw rows,
-where they lie (``fold_margins_at``, ops/graphed.py's in-place route):
-kernel C's row staging applies the column map, the missing test and the
+picks the one measured faster, in every form (PERF.md section 6). Whichever
+it picks, the engine launches it directly on the caller's raw rows, where
+they lie (``fold_margins_at``, ``fold_deep_at``; ops/graphed.py's in-place
+route): both kernels stage their rows by one body (csrc/common.cuh
+tahoe_stage_rows), which applies the column map, the missing test and the
 dual lanes that ops/rows.py ``finish_rows(stage_rows(...))`` applies
 elsewhere. The TPU
 tiling, VMEM estimates, split grid and compile walls have no counterpart
@@ -94,12 +95,13 @@ BLOCK_NONGE_SEL_LT = 1 << 7
 BLOCK_NONGE_FLIP = 1 << 8
 BLOCK_NONGE_FID = BLOCK_NONGE_SEL_LT - 1
 
-# kernel C's launchers (csrc/fold.cu TAHOE_FOLD_EXPORT): the rows, their
-# row stride, the column map, the columns read, the missing sentinel; rows,
-# W, then the table and the block
-_FOLD_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-              ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+# both kernels' row arguments (csrc/fold.cu TAHOE_FOLD_EXPORT,
+# csrc/fold_deep.cu TAHOE_FOLD_DEEP_EXPORT): the rows, their row stride, the
+# column map, the columns read, the missing sentinel; rows, W
+_ROW_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]
+# kernel C's: then the table and the block
+_FOLD_ARGS = [*_ROW_ARGS, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 FOLD = CudaKernel("tahoe_fold", _FOLD_ARGS,
                   source="tahoe_tpu_torch/csrc/fold.cu",
@@ -110,9 +112,10 @@ FOLD_SIGN = CudaKernel("tahoe_fold_sign", _FOLD_ARGS,
 FOLD_NONGE = CudaKernel("tahoe_fold_nonge", _FOLD_ARGS,
                         source="tahoe_tpu_torch/csrc/fold.cu",
                         replaces="tahoe_tpu/ops/fold_kernel.py:562")
-_DEEP_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# the deep kernel's: then the heap-ordered blocks and leaves and the block
+_DEEP_ARGS = [*_ROW_ARGS, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p]
 FOLD_DEEP = CudaKernel("tahoe_fold_deep", _DEEP_ARGS,
                        source="tahoe_tpu_torch/csrc/fold_deep.cu",
                        replaces="tahoe_tpu/ops/fold_kernel.py:688")
@@ -415,8 +418,9 @@ def fold_margins_cuda(x: torch.Tensor, t: FoldTables, table: torch.Tensor,
     """Kernel C on the card (csrc/fold.cu) on canonicalized rows, in the
     tables' form; ``table`` is ``fold_c_table(t)``."""
     _check(x, t)
-    R, W = x.shape
-    return _fold_c(t, table, launch, x.device, R, ptr(x), ld=W, F=W)
+    W = x.shape[1]
+    return _run(FOLD_KERNELS[t.form], x, W, (None, W, float("nan")),
+                _c_args(t, table, launch))
 
 
 def fold_margins_at(x: torch.Tensor, t: FoldTables, table: torch.Tensor,
@@ -428,33 +432,25 @@ def fold_margins_at(x: torch.Tensor, t: FoldTables, table: torch.Tensor,
     missing test and the dual lanes that ``finish_rows(stage_rows(...))``
     applies (``fold_rows_plain`` is its plain version). The margins equal
     kernel C's on those canonicalized rows bit for bit."""
-    dev = x.device
-    ld = row_stride(x, dev)
-    if ld is None:
-        raise ValueError(f"kernel C reads in place only f32 [R, C] rows with "
-                         f"adjacent columns, not {x.dtype} {tuple(x.shape)} "
-                         f"at strides {x.stride()}")
-    F = t.num_cols
-    if cols is None:
-        if x.shape[1] != F:
-            raise ValueError(f"rows of {x.shape[1]} columns are not {F} wide "
-                             f"({t.form} form, no column map)")
-    else:
-        check_operand(cols, "cols", torch.int32, dev, 1)
-        if cols.shape != (F,):
-            raise ValueError(f"a column map of {tuple(cols.shape)} for {F} "
-                             f"features")
-    return _fold_c(t, table, launch, dev, x.shape[0], ptr(x), ld=ld, F=F,
-                   cols=None if cols is None else ptr(cols),
-                   missing=float(np.float32(missing)))
+    return in_place_launch(t, table, launch, missing, cols)(x)
 
 
-def _fold_c(t: FoldTables, table: torch.Tensor, launch: FoldLaunch,
-            dev: torch.device, R: int, x, *, ld: int, F: int, cols=None,
-            missing: float = float("nan")) -> torch.Tensor:
-    """One launch of kernel C over R rows at ``x`` (csrc/fold.cu
-    TAHOE_FOLD_EXPORT's arguments)."""
-    check_operand(table, "table", torch.int32, dev, 2)
+def _run(kernel: CudaKernel, x: torch.Tensor, ld: int, head: tuple,
+         args: tuple) -> torch.Tensor:
+    """One launch of a fold kernel over the rows of ``x`` at row stride
+    ``ld``: ``head`` the column map's pointer, the columns read and the
+    sentinel, ``args`` the arguments past the rows' (``_c_args``,
+    ``_deep_args``)."""
+    R = x.shape[0]
+    out = torch.empty(R, dtype=torch.float32, device=x.device)
+    kernel.launch(x.device, ptr(x), ld, *head, R, *args, ptr(out))
+    return out
+
+
+def _c_args(t: FoldTables, table: torch.Tensor, launch: FoldLaunch) -> tuple:
+    """Kernel C's launch arguments past the rows' (csrc/fold.cu
+    TAHOE_FOLD_EXPORT), its table checked: ``fold_c_table(t)``."""
+    check_operand(table, "table", torch.int32, t.leaf.device, 2)
     T = t.leaf.shape[0]
     if table.shape != (T, tree_bytes(t.depth) // 4):
         raise ValueError(f"table {tuple(table.shape)} does not match the "
@@ -462,17 +458,14 @@ def _fold_c(t: FoldTables, table: torch.Tensor, launch: FoldLaunch,
     if table.data_ptr() % 16:
         raise ValueError("kernel C's table must start on a 16-byte boundary "
                          "(its tiles arrive by bulk copy)")
-    out = torch.empty(R, dtype=torch.float32, device=dev)
-    FOLD_KERNELS[t.form].launch(
-        dev, x, ld, cols, F, missing, R, t.width, ptr(table), T, t.depth,
-        launch.rows_per_block, launch.tile_trees, launch.smem_bytes, ptr(out))
-    return out
+    return (t.width, ptr(table), T, t.depth, launch.rows_per_block,
+            launch.tile_trees, launch.smem_bytes)
 
 
 def fold_rows_plain(x: torch.Tensor, rows: int, ld: int,
                     cols: torch.Tensor | None, num_cols: int, missing: float,
                     dual: bool) -> torch.Tensor:
-    """Plain PyTorch version of kernel C's row staging on raw rows:
+    """Plain PyTorch version of both fold kernels' row staging on raw rows:
     ``x`` the caller's f32 values from its first row on (flat), ``rows``
     rows ``ld`` apart. Element (r, c) is x[r * ld + cols[c]] (or c), set to
     NaN where it lies within MISSING_EPS of a finite ``missing``, and in the
@@ -744,28 +737,94 @@ def fold_wavefronts(x: torch.Tensor, t: FoldTables,
 
 def fold_deep_cuda(x: torch.Tensor, t: FoldTables, heap: HeapTables,
                    launch: DeepLaunch) -> torch.Tensor:
-    """The deep kernel on the card (csrc/fold_deep.cu) in the tables' form;
-    ``heap`` is ``heap_tables(t)``: a tensor of ``deep_blocks`` (kernel
-    C's order) is refused."""
+    """The deep kernel on the card (csrc/fold_deep.cu) on canonicalized
+    rows, in the tables' form; ``heap`` is ``heap_tables(t)``: a tensor of
+    ``deep_blocks`` (kernel C's order) is refused."""
+    _check(x, t)
+    W = x.shape[1]
+    return _run(DEEP_KERNELS[t.form], x, W, (None, W, float("nan")),
+                _deep_args(t, heap, launch))
+
+
+def fold_deep_at(x: torch.Tensor, t: FoldTables, heap: HeapTables,
+                 launch: DeepLaunch, missing: float,
+                 cols: torch.Tensor | None) -> torch.Tensor:
+    """The deep kernel on the caller's raw f32 rows ``x`` [R, C], read
+    where they lie, as ``fold_margins_at`` runs kernel C: its row staging
+    (kernel C's) applies ``cols``, the missing test and the dual lanes. The
+    margins equal ``fold_deep_cuda``'s on ``finish_rows(stage_rows(x))`` bit
+    for bit."""
+    return in_place_launch(t, heap, launch, missing, cols)(x)
+
+
+def _deep_args(t: FoldTables, heap: HeapTables, launch: DeepLaunch) -> tuple:
+    """The deep kernel's launch arguments past the rows' (csrc/fold_deep.cu
+    TAHOE_FOLD_DEEP_EXPORT), its tables checked: ``heap_tables(t)``."""
     if not isinstance(heap, HeapTables):
         raise TypeError(f"the deep kernel reads heap_tables(t), not "
                         f"{type(heap).__name__}")
-    _check(x, t)
-    dev = x.device
+    dev = t.leaf.device
     check_operand(heap.blocks, "blocks", torch.int32, dev, 3)
     check_operand(heap.leaf, "heap leaf", torch.float32, dev, 2)
-    R, W = x.shape
     T = t.leaf.shape[0]
     if (heap.blocks.shape != (T, deep_block_count(t.depth), 4)
             or heap.leaf.shape != t.leaf.shape):
         raise ValueError(f"heap tables {tuple(heap.blocks.shape)} / "
                          f"{tuple(heap.leaf.shape)} do not match the tables' "
                          f"{T} trees of depth {t.depth}")
-    out = torch.empty(R, dtype=torch.float32, device=dev)
-    DEEP_KERNELS[t.form].launch(dev, ptr(x), R, W, ptr(heap.blocks), ptr(heap.leaf),
-                                T, t.depth, launch.rows_per_block, launch.lanes,
-                                launch.smem_bytes, ptr(out))
-    return out
+    return (t.width, ptr(heap.blocks), ptr(heap.leaf), T, t.depth,
+            launch.rows_per_block, launch.lanes, launch.smem_bytes)
+
+
+class InPlaceLaunch:
+    """A fold kernel on the caller's raw f32 rows [R, C], read where they
+    lie (``fold_margins_at``, ``fold_deep_at``), with all but the rows bound
+    and checked once: the tables, the block, the column map (int32
+    ``t.col_index``, or None where the rows are the used columns already)
+    and the sentinel. A call checks only its rows: that the in-place route
+    can read them (ops/graphed.py ``row_stride``, on the tables' device)
+    and, without a map, that they are the features' width."""
+
+    def __init__(self, kernel: CudaKernel, t: FoldTables, tables, args: tuple,
+                 missing: float, cols: torch.Tensor | None):
+        self.kernel = kernel
+        self.device = t.leaf.device
+        self.num_cols = F = t.num_cols
+        if cols is not None:
+            check_operand(cols, "cols", torch.int32, self.device, 1)
+            if cols.shape != (F,):
+                raise ValueError(f"a column map of {tuple(cols.shape)} for {F} "
+                                 f"features")
+        # the launch reads the tables and the map by pointer
+        self._held = (tables, cols)
+        self._mapped = cols is not None
+        self._head = (None if cols is None else ptr(cols), F,
+                      float(np.float32(missing)))
+        self._args = args
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        ld = row_stride(x, self.device)
+        if ld is None:
+            raise ValueError(f"the fold kernels read in place only f32 [R, C] "
+                             f"rows on {self.device} with adjacent columns, not "
+                             f"{x.dtype} {tuple(x.shape)} at strides "
+                             f"{x.stride()} on {x.device}")
+        if not self._mapped and x.shape[1] != self.num_cols:
+            raise ValueError(f"rows of {x.shape[1]} columns are not "
+                             f"{self.num_cols} wide (no column map)")
+        return _run(self.kernel, x, ld, self._head, self._args)
+
+
+def in_place_launch(t: FoldTables, tables, launch: FoldLaunch | DeepLaunch,
+                    missing: float, cols: torch.Tensor | None) -> InPlaceLaunch:
+    """``launch``'s kernel on raw rows (``InPlaceLaunch``): kernel C on
+    ``tables`` = ``fold_c_table(t)``, or the deep kernel on ``tables`` =
+    ``heap_tables(t)``."""
+    if isinstance(launch, DeepLaunch):
+        return InPlaceLaunch(DEEP_KERNELS[t.form], t, tables,
+                             _deep_args(t, tables, launch), missing, cols)
+    return InPlaceLaunch(FOLD_KERNELS[t.form], t, tables,
+                         _c_args(t, tables, launch), missing, cols)
 
 
 class FoldKernelEngine(GraphedEngine):
@@ -809,11 +868,14 @@ class FoldKernelEngine(GraphedEngine):
             # (fold_table_bytes)
             self.tables = t = dataclasses.replace(t, leaf=self.heap.leaf,
                                                   heap_leaf=True)
-        # kernel C's column map, and the columns raw rows need for it
-        self._cols = (None if deep or t.col_index is None
+        # the kernels' column map, and the columns raw rows need for it
+        self._cols = (None if t.col_index is None
                       else t.col_index.to(torch.int32))
         self._raw_cols = (0 if self._cols is None or not self._cols.numel()
                           else int(self._cols.max()) + 1)
+        # the engine's kernel on raw rows, its tables and map checked once
+        self._at = in_place_launch(t, self.heap if deep else self.c_table,
+                                   self.launch, self.missing, self._cols)
         # one CUDA graph a shape on the card (ops/graphed.py), as the JAX
         # engine jits _predict_impl
         self._graph()
@@ -845,14 +907,10 @@ class FoldKernelEngine(GraphedEngine):
     def _margins_staged(self, x: torch.Tensor) -> torch.Tensor:
         return self.margins_rows(self.finish(x))
 
-    def _reads_in_place(self) -> bool:
-        """Kernel C reads the raw rows where they lie (ops/graphed.py's
-        in-place route); the deep kernel takes them staged."""
-        return self.c_table is not None
-
     def _margins_in_place(self, x: torch.Tensor) -> torch.Tensor:
+        """Both kernels read the raw rows where they lie (ops/graphed.py's
+        in-place route)."""
         if x.dim() == 2 and x.shape[1] < self._raw_cols:  # as index_select
             raise ValueError(f"rows of {x.shape[1]} columns; the forest reads "
                              f"column {self._raw_cols - 1}")
-        return fold_margins_at(x, self.tables, self.c_table, self.launch,
-                               self.missing, self._cols)
+        return self._at(x)

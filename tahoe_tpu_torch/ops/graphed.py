@@ -50,12 +50,13 @@ has one (an average, a bias, a sigmoid), runs as eager elementwise ops
 after the kernel. Rows that cannot be read in place
 (numpy, host tensors, other dtypes, strided columns) are first made a
 contiguous f32 tensor on the device. A chain captures its steps reading
-its own device copy of the rows. Kernel C's engine takes the route
-(ops/fold_kernel.py ``FoldKernelEngine`` where ``fold_plan`` picks kernel
-C, ``SPLIT_FOREST`` and ``VMEM_FOREST``): its row staging copies each
-element anyway, so the gather, the copy into the static input and the dual
-lanes were passes of their own over the same rows. The deep kernel's route
-and every other engine stage as above.
+its own device copy of the rows. The fold engine takes the route on both
+of its kernels (ops/fold_kernel.py ``FoldKernelEngine``: kernel C or the
+deep kernel, whichever ``fold_plan`` picks; ``SPLIT_FOREST`` and
+``VMEM_FOREST``): their row staging copies each element anyway, so the
+gather, the copy into the static input and the dual lanes were passes of
+their own over the same rows. Every other engine, ``DEPTH_BUCKETED``'s
+included, stages as above.
 
 Spans and counters. While a profiler records, each call on ``cuda`` marks
 host spans (utils/profiling.py ``span``) that the trace ties to the device
@@ -489,21 +490,16 @@ class GraphedEngine:
     ``threshold``), ``_stage(rows, out=None)`` (its step that reads the raw
     rows, ops/rows.py ``stage_rows``) and ``_margins_staged(x)`` (the
     margins of staged rows), and calls ``_graph()`` once it can stage; one
-    whose kernel reads raw rows itself also gives ``_reads_in_place()`` and
-    ``_margins_in_place(x)``."""
+    whose kernel reads raw rows where they lie also gives
+    ``_margins_in_place(x)``, x f32 rows with adjacent columns on the card,
+    and takes the module docstring's in-place route."""
 
     def _graph(self) -> None:
-        in_place = self._reads_in_place()
+        in_place = getattr(self, "_margins_in_place", None)
         self._predict = graphed(self._predict_staged, self.device, self._stage,
                                 self._predict_in_place if in_place else None)
         self._margins = graphed(self._margins_staged, self.device, self._stage,
-                                self._margins_in_place if in_place else None)
-
-    def _reads_in_place(self) -> bool:
-        """Whether the engine's kernel reads raw rows where they lie, as
-        ``_margins_in_place(x)``, x f32 rows with adjacent columns on the
-        card (the module docstring's in-place route)."""
-        return False
+                                in_place)
 
     def _predict_in_place(self, x: torch.Tensor) -> torch.Tensor:
         return self._finish(self._margins_in_place(x))

@@ -121,14 +121,16 @@ SPARSE_PAIR_GROUPS = 1
 # library's register query (``register_query`` and its siblings): ptxas -v
 # and cudaFuncGetAttributes on an NVIDIA H100 80GB HBM3 (700.00 W), the
 # kernels of commit 9148f4a (the deep kernel's two-lane dual instance: of
-# its heap-ordered walk); chip_smoke.py phase 2 fails when the library
-# reads otherwise. None binds a launch of today's: kernel C's batched
-# instances take more than half an SM's shared memory anyway
+# its staging of raw rows, 64 where the staged rows' copy loop took 72);
+# chip_smoke.py phase 2 fails when the library reads otherwise. None binds
+# a launch of today's: kernel C's batched instances take more than half an
+# SM's shared memory anyway, and ``deep_launch`` gives the dual form's
+# rows, at most 128 lanes, 256 a block and one thread each
 KERNEL_REGISTERS = {
     ("tahoe_fold_registers", 0, 0): 34, ("tahoe_fold_registers", 0, 1): 79,
     ("tahoe_fold_registers", 1, 0): 32, ("tahoe_fold_registers", 1, 1): 99,
     ("tahoe_fold_registers", 2, 0): 39, ("tahoe_fold_registers", 2, 1): 80,
-    ("tahoe_fold_deep_registers", 0, 1): 48, ("tahoe_fold_deep_registers", 0, 2): 72,
+    ("tahoe_fold_deep_registers", 0, 1): 48, ("tahoe_fold_deep_registers", 0, 2): 64,
     ("tahoe_fold_deep_registers", 1, 1): 48, ("tahoe_fold_deep_registers", 1, 2): 70,
     ("tahoe_fold_deep_registers", 2, 1): 48, ("tahoe_fold_deep_registers", 2, 2): 72,
     ("tahoe_rank_fold_registers", 0): 40, ("tahoe_rank_fold_registers", 1): 40,

@@ -41,18 +41,32 @@ version's within 1e-5. Each layout's reads per (row, tree) come from the
 walks (``record_depths``, ``sparse_block_walk``), each read one 32-byte
 sector.
 
-``deep``: OTHER.cu is an earlier ``csrc/fold_deep.cu`` with this tree's
-entry points, which walks ``deep_blocks`` and ``t.leaf`` in their own order
-(the root's branch the lowest bit of a path: the deep kernel before its heap
-tables), run in this tree's block. This tree's is rebuilt at
-``TAHOE_DEEP_TREES`` 4, 8 and 16, and its kernel also runs with the other
-number of lanes a row, on cup98-class (sign form, two lanes), deep15-class
-(dual and sign), deep12-class (dual), a depth-13 non-ge forest of 90
-columns, and higgs_rf16-class (100 trees of depth 16 over 28 columns,
-uniform rows, none missing) at ``--seeds`` forest seeds; every build's
-margins must equal this tree's kernel's bit for bit, on the same tables in
-either order; beside the times, the distinct sectors and lines a warp-wide
-load touches in either order (``deep_sectors``, on the first 2,048 rows).
+``deep``: OTHER.cu is an earlier ``csrc/fold_deep.cu`` that walks the same
+heap tables but takes its rows staged (``tahoe_fold_deep(x, rows, W,
+blocks, leaf, T, D, rows_per_block, lanes, smem_bytes, out)``, ``_sign``,
+``_nonge``: canonicalized rows, ``[x, -x]`` in the dual form), run in this
+tree's block, with the ``fold.cu`` and ``common.cuh`` it includes beside it.
+Like for like, on the same tables and the same raw rows (a device table,
+as the benchmark's), by device time: the walk alone, this tree's kernel on
+the raw rows where they lie (``fold_deep_at``, as the main path launches
+it: ``this``) against the other on the staged rows (``other``), and this
+one on the staged rows too (``this_staged``); and the whole predict's
+device work, this tree's launch (``predict_this``) against the staged
+route's (``predict_other``: the copy or column gather into a static input,
+``finish_rows``' sentinel test and dual lanes, the other kernel, the clone
+of its output). This tree's is also rebuilt at ``TAHOE_DEEP_TREES`` 4, 8
+and 16, and its kernel runs with the other number of lanes a row, on
+cup98-class (sign form, two lanes, 300 of 479 columns through the map),
+deep15-class (dual and sign), deep12-class (dual), a depth-13 non-ge forest
+of 90 columns (its rows' -999.0 a value, and again the forest's sentinel,
+tested in the staging), and higgs_rf16-class (100 trees of
+depth 16 over 28 columns, uniform rows, none missing) at ``--seeds`` forest
+seeds; every build's margins must equal this tree's on the raw rows bit for
+bit; beside the times, the distinct sectors and lines a warp-wide load
+touches in heap order and in ``deep_blocks``' (``deep_sectors``, on the
+first 2,048 rows). Kernel C's SASS is compared with that of the ``fold.cu``
+beside OTHER.cu (``kernel_c_sass_same_as_other``), since both kernels'
+row staging is one body in ``common.cuh``.
 
 ``c``: OTHER.cu is an earlier ``csrc/fold.cu`` (the one before the blocks: rows at an odd
 stride, (threshold, code) tables a node, every thread staging each tile;
@@ -519,6 +533,13 @@ def deep_cases(seeds: int):
                       synthetic.generate_data(ROWS, 90, missing=-999.0,
                                               missing_prob=0.05, seed=7),
                       False),
+        # the same rows with -999.0 the forest's sentinel: the missing test
+        # in the staging
+        "nonge_d13_sentinel": (synthetic.generate_forest(20, 13, 90, missing=-999.0,
+                                                         seed=1),
+                               synthetic.generate_data(ROWS, 90, missing=-999.0,
+                                                       missing_prob=0.05, seed=7),
+                               False),
     }
     higgs_rows = synthetic.generate_data(ROWS, 28, missing_prob=0.0, seed=8)
     for i in range(seeds):
@@ -527,47 +548,83 @@ def deep_cases(seeds: int):
     return out
 
 
+# the earlier deep kernel's launchers, on staged rows
+PARENT_DEEP_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
 def run_deep(other_lib, libs: dict, rounds: int, seeds: int) -> dict:
+    import numpy as np
     import torch
 
     from tahoe_tpu_torch.config import GpuLimits
     from tahoe_tpu_torch.ops._build import ptr
     from tahoe_tpu_torch.ops.fold_kernel import (
-        DEEP_KERNELS, deep_blocks, deep_launch, fold_deep_cuda,
+        DEEP_KERNELS, deep_launch, fold_deep_at, fold_deep_cuda,
         fold_margins_plain, fold_tables, heap_tables)
-    from tahoe_tpu_torch.ops.rows import canonicalize_rows
+    from tahoe_tpu_torch.ops.rows import finish_rows, stage_rows
 
     dev = torch.device("cuda", 0)
     limits = GpuLimits.for_device(dev)
     out = {}
     for case, (forest, data, ge_mode) in deep_cases(seeds).items():
         t = fold_tables(forest, device=dev, ge_mode=ge_mode)
-        x = canonicalize_rows(data, forest.missing, device=dev,
-                              col_index=t.col_index, dual=t.form == "dual")
+        dual = t.form == "dual"
+        raw = torch.as_tensor(data, device=dev)
+        cols = None if t.col_index is None else t.col_index.to(torch.int32)
+        staged_in = stage_rows(raw, device=dev, col_index=t.col_index).clone()
+        x = finish_rows(staged_in, forest.missing, dual=dual)
         R, W = x.shape
         T = t.leaf.shape[0]
         launch = deep_launch(t.width, limits)
         symbol = DEEP_KERNELS[t.form].symbol
         argtypes = DEEP_KERNELS[t.form].argtypes
-        heap, blocks = heap_tables(t), deep_blocks(t)
+        heap = heap_tables(t)
+        old = bind(other_lib, symbol, PARENT_DEEP_ARGS)
 
-        def call(fn, table, leaf, x=x, t=t, T=T, launch=launch):
-            def run():
+        def other(x=x, T=T, D=t.depth, heap=heap, launch=launch):
+            m = torch.empty(R, dtype=torch.float32, device=dev)
+            checked(old(ptr(x), R, W, ptr(heap.blocks), ptr(heap.leaf), T, D,
+                        launch.rows_per_block, launch.lanes, launch.smem_bytes,
+                        ptr(m), stream()), f"other {symbol}")
+            return m
+
+        def predict_other(staged_in=staged_in, t=t, missing=forest.missing):
+            # the staged route: the rows into the static input, then (in
+            # its graph) finish_rows and the kernel, then the clone
+            stage_rows(raw, device=dev, col_index=t.col_index, out=staged_in)
+            xs = finish_rows(staged_in, missing, dual=t.form == "dual")
+            m = torch.empty(R, dtype=torch.float32, device=dev)
+            checked(old(ptr(xs), R, W, ptr(heap.blocks), ptr(heap.leaf), T,
+                        t.depth, launch.rows_per_block, launch.lanes,
+                        launch.smem_bytes, ptr(m), stream()), f"other {symbol}")
+            return m.clone()
+
+        def build(fn, t=t, heap=heap, launch=launch, missing=forest.missing):
+            def call():
                 m = torch.empty(R, dtype=torch.float32, device=dev)
-                checked(fn(ptr(x), R, W, ptr(table), ptr(leaf), T, t.depth,
+                ld = raw.stride(0)
+                F = t.num_cols
+                checked(fn(ptr(raw), ld, None if cols is None else ptr(cols), F,
+                           float(np.float32(missing)), R, t.width,
+                           ptr(heap.blocks), ptr(heap.leaf), T, t.depth,
                            launch.rows_per_block, launch.lanes, launch.smem_bytes,
                            ptr(m), stream()), symbol)
                 return m
-            return run
+            return call
 
-        def this(lo, x=x, t=t, heap=heap):
-            return lambda: fold_deep_cuda(x, t, heap, lo)
+        def this(lo, t=t, heap=heap, missing=forest.missing):
+            return lambda: fold_deep_at(raw, t, heap, lo, missing, cols)
 
         fns = {"this": this(launch),
+               "other": other,
+               "this_staged": lambda x=x, t=t, heap=heap, lo=launch:
+                   fold_deep_cuda(x, t, heap, lo),
                f"this_lanes{3 - launch.lanes}": this(
                    launch._replace(lanes=3 - launch.lanes)),
-               "other": call(bind(other_lib, symbol, argtypes), blocks, t.leaf)}
-        fns.update({name: call(bind(lib, symbol, argtypes), heap.blocks, heap.leaf)
+               "predict_other": predict_other}
+        fns.update({name: build(bind(lib, symbol, argtypes))
                     for name, lib in libs.items()})
         want = fns["this"]()
         # the plain fold evaluates 2^D nodes a (row, tree): to depth 15 only
@@ -575,16 +632,23 @@ def run_deep(other_lib, libs: dict, rounds: int, seeds: int) -> dict:
                      if t.depth <= 15 else None)
         exact = {k: bool(torch.equal(fn(), want)) for k, fn in fns.items()}
         times = timed_rounds(fns, rounds)
+        med = {k: v["median_ms"] for k, v in times.items()}
         out[case] = {"form": t.form, "width": W, "depth": t.depth, "trees": T,
+                     "raw_columns": raw.shape[1], "mapped": cols is not None,
+                     "missing": float(forest.missing),
                      "launch": list(launch), "exact": exact,
                      "max_abs_err_vs_plain": plain_err,
                      "ok": all(exact.values()) and (plain_err is None
                                                      or plain_err <= KERNEL_ATOL),
-                     "this_over_other": (times["this"]["median_ms"]
-                                         / times["other"]["median_ms"]),
+                     # the walk: this kernel on raw rows over the other on
+                     # staged rows; the whole predict (this launch is all of
+                     # it) over the staged route's
+                     "walk_this_over_other": med["this"] / med["other"],
+                     "staged_this_over_other": med["this_staged"] / med["other"],
+                     "predict_this_over_other": med["this"] / med["predict_other"],
                      "sectors": deep_sectors(x[:WAVEFRONT_ROWS], t),
                      "times": times}
-        del t, x, heap, blocks, fns
+        del t, x, raw, heap, fns, staged_in
     return out
 
 
@@ -594,8 +658,8 @@ def run_route(rounds: int) -> dict:
     from tahoe_tpu_torch.config import GpuLimits
     from tahoe_tpu_torch.forest import synthetic
     from tahoe_tpu_torch.ops.fold_kernel import (
-        deep_blocks, deep_launch, fold_c_table, fold_deep_cuda,
-        fold_launch, fold_margins_cuda, fold_plan, fold_tables, tree_bytes)
+        deep_launch, fold_c_table, fold_deep_cuda, fold_launch,
+        fold_margins_cuda, fold_plan, fold_tables, heap_tables, tree_bytes)
     from tahoe_tpu_torch.ops.rows import canonicalize_rows
 
     dev = torch.device("cuda", 0)
@@ -618,7 +682,7 @@ def run_route(rounds: int) -> dict:
         for k in ("c_half", "c_whole"):
             if launches[k] == launches["c"]:
                 launches[k] = None
-        blocks = deep_blocks(t)
+        blocks = heap_tables(t)
         table = fold_c_table(t)
         fns = {"deep": lambda x=x, t=t, b=blocks, d=launches["deep"]:
                fold_deep_cuda(x, t, b, d)}
@@ -922,6 +986,8 @@ def main() -> int:
         builds["other"] = (args.other.resolve(), [])
         libs = build_alone(builds)
         res = run_deep(libs.pop("other"), libs, args.rounds or 5, args.seeds)
+        res["kernel_c_sass_same_as_other"] = sass_same(
+            _build.CSRC / "fold.cu", args.other.resolve().parent / "fold.cu")
     elif args.mode == "c":
         from tahoe_tpu_torch.ops.fold_kernel import C_TREES_IN_FLIGHT
 
@@ -942,11 +1008,13 @@ def main() -> int:
         res = run_int8(libs["other"], args.rounds or 5)
     else:
         res = run_route(args.rounds or 5)
+    sass = {n: v for n, v in res.items() if n.endswith("sass_same_as_other")}
     if args.mode in ("a", "b"):
-        ok = all(all(c["exact"].values()) for n, c in res.items()
-                 if n != "sass_same_as_other")
+        ok = all(all(c["exact"].values()) for n, c in res.items() if n not in sass)
     else:
-        ok = all(c["ok"] for c in res.values())
+        ok = all(c["ok"] for n, c in res.items() if n not in sass)
+    if "kernel_c_sass_same_as_other" in sass:
+        ok = ok and all(sass["kernel_c_sass_same_as_other"].values())
     print(json.dumps({"mode": args.mode, "card": card_line(),
                       "torch": torch.__version__,
                       "other": str(args.other) if args.other else None,

@@ -34,6 +34,7 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     deep_block_walk,
     deep_launch,
     fold_c_table,
+    fold_deep_at,
     fold_deep_cuda,
     fold_launch,
     fold_margins_at,
@@ -379,6 +380,104 @@ def test_kernel_c_on_raw_rows(dev, case, pad):
         kernel.launch(dev, ptr(x), cols, None, t.num_cols + 1, float("nan"), 8,
                       t.width, ptr(eng.c_table), t.leaf.shape[0], t.depth,
                       *eng.launch, ptr(got))
+
+
+# the deep kernel on raw rows, one forest a form, each with a column map:
+# (trees, depth, columns, live, ge_mode); the sign form's 300 live columns
+# leave the deep kernel 192 rows a block, two threads a row
+DEEP_RAW_FORMS = {"dual": (10, 9, 100, 30, True), "sign": (12, 9, 479, 300, True),
+                  "nonge": (10, 9, 150, 60, False)}
+DEEP_RAW_MISSING = {"nan": float("nan"), "sentinel": -999.0}
+
+
+def _deep_raw_case(dev, form, missing, depth=None, trees=None):
+    """The deep kernel's tables for ``form`` (a column map: more columns
+    than live features, NaN or sentinel missing), its block, and 4,999 raw
+    rows on the card (a last block part full) with -0.0, inf, a denormal and
+    exact threshold hits."""
+    n, d, cols, live, ge_mode = DEEP_RAW_FORMS[form]
+    forest = compiler.hot_child_swap(_wide_forest(
+        trees or n, depth or d, cols, live, seed=d + live, leaf_prob=0.05,
+        missing=DEEP_RAW_MISSING[missing]))
+    t = fold_tables(forest, device=dev, ge_mode=ge_mode)
+    assert t.form == form and t.col_index is not None
+    data = synthetic.generate_data(4999, cols, missing=forest.missing,
+                                   missing_prob=0.05, seed=live)
+    data[0, 0], data[1, 1], data[2, 2] = -0.0, np.inf, 1e-40
+    data[3, forest.fids[0, :7]] = forest.values[0, :7]
+    return forest, t, deep_launch(t.width, GpuLimits.for_device(dev)), data
+
+
+@pytest.mark.parametrize("pad", [0, 3], ids=["ld_cols", "ld_wider"])
+@pytest.mark.parametrize("missing", sorted(DEEP_RAW_MISSING))
+@pytest.mark.parametrize("mapped", [True, False], ids=["map", "no_map"])
+@pytest.mark.parametrize("form", sorted(DEEP_RAW_FORMS))
+def test_deep_kernel_staging_of_raw_rows(dev, form, mapped, missing, pad):
+    """``fold_deep_at``, the deep kernel reading raw rows where they lie
+    (the column map, a row stride, the missing test and the dual lanes in
+    its staging), gives ``fold_deep_cuda``'s margins on
+    ``finish_rows(stage_rows(rows))`` bit for bit, at one and two threads a
+    row, and the walk of its heap tables on the plain version of its
+    staging. Without a map the raw rows are the used columns already."""
+    forest, t, launch, data = _deep_raw_case(dev, form, missing)
+    heap = heap_tables(t)
+    staged = canonicalize_rows(data, forest.missing, device=dev,
+                               col_index=t.col_index, dual=form == "dual")
+    raw, cols = torch.as_tensor(data, device=dev), t.col_index.to(torch.int32)
+    if not mapped:
+        raw, cols = raw[:, t.col_index].contiguous(), None
+    R, C = raw.shape
+    buf = torch.full((R, C + pad), 5.0, device=dev)
+    buf[:, :C] = raw
+    x = buf[:, :C]
+    walk = deep_block_walk(fold_rows_plain(buf.reshape(-1), R, C + pad, cols,
+                                           t.num_cols, forest.missing,
+                                           form == "dual"), t, heap)
+    kernel = DEEP_KERNELS[form]
+    for lanes in (launch.lanes, 3 - launch.lanes):
+        lo = launch._replace(lanes=lanes)
+        want = fold_deep_cuda(staged, t, heap, lo)
+        before = kernel.launches
+        got = fold_deep_at(x, t, heap, lo, forest.missing, cols)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(got, want), lanes
+        assert torch.equal(got, walk), lanes
+    assert launch.lanes == (2 if form == "sign" else 1)
+
+
+def test_deep_kernel_raw_rows_at_depth_16(dev):
+    """higgs_rf16-class rows on the deep kernel's dual form at depth 16:
+    28 columns read in place (ld = F, no map, NaN missing), 65,537 rows,
+    bit-equal to the staged call; and what the launcher refuses: rows it
+    cannot read in place, no rows, a width the form does not allow, a
+    block of partial warps."""
+    forest = synthetic.generate_forest(4, 16, 28, seed=16)
+    t = fold_tables(forest, device=dev)
+    assert t.form == "dual" and t.col_index is None and t.depth == 16
+    heap = heap_tables(t)
+    launch = deep_launch(t.width, GpuLimits.for_device(dev))
+    assert launch.lanes == 1
+    data = _data(65537, 28, 16)
+    raw = torch.as_tensor(data, device=dev)
+    want = fold_deep_cuda(canonicalize_rows(data, forest.missing, device=dev,
+                                            dual=True), t, heap, launch)
+    got = fold_deep_at(raw, t, heap, launch, forest.missing, None)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[:4096], deep_block_walk(
+        canonicalize_rows(data[:4096], forest.missing, device=dev, dual=True),
+        t, heap))
+    with pytest.raises(ValueError, match="in place"):
+        fold_deep_at(raw.t().contiguous().t(), t, heap, launch, forest.missing, None)
+    args = (t.leaf.shape[0], t.depth)
+    for x, F, rows_per_block in ((None, 28, launch.rows_per_block),
+                                 (ptr(raw), 29, launch.rows_per_block),
+                                 (ptr(raw), 28, 48)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            FOLD_DEEP.launch(dev, x, 28, None, F, float("nan"), 8, t.width,
+                             ptr(heap.blocks), ptr(heap.leaf), *args, rows_per_block,
+                             1, launch.smem_bytes, ptr(got))
 
 
 @pytest.mark.parametrize("depth,cols", [(6, 90), (13, 40)])
@@ -729,7 +828,7 @@ def test_redesigned_kernels_at_row_counts(dev, rows):
         # one thread a row and two, each in a partial last block
         for lanes in (1, 2):
             launch = deep_launch(eng.tables.width, GpuLimits.for_device(dev))._replace(
-                rows_per_block=48, lanes=lanes)
+                rows_per_block=96, lanes=lanes)
             got = fold_deep_cuda(x, eng.tables, heap, launch)
             torch.cuda.synchronize()
             assert got.shape == (rows,)
@@ -767,7 +866,7 @@ def test_deep_kernel_past_depth_15(dev, depth):
             want = deep_block_walk(x, t, eng.heap)
             for lanes in (1, 2):
                 launch = deep_launch(t.width, limits)._replace(
-                    rows_per_block=48, lanes=lanes)
+                    rows_per_block=96, lanes=lanes)
                 before = eng.kernel.launches
                 got = fold_deep_cuda(x, t, eng.heap, launch)
                 torch.cuda.synchronize()
@@ -960,7 +1059,7 @@ def test_fold_deep_nonge_kernel(dev, depth):
     want = fold_margins_plain(x, t)
     for lanes in (1, 2):
         launch = deep_launch(t.width, GpuLimits.for_device(dev))._replace(
-            rows_per_block=48, lanes=lanes)
+            rows_per_block=96, lanes=lanes)
         before = FOLD_DEEP_NONGE.launches
         got = fold_deep_cuda(x, t, heap, launch)
         torch.cuda.synchronize()

@@ -5,6 +5,7 @@ subtree-split forms (interpret mode) and the numpy oracle.
 Margins are held to the JAX engine within 1e-5 (the port sums leaves in f64,
 the TPU kernel in f32 tiles) and to the oracle within ORACLE_ATOL.
 """
+import ctypes
 import dataclasses
 import functools
 import types
@@ -19,6 +20,7 @@ from tahoe_tpu.ops import oracle
 from tahoe_tpu.ops.fold_kernel import FoldKernelEngine as JaxFoldKernelEngine
 from tahoe_tpu_torch.config import GpuLimits
 from tahoe_tpu_torch.forest.spec import from_arrays
+from tahoe_tpu_torch.ops import fold_kernel
 from tahoe_tpu_torch.ops.fold_kernel import (
     BLOCK_NONGE_FID,
     C_BARRIER_BYTES,
@@ -46,6 +48,7 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     deep_blocks,
     deep_groups,
     fold_c_table,
+    fold_deep_at,
     fold_deep_cuda,
     fold_launch,
     fold_margins_plain,
@@ -55,11 +58,13 @@ from tahoe_tpu_torch.ops.fold_kernel import (
     fold_table_bytes,
     fold_tables,
     fold_wavefronts,
+    deep_launch,
     heap_path,
     heap_tables,
     level_leaf,
     tree_bytes,
 )
+from tahoe_tpu_torch.ops.graphed import row_stride
 from tahoe_tpu_torch.ops.transform import apply_output_transform
 from tahoe_tpu_torch.scripts.kernel_ab import deep_sectors
 
@@ -255,6 +260,129 @@ def test_kernel_c_staging_of_raw_rows(form, mapped, missing, pad):
     np.testing.assert_allclose(pred, jax_pred, atol=JAX_ATOL, rtol=0)
     np.testing.assert_allclose(pred, oracle.predict(forest, data),
                                atol=ORACLE_ATOL, rtol=0)
+
+
+def _deep_engine(monkeypatch, form, missing, plain=False):
+    """``_raw_case``'s forest in an engine sent to the deep kernel (its
+    forms' depths are kernel C's by ``fold_plan``). With ``plain``, the
+    engine's launch on raw rows (``in_place_launch``) is its plain version,
+    which also checks that the engine hands it its own tables, heap
+    tables, block, sentinel and int32 map."""
+    forest, data, jax_pred = _raw_case(form, missing)
+    monkeypatch.setattr(fold_kernel, "fold_plan",
+                        lambda form, width, *a, **k: deep_launch(width, GpuLimits()))
+
+    def plain_in_place(t, heap, launch, missing_, cols):
+        def at(x):
+            assert t is eng.tables and heap is eng.heap and launch is eng.launch
+            assert (np.float32(missing_).tobytes()
+                    == np.float32(forest.missing).tobytes())
+            assert cols.dtype == torch.int32 and torch.equal(cols.long(), t.col_index)
+            rows = fold_rows_plain(x.reshape(-1), x.shape[0], row_stride(x, CPU),
+                                   cols, t.num_cols, missing_, t.form == "dual")
+            return deep_block_walk(rows, t, heap)
+        return at
+
+    if plain:
+        monkeypatch.setattr(fold_kernel, "in_place_launch", plain_in_place)
+    eng = FoldKernelEngine(_port(forest), device=CPU, ge_mode=RAW_FORMS[form][4])
+    assert isinstance(eng.launch, DeepLaunch) and eng.heap is not None
+    return forest, data, jax_pred, eng
+
+
+@pytest.mark.parametrize("missing", sorted(RAW_MISSING))
+@pytest.mark.parametrize("form", sorted(RAW_FORMS))
+def test_deep_engine_reads_raw_rows_in_place(monkeypatch, form, missing):
+    """The deep kernel's engine offers the in-place route and launches
+    the deep kernel on the raw rows with its column map and sentinel: on
+    the plain version of the staging, its predictions equal those of the
+    staged rows bit for bit and hold to the JAX engine and the oracle."""
+    forest, data, jax_pred, eng = _deep_engine(monkeypatch, form, missing,
+                                               plain=True)
+    assert eng._predict.in_place is not None and eng._margins.in_place is not None
+    got = eng._predict_in_place(torch.as_tensor(data))
+    want = eng._finish(deep_block_walk(eng.canonicalize(data), eng.tables, eng.heap))
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(), jax_pred, atol=JAX_ATOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), oracle.predict(forest, data),
+                               atol=ORACLE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("what", ["strided", "f64", "narrow", "map_shape",
+                                  "map_dtype", "blocks", "engine_narrow"])
+def test_deep_kernel_refuses_raw_rows_it_cannot_read(monkeypatch, what):
+    """``fold_deep_at`` refuses, before any launch, rows it cannot read in
+    place (strided columns, f64), rows without a map that are not the
+    features' width, a map of another length or type, and ``deep_blocks``
+    in place of the heap tables; the engine refuses rows narrower than the
+    columns its map reads."""
+    forest, data, _, eng = _deep_engine(monkeypatch, "dual", "nan")
+    t, heap, launch = eng.tables, eng.heap, eng.launch
+    raw, cols = torch.as_tensor(data), eng._cols
+    used = raw[:, t.col_index].contiguous()
+    call, err, match = {
+        "strided": ((raw.t().contiguous().t(), heap, cols), ValueError, "in place"),
+        "f64": ((raw.double(), heap, cols), ValueError, "in place"),
+        "narrow": ((used[:, :-1], heap, None), ValueError, "wide"),
+        "map_shape": ((raw, heap, cols[:-1].contiguous()), ValueError, "column map"),
+        "map_dtype": ((raw, heap, t.col_index), TypeError, "int32"),
+        "blocks": ((used, deep_blocks(t), None), TypeError, "heap_tables"),
+        "engine_narrow": (None, ValueError, "reads column"),
+    }[what]
+    with pytest.raises(err, match=match):
+        if call is None:
+            eng._margins_in_place(raw[:, :int(t.col_index.max())])
+        else:
+            x, tables, map_ = call
+            fold_deep_at(x, t, tables, launch, forest.missing, map_)
+
+
+class _LaunchRecorder:
+    """A stand-in of a kernel's ``CudaKernel``: records each launch's
+    arguments, launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def launch(self, dev, *args):
+        self.calls.append((dev, args))
+
+
+@pytest.mark.parametrize("kernel", ["kernel_c", "deep"])
+def test_the_engine_checks_its_tables_once(monkeypatch, kernel):
+    """The fold engine checks its tables, block and column map once, when
+    it is built: a call on raw rows checks only the rows (no
+    ``check_operand``), and launches the engine's kernel on the rows'
+    pointer and stride, the map, the columns read and the sentinel, then
+    the tables' arguments (csrc TAHOE_FOLD_EXPORT, TAHOE_FOLD_DEEP_EXPORT)."""
+    if kernel == "deep":
+        forest, data, _, eng = _deep_engine(monkeypatch, "dual", "sentinel")
+        tables = (eng.heap.blocks.data_ptr(), eng.heap.leaf.data_ptr())
+        block = (eng.launch.rows_per_block, eng.launch.lanes, eng.launch.smem_bytes)
+    else:
+        forest, data, _ = _raw_case("dual", "sentinel")
+        eng = FoldKernelEngine(_port(forest), device=CPU)
+        assert isinstance(eng.launch, FoldLaunch)
+        tables = (eng.c_table.data_ptr(),)
+        block = (eng.launch.rows_per_block, eng.launch.tile_trees,
+                 eng.launch.smem_bytes)
+    t = eng.tables
+    recorder = eng._at.kernel = _LaunchRecorder()
+    checked = []
+    monkeypatch.setattr(fold_kernel, "check_operand",
+                        lambda *a, **k: checked.append(a[1]))
+    buf = torch.zeros(40, data.shape[1] + 3)
+    x = buf[:, :data.shape[1]]
+    x.copy_(torch.as_tensor(data))
+    eng._margins_in_place(x)
+    assert checked == []
+    (dev, args), = recorder.calls
+    assert dev == CPU
+    values = [a.value if isinstance(a, ctypes.c_void_p) else a for a in args]
+    assert values[:-1] == [x.data_ptr(), data.shape[1] + 3, eng._cols.data_ptr(),
+                           t.num_cols, -999.0, 40, t.width, *tables,
+                           t.leaf.shape[0], t.depth, *block]
+    assert values[-1]  # the margins' pointer
 
 
 # (trees, depth, cols, leaf_prob, def_left, hot_swap, missing)

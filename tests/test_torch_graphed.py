@@ -115,16 +115,17 @@ def test_predict_is_predict_impl_and_the_jax_forest(strategy):
                                f.predict_oracle(data), atol=ORACLE_ATOL, rtol=0)
 
 
-# the strategies whose engine runs kernel C on _forest(), which reads raw
-# rows in place on the card
+# the strategies whose engine is FoldKernelEngine, which reads raw rows in
+# place on the card on either of its kernels
 IN_PLACE = {Strategy.SPLIT_FOREST, Strategy.VMEM_FOREST}
 
 
 @pytest.mark.parametrize("strategy", list(Strategy), ids=lambda s: s.name)
 def test_only_kernel_c_takes_the_in_place_route(strategy):
-    """FoldKernelEngine offers the in-place route where fold_plan picks
-    kernel C; every other engine stages. A graph's function on the staged
-    rows is the eager call either way."""
+    """FoldKernelEngine offers the in-place route (on _forest() kernel C;
+    the deep kernel's, test_the_deep_kernel_route_stages); every other
+    engine, DEPTH_BUCKETED's fold buckets included, stages. A graph's
+    function on the staged rows is the eager call either way."""
     eng = Forest(_forest(), device="cpu").engine(strategy)
     for method in ("predict", "margins"):
         g = getattr(eng, f"_{method}")
@@ -134,14 +135,18 @@ def test_only_kernel_c_takes_the_in_place_route(strategy):
 
 
 def test_the_deep_kernel_route_stages():
-    """Past depth 14 SPLIT_FOREST runs the deep kernel, which takes its
-    rows staged."""
+    """Past depth 14 SPLIT_FOREST runs the deep kernel, which no longer
+    takes its rows staged: like kernel C's, its engine offers the in-place
+    route, its own ``_predict_in_place`` and ``_margins_in_place``."""
     from tahoe_tpu_torch.ops.fold_kernel import DeepLaunch
 
     spec = synthetic.generate_forest(2, 15, 9, seed=4)
     eng = Forest(spec, device="cpu").engine(Strategy.SPLIT_FOREST)
-    assert isinstance(eng.launch, DeepLaunch)
-    assert eng._predict.in_place is None and eng._margins.in_place is None
+    assert isinstance(eng.launch, DeepLaunch) and eng.heap is not None
+    for method in ("predict", "margins"):
+        g = getattr(eng, f"_{method}")
+        assert g.in_place is not None, method
+        assert g.in_place.__func__ is getattr(type(eng), f"_{method}_in_place")
 
 
 def test_row_stride_reads_only_f32_rows_with_adjacent_columns():
@@ -510,18 +515,11 @@ def test_the_in_place_route_takes_any_rows(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["depth_bucketed", "deep_split"])
+@pytest.mark.parametrize("case", ["depth_bucketed"])
 def test_staged_routes_make_no_direct_call(dev, case):
-    """DEPTH_BUCKETED and the deep kernel's SPLIT_FOREST keep the staged
-    route: every replay stages its rows, none is read in place."""
-    from tahoe_tpu_torch.ops.fold_kernel import DeepLaunch
-
-    if case == "deep_split":
-        spec = synthetic.generate_forest(4, 16, 18, missing=-999.0, seed=6)
-        eng = Forest(spec, device=dev).engine(Strategy.SPLIT_FOREST)
-        assert isinstance(eng.launch, DeepLaunch)
-    else:
-        eng = Forest(_card_forest(), device=dev).engine(Strategy.DEPTH_BUCKETED)
+    """DEPTH_BUCKETED keeps the staged route: every replay stages its rows,
+    none is read in place."""
+    eng = Forest(_card_forest(), device=dev).engine(Strategy.DEPTH_BUCKETED)
     assert eng._predict.in_place is None
     x = torch.as_tensor(_card_rows(640, 16), device=dev)
     want = eng._predict_impl(x)
@@ -532,3 +530,28 @@ def test_staged_routes_make_no_direct_call(dev, case):
     assert after["direct_calls"] == before["direct_calls"]
     assert (after["staged_bytes"] - before["staged_bytes"]
             == 2 * eng._predict.graphs[(640, 18)].static_in.nbytes)
+
+
+@pytest.mark.cuda
+def test_the_deep_kernel_route_reads_in_place(dev):
+    """The deep kernel's SPLIT_FOREST (depth 16, a finite sentinel) takes
+    the in-place route: three predicts are three direct calls, each served
+    as a replay, with no graph captured and nothing staged, and each equals
+    the staged eager call bit for bit."""
+    from tahoe_tpu_torch.ops.fold_kernel import DeepLaunch
+
+    spec = synthetic.generate_forest(4, 16, 18, missing=-999.0, seed=6)
+    eng = Forest(spec, device=dev).engine(Strategy.SPLIT_FOREST)
+    assert isinstance(eng.launch, DeepLaunch)
+    assert eng._predict.in_place is not None
+    x = torch.as_tensor(_card_rows(640, 16), device=dev)
+    want = eng._predict_impl(x)
+    before = graphed.counters()
+    for _ in range(3):
+        assert torch.equal(eng.predict(x), want)
+    after = graphed.counters()
+    assert after["direct_calls"] - before["direct_calls"] == 3
+    assert after["replays"] - before["replays"] == 3
+    assert after["captures"] == before["captures"]
+    assert after["staged_bytes"] == before["staged_bytes"]
+    assert eng._predict.graphs == {}

@@ -6,7 +6,8 @@ over 28 columns, AVG out.
 L2; ``Forest.predict`` under ``SPLIT_FOREST`` is held to the benchmark's
 plain reference (portbench/reference.py). On the CPU the engine runs the
 deep kernel's plain version on a few rows; the ``cuda`` case runs the
-kernel on a batch of the benchmark's size under the program's own pick.
+kernel on a batch of the benchmark's size under the program's own pick,
+on the rows where they lie (ops/graphed.py's in-place route).
 The file imports no JAX, so the card case also runs where there is none:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_higgs_rf16.py
@@ -21,6 +22,7 @@ from portbench import drive, reference
 from portbench.generators import forest_of, rows_of
 from tahoe_tpu_torch import Forest, GpuLimits, Strategy
 from tahoe_tpu_torch.forest.spec import from_arrays
+from tahoe_tpu_torch.ops import graphed
 from tahoe_tpu_torch.ops.fold_kernel import (
     DeepLaunch,
     deep_block_walk,
@@ -88,14 +90,23 @@ def test_the_pick_matches_the_reference_on_the_card(forest):
     strategy, _ = choose_strategy(spec, BATCH_ROWS)
     prog = Forest(spec, device=dev)
     x = torch.from_numpy(rows_of(CONFIG, BATCH_ROWS, [3, drive.ROWS_STREAM])).to(dev)
-    prog.predict(x, strategy)  # the capture
-    got = prog.predict(x, strategy)  # a replay
+    # the pick's engine reads the rows in place: each call one direct
+    # launch of the deep kernel, no graph captured, nothing staged
+    eng = prog.engine(strategy)
+    assert eng._predict.in_place is not None
+    prog.predict(x, strategy)
+    before = graphed.counters()
+    got = prog.predict(x, strategy)
+    after = graphed.counters()
+    assert after["direct_calls"] - before["direct_calls"] == 1
+    assert after["captures"] == before["captures"]
+    assert after["staged_bytes"] == before["staged_bytes"]
+    assert eng._predict.graphs == {}
     want, _ = reference.predict(forest, x)
     gap = drive.max_gap(got.cpu().numpy(), want.cpu().numpy())
     assert gap <= CONFIG["max_abs_gap"], (strategy.name, gap)
     # the deep kernel reads its heap-ordered tables: the predictions are the
     # walk's leaves summed in tree order, AVG out, bit for bit
-    eng = prog.engine(strategy)
     assert eng.heap is not None and eng.tables.leaf is eng.heap.leaf
     walk = deep_block_walk(eng.canonicalize(x), eng.tables, eng.heap)
     assert torch.equal(got, apply_output_transform(walk, eng.num_trees, eng.output,
